@@ -8,22 +8,39 @@ Phases, each fatal on failure:
 1. device: require a card, print its name and power limit, turn TF32 off;
 2. build: compile every hand-written kernel from paddle_tpu_torch/kernels/
    csrc with nvcc, one process per source, all started together;
-3. parity: hold each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, in fp32 and bf16;
-4. main path: build the BERT-base classifier of bench_serving.py's
+3. parity: hold each kernel against its plain PyTorch version on the card,
+   at the serving path's shapes in test mode, and at the training path's
+   shapes with training dropout (both draw the same Philox mask), forward
+   and backward, in fp32 and bf16; check the kernels' keep mask against
+   the plain one, its keep rate and its independence from the tiling;
+4. serving path: build the BERT-base classifier of bench_serving.py's
    bert_classify mix (full width, random weights from a seed), freeze it,
    serve requests through paddle_tpu_torch.serving.Server, check every
    answer against a direct run on the card and against the same frozen
    program run by the port on the CPU, and check from the launch counters
-   that every served batch went through both kernels;
-5. times: the server's requests/s, p50 and p99 latency at each bucket
-   (median and spread of several windows of at least 1000 requests), and
-   each kernel beside its plain version, its bound and one PyTorch call.
+   that every served batch went through both forward kernels; then the
+   server's requests/s, p50 and p99 latency at each bucket (median and
+   spread of several windows of at least 1000 requests);
+5. training, reduced depth: bench.py's bench_bert program at BERT-base
+   width with 2 layers, B=2, S=128, no dropout, Adam at a constant lr,
+   two steps on the card and on the CPU from one state: loss, every
+   @GRAD and the parameters after Adam agree;
+6. training path: bench_bert's program at BertConfig.base(), B=32, S=512,
+   P=2457, dropout 0.1, Adam under linear warmup over polynomial decay,
+   fp32: 3 warm-up and 5 timed steps through Executor.run, then one
+   under torch.profiler; every loss finite, the weights held at lr 0 and
+   moved after, the step counter advanced, and each step launched 12
+   attention forward, 12 + 12 attention backward, 24 residual forward
+   and 24 residual backward kernels; step time, tokens/s, peak memory,
+   and the profiled step's card busy time by kind of kernel, idle share
+   and host-device synchronisations;
+7. kernel times: each kernel beside its plain version, its bound and one
+   PyTorch call, at the serving and at the training shapes.
 
 The line before the last is the card's name and power limit; the line
-before that is a JSON object with one entry per kernel. The last line is
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
-there is no CUDA card or any phase fails.
+before that is a JSON object with one entry per kernel and path. The last
+line is {"ok": true, "device": {...}}. Exits non-zero, printing no
+result, when there is no CUDA card or any phase fails.
 """
 
 from __future__ import annotations
@@ -62,7 +79,30 @@ TOL = {
                   torch.bfloat16: (5e-6, 2 ** -7)},
     "residual": {torch.float32: (5e-6, 0.0),
                  torch.bfloat16: (5e-6, 2 ** -7)},
+    # backward: dq, dk, dv and dbias are sums over up to S=512 rows of
+    # terms of magnitude ~1, and dg, dc over 2048 rows, in other orders
+    "attention_bwd": {torch.float32: (5e-5, 0.0),
+                      torch.bfloat16: (5e-5, 2 ** -7)},
+    "residual_bwd": {torch.float32: (5e-5, 0.0),
+                     torch.bfloat16: (5e-5, 2 ** -7)},
+    "residual_sums": {torch.float32: (1e-3, 1e-5),
+                      torch.bfloat16: (1e-3, 1e-5)},
 }
+# training parity (phases 3 and 6): BERT's dropout, seed words of a mask
+TRAIN_RATE = 0.1
+MASK_SEED = (0x2024ABCD, 0x5EED0001)
+# reduced-depth card vs CPU training (phase 5), fp32 both, sums in other
+# orders: loss rtol 1e-5; every @GRAD atol 1e-5 + rtol 1e-3; moments atol
+# 1e-7 + rtol 1e-3; beta powers and lr rtol 1e-6. Each parameter's update
+# over the two steps (end - start) within 1e-3 of (|update| + lr): a step
+# moves a weight by about lr, so its error scales with lr even where the
+# second step undoes the first. Exempt are the elements whose card and CPU
+# gradients differ by more than 1e-4 of the CPU's at a step: Adam's step
+# follows that disagreement, and near a zero gradient (a first-step
+# gradient of ~1e-8 against Adam's epsilon of 1e-8) its size and sign.
+# They are counted and must stay under 2% of the elements
+SMALL_LR = 1e-3
+UPDATE_RTOL, UPDATE_AGREE, UPDATE_EXEMPT = 1e-3, 1e-4, 0.02
 # served / direct / CPU probabilities: 12 fp32 layers summed in other orders
 PROB_ATOL = 1e-4
 
@@ -74,6 +114,27 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def counters(fa, fr, sp):
+    """{kernel: (wrapper, attribute)} of every launch counter."""
+    return {
+        "attention_fwd": (fa.fused_attention_qkv, "launches"),
+        "attention_bwd_dq": (fa.fused_attention_qkv_bwd, "launches_dq"),
+        "attention_bwd_dkv": (fa.fused_attention_qkv_bwd, "launches_dkv"),
+        "residual_fwd": (fr.fused_dropout_add_ln_fwd, "launches"),
+        "residual_bwd": (fr.fused_dropout_add_ln_bwd, "launches"),
+        "sum_partials": (sp.sum_partials, "launches"),
+    }
+
+
+def reset_counts(kc):
+    for obj, attr in kc.values():
+        setattr(obj, attr, 0)
+
+
+def read_counts(kc):
+    return {name: getattr(obj, attr) for name, (obj, attr) in kc.items()}
 
 
 def gpu_line():
@@ -104,6 +165,33 @@ def cuda_ms(fn, iters=40, reps=7):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def traced_ms(fn, frags, iters=10):
+    """{fragment: median device time in ms of the kernel whose name holds
+    it} over iters + 2 calls of fn traced by torch.profiler (after 3
+    untraced calls). Each call launches each such kernel once; the trace
+    may miss a launch at its start (seen on the H100), so it must hold
+    at least iters of each."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters + 2):
+            fn()
+        torch.cuda.synchronize()
+    times = {f: [] for f in frags}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for f in frags:
+                if f in ev.name:
+                    times[f].append(ev.device_time / 1e3)
+    for f, ts in times.items():
+        check(iters <= len(ts) <= iters + 2,
+              f"traced {len(ts)} launches of {f} in {iters + 2} calls")
+    return {f: statistics.median(ts) for f, ts in times.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +298,87 @@ def parity(fa, fr):
     return main_err
 
 
+def train_parity(fa, fr, pm):
+    """The kernels against their plain versions with training dropout (one
+    Philox mask on both sides), forward and backward, at the training
+    path's shapes; the kernels' mask against the plain one, its keep rate
+    and its independence from the tiling. Returns the fp32 error at the
+    main path's case of each kernel."""
+    print("== parity, training: kernel vs plain version on the card, "
+          f"dropout {TRAIN_RATE} in training")
+    err = {}
+    kw0 = dict(dropout_rate=TRAIN_RATE, is_test=False, seed=MASK_SEED)
+    for B in (1, 4):
+        for S in (128, 512):
+            for dtype in (torch.float32, torch.bfloat16):
+                for causal in (False, True):
+                    qkv, bias = attn_inputs(B, 12, 64, dtype, SEED + S + B,
+                                            S=S)
+                    g = torch.Generator(device="cuda").manual_seed(SEED)
+                    do = torch.randn(B, S, 768, generator=g,
+                                     device="cuda").to(dtype)
+                    kw = dict(kw0, scale=0.125, causal=causal)
+                    tag = (f"B={B} S={S} H=12 D=64 {str(dtype)[6:]} "
+                           f"causal={causal}")
+                    e_f = compare(fa.fused_attention_qkv(qkv, 12, bias, **kw),
+                                  fa.reference_qkv(qkv, 12, bias, **kw),
+                                  "attention", dtype, f"attention fwd {tag}")
+                    dqkv, dbias = fa.fused_attention_qkv_bwd(
+                        qkv, 12, bias, do, want_dbias=True, **kw)
+                    want_q, want_b = fa.reference_qkv_bwd(qkv, 12, bias, do,
+                                                          **kw)
+                    e_q = compare(dqkv, want_q, "attention_bwd", dtype,
+                                  f"attention bwd dqkv {tag}")
+                    compare(dbias, want_b, "attention_bwd", torch.float32,
+                            f"attention bwd dbias {tag}")
+                    if (B, S, dtype, causal) == (4, 512, torch.float32,
+                                                 False):
+                        err["attention_fwd"] = e_f
+                        err["attention_bwd"] = e_q
+    R, N = 2048, 768
+    for dtype in (torch.float32, torch.bfloat16):
+        for upscale in (False, True):
+            x, y, gam, beta = res_inputs(R, N, dtype, SEED + 7)
+            do = torch.randn(R, N, device="cuda").to(dtype)
+            kw = dict(kw0, rate=kw0["dropout_rate"], upscale=upscale,
+                      eps=1e-5)
+            del kw["dropout_rate"]
+            tag = f"R={R} N={N} {str(dtype)[6:]} upscale={upscale}"
+            e_f = compare(fr.fused_dropout_add_ln_fwd(x, y, gam, beta, **kw),
+                          fr.reference_fwd(x, y, gam, beta, **kw),
+                          "residual", dtype, f"residual fwd {tag}")
+            got = fr.fused_dropout_add_ln_bwd(x, y, gam, do, **kw)
+            want = fr.reference_bwd(x, y, gam, do, **kw)
+            e_b = max(compare(a, b, "residual_bwd", dtype,
+                              f"residual bwd {n} {tag}")
+                      for n, a, b in zip(("dx", "dy"), got[:2], want[:2]))
+            for n, a, b in zip(("dg", "dc"), got[2:], want[2:]):
+                compare(a, b, "residual_sums", dtype,
+                        f"residual bwd {n} {tag}")
+            if (dtype, upscale) == (torch.float32, False):
+                err["residual_fwd"], err["residual_bwd"] = e_f, e_b
+                dy = got[1]
+    # the kernel's mask is the plain mask: dy is zero exactly where dropped
+    whole = pm.keep_mask(MASK_SEED, TRAIN_RATE, R, N, device="cuda")
+    check(torch.equal(dy != 0, whole),
+          "the residual kernel's mask differs from the plain mask")
+    p = 1 - pm.threshold(TRAIN_RATE) / 65536
+    rate = whole.float().mean().item()
+    sigma = math.sqrt(p * (1 - p) / whole.numel())
+    print(f"keep rate over {whole.numel()} elements: {rate:.6f} "
+          f"(expected {p:.6f}, sigma {sigma:.2e})")
+    check(abs(rate - p) < 5 * sigma, "keep rate beyond 5 sigma of 1-p")
+    full = pm.keep_mask(MASK_SEED, TRAIN_RATE, 512, 512, lead=(4, 12),
+                        device="cuda")
+    for r0, c0 in ((0, 0), (64, 448), (448, 64), (200, 333)):
+        tile = pm.keep_mask(MASK_SEED, TRAIN_RATE, 64, 64, lead=(4, 12),
+                            row0=r0, col0=c0, device="cuda")
+        check(torch.equal(tile, full[..., r0:r0 + 64, c0:c0 + 64]),
+              f"mask tile at ({r0}, {c0}) differs from the whole mask")
+    print("kernel mask == plain mask; tiles == slices of the whole mask")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # main path: BERT-base classifier behind the Server
 # ---------------------------------------------------------------------------
@@ -243,12 +412,12 @@ def sample(rng, cfg, length):
     return {"ids": ids * (mask > 0), "types": types, "mask": mask}
 
 
-def main_path(fluid, layers, fa, fr):
+def main_path(fluid, layers, kc):
     from paddle_tpu_torch import convert
     from paddle_tpu_torch.models.bert import BertConfig
     from paddle_tpu_torch.serving import EndpointConfig, Server
 
-    print("== main path: BERT-base classifier through serving.Server")
+    print("== serving path: BERT-base classifier through serving.Server")
     cfg = BertConfig.base()
     startup, frozen = build_classifier(fluid, layers, cfg)
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
@@ -276,15 +445,14 @@ def main_path(fluid, layers, fa, fr):
         )
         srv.warmup()
         torch.cuda.synchronize()
-        fa.fused_attention_qkv.launches = 0
-        fr.fused_dropout_add_ln_fwd.launches = 0
+        reset_counts(kc)
         served, i = [], 0
         for g in groups:
             futs = [srv.submit("bert", samples[j]) for j in range(i, i + g)]
             served += [f.result(timeout=300)[0] for f in futs]
             i += g
-        attn_n = fa.fused_attention_qkv.launches
-        res_n = fr.fused_dropout_add_ln_fwd.launches
+        counts = read_counts(kc)
+        attn_n, res_n = counts["attention_fwd"], counts["residual_fwd"]
         batches = list(ep.batches)
     finally:
         check(srv.close(timeout=300), "server did not drain")
@@ -299,6 +467,8 @@ def main_path(fluid, layers, fa, fr):
           f"attention kernel: {attn_n} launches for {len(batches)} batches")
     check(res_n == 2 * n_layers * len(batches) and res_n > 0,
           f"residual kernel: {res_n} launches for {len(batches)} batches")
+    check(sum(counts.values()) == attn_n + res_n,
+          f"a backward kernel ran while serving: {counts}")
     check(served.shape == (len(samples), 4) and np.isfinite(served).all(),
           f"served probabilities: shape {served.shape} or not finite")
     sum_err = np.abs(served.sum(-1) - 1).max()
@@ -329,8 +499,7 @@ def main_path(fluid, layers, fa, fr):
     check(c_err <= PROB_ATOL, f"card and CPU answers differ: {c_err}")
     spread = np.abs(served - served.mean(0)).max()
     check(spread > 1e-6, "every request got the same answer")
-    return frozen, exe, scope, samples, {"attention": attn_n,
-                                         "residual": res_n}
+    return frozen, exe, scope, samples, counts
 
 
 def serve_window(srv, name, b, samples):
@@ -399,10 +568,309 @@ def serve_times(frozen, exe, scope, samples):
     print("server: " + json.dumps({str(b): s for b, s in summary.items()}))
 
 
+# ---------------------------------------------------------------------------
+# training: bench.py's bench_bert program
+# ---------------------------------------------------------------------------
+
+
+def build_bench_bert(fluid, layers, cfg, B, S, lr):
+    """bench.py's bench_bert program: MLM pretraining with the gathered
+    head and Adam; lr a float, or None for bench_bert's schedule (linear
+    warmup over polynomial decay). Returns (main, startup, loss, lr (the
+    float or the schedule's Variable), params_grads, P)."""
+    from paddle_tpu_torch.models.bert import bert_pretrain
+    from paddle_tpu_torch.optimizer import Adam
+
+    P = max(1, int(0.15 * B * S))
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [B, S], "int64")
+        types = fluid.data("types", [B, S], "int64")
+        mask = fluid.data("mask", [B, S], "float32")
+        mask_pos = fluid.data("mask_pos", [P], "int64")
+        labels = fluid.data("labels", [P], "int64")
+        loss = bert_pretrain(ids, types, mask, labels, cfg, mask_pos=mask_pos)
+        if lr is None:
+            lr = layers.linear_lr_warmup(
+                layers.polynomial_decay(1e-4, 100000, 1e-5), 1000, 0.0, 1e-4)
+        _, pg = Adam(lr).minimize(loss, startup)
+    return main, startup, loss, lr, pg, P
+
+
+def bench_batches(cfg, B, S, P, n):
+    """bench_bert's batches: int32 arrays from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        pos = rng.choice(B * S, P, replace=False).astype("int32")
+        out.append({
+            "ids": rng.randint(0, cfg.vocab_size, (B, S)).astype("int32"),
+            "types": rng.randint(0, cfg.type_vocab_size,
+                                 (B, S)).astype("int32"),
+            "mask": np.ones((B, S), "float32"),
+            "mask_pos": pos,
+            "labels": rng.randint(0, cfg.vocab_size, P).astype("int32"),
+        })
+    return out
+
+
+def train_small(fluid, layers):
+    """Two Adam steps at BERT-base width, 2 layers, on the card and on the
+    CPU from one state."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    print("== training, reduced depth: BERT-base width, 2 layers, B=2, "
+          f"S=128, no dropout, lr {SMALL_LR:g}; card vs CPUPlace()")
+    cfg = BertConfig.base()
+    cfg.num_layers = 2
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    main, startup, loss, _, pg, P = build_bench_bert(fluid, layers, cfg, 2,
+                                                     128, SMALL_LR)
+    feeds = bench_batches(cfg, 2, 128, P, 2)
+    for f in feeds:
+        f["mask"][1, 100:] = 0.0  # padded keys in the second sample
+    gexe, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gexe.run(startup, scope=gscope)
+    start = convert.state_to_numpy(gscope)
+    cexe, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    convert.state_from_numpy(start, cscope, fluid.CPUPlace(), program=main)
+    cpu_main = main.clone()  # the same seed and run counter
+    fetch = [loss] + [g for _, g in pg]
+    worst = {"loss": 0.0, "grad": 0.0}
+    grads = {p.name: [] for p, _ in pg}  # (card, CPU) per step
+    t0 = time.perf_counter()
+    for step, feed in enumerate(feeds):
+        gpu = gexe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+        cpu = cexe.run(cpu_main, feed=feed, fetch_list=fetch, scope=cscope)
+        for (p, _), g, c in zip(pg, gpu[1:], cpu[1:]):
+            grads[p.name].append((g, c))
+        check(np.isfinite(gpu[0]).all(), f"card loss not finite: {gpu[0]}")
+        rel = float(np.abs(gpu[0] - cpu[0]).max() / np.abs(cpu[0]).max())
+        worst["loss"] = max(worst["loss"], rel)
+        check(rel <= 1e-5, f"step {step}: loss {gpu[0]} vs CPU {cpu[0]}")
+        for (p, _), g, c in zip(pg, gpu[1:], cpu[1:]):
+            d = np.abs(g - c)
+            worst["grad"] = max(worst["grad"], float(d.max()))
+            check((d <= 1e-5 + 1e-3 * np.abs(c)).all(),
+                  f"step {step}: {p.name}@GRAD differs by {d.max():.3e}")
+    gend, cend = convert.state_to_numpy(gscope), convert.state_to_numpy(cscope)
+    worst_m = worst_s = 0.0
+    moved = 0
+    for name, c in cend.items():
+        g = gend[name]
+        d = np.abs(g.astype(np.float64) - c)
+        if name in grads:
+            continue  # parameters: their updates, below
+        if name.endswith(("_moment1_0", "_moment2_0")):
+            worst_m = max(worst_m, float(d.max()))
+            check((d <= 1e-7 + 1e-3 * np.abs(c)).all(),
+                  f"moment {name} differs by {d.max():.3e}")
+        elif c.dtype.kind == "f":  # beta powers, the lr
+            worst_s = max(worst_s, float((d / np.abs(c)).max()))
+            check((d <= 1e-6 * np.abs(c)).all(),
+                  f"{name} differs by {d.max():.3e}")
+        else:
+            check(np.array_equal(g, c), f"{name}: {g} vs {c}")
+        moved += not np.array_equal(start[name], c)
+    worst_u, exempt, total = check_updates(start, gend, cend, grads,
+                                           SMALL_LR)
+    moved += sum(not np.array_equal(start[n], cend[n]) for n in grads)
+    check(moved > 3 * len(pg), f"only {moved} state tensors moved")
+    print(f"2 steps, {len(pg)} gradients, {len(cend)} state tensors "
+          f"({moved} moved); max error vs CPU: loss {worst['loss']:.2e} "
+          f"relative, @GRAD {worst['grad']:.2e}, moments {worst_m:.2e}, "
+          f"beta powers and lr {worst_s:.2e} relative, parameter updates "
+          f"{worst_u:.2e} of (|update| + lr) over {total - exempt} "
+          f"elements ({exempt} of {total} exempt, gradients apart by more "
+          f"than {UPDATE_AGREE:g}) (bounds 1e-5, 1e-5 + 1e-3|g|, 1e-7 + "
+          f"1e-3|m|, 1e-6, {UPDATE_RTOL:g}); "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def check_updates(start, got, want, grads, lr):
+    """Holds each parameter's update over the steps, end - start, against
+    the reference's: |got - want| <= UPDATE_RTOL * (|want| + lr), but for
+    elements whose two gradients (got's, want's) differ by more than
+    UPDATE_AGREE of want's at some step; those must stay under
+    UPDATE_EXEMPT of the elements. Returns (worst |got - want| / (|want|
+    + lr), exempt elements, elements)."""
+    worst, exempt, total = 0.0, 0, 0
+    for name, steps in grads.items():
+        du = got[name].astype(np.float64) - start[name]
+        dw = want[name].astype(np.float64) - start[name]
+        noisy = np.zeros(dw.shape, bool)
+        for g, w in steps:
+            w = w.astype(np.float64)
+            noisy |= np.abs(g - w) > UPDATE_AGREE * np.abs(w)
+        rel = (np.abs(du - dw) / (np.abs(dw) + lr))[~noisy]
+        if rel.size:
+            worst = max(worst, float(rel.max()))
+        check(not (rel > UPDATE_RTOL).any(),
+              f"{name}: {(rel > UPDATE_RTOL).sum()} updates differ, worst "
+              f"{rel.max():.3e} of (|update| + lr)")
+        exempt += int(noisy.sum())
+        total += noisy.size
+    check(exempt < UPDATE_EXEMPT * total,
+          f"{exempt} of {total} updates exempt")
+    return worst, exempt, total
+
+
+# kernel-name fragments of the profile's kinds, in the order tried
+KINDS = (
+    ("attention forward (ours)", ("attn_fwd_kernel",)),
+    ("attention backward (ours)", ("attn_bwd_dq_kernel",
+                                   "attn_bwd_dkv_kernel")),
+    ("residual fwd/bwd + sum_partials (ours)",
+     ("ln_fwd_kernel", "ln_bwd_kernel", "sum_partials_kernel")),
+    ("matmul (cuBLAS)", ("gemm", "sgemm", "cutlass", "xmma", "sm90_")),
+    ("index/scatter", ("index", "scatter", "gather", "sort", "radix")),
+    ("reductions", ("reduce", "Reduce")),
+    ("elementwise and other", ("",)),
+)
+
+
+def profile_step(run):
+    """One call of run() under torch.profiler: the card's busy time (the
+    sum of its kernels' durations; one stream, so they do not overlap),
+    its idle share of the wall time, busy time by kind of kernel, and the
+    host-device synchronisations and copies inside the step by the
+    outermost op that issued them."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds, syncs = {k: 0.0 for k, _ in KINDS}, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kind = next(k for k, frags in KINDS
+                        if any(f in ev.name for f in frags))
+            kinds[kind] += ev.device_time / 1e3
+        elif ev.name in ("cudaStreamSynchronize", "cudaMemcpyAsync"):
+            top = ev
+            while top.cpu_parent is not None:
+                top = top.cpu_parent
+            if top is not ev:  # inside an op, not the closing synchronize
+                key = f"{ev.name} in {top.name}"
+                syncs[key] = syncs.get(key, 0) + 1
+    busy = sum(kinds.values())
+    check(busy > 0, "the profiler saw no kernel on the card")
+    print(f"profiled step: wall {wall:.1f} ms, card busy {busy:.1f} ms, "
+          f"idle share {1 - busy / wall:.3f}")
+    for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"  {k}: {ms:.1f} ms ({ms / busy:.1%} of busy)")
+    print(f"  host-device syncs and copies inside the step: {syncs}")
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                busy_ms_by_kind=kinds, syncs=syncs)
+
+
+def train_full(fluid, layers, kc):
+    """bench_bert's training step at BertConfig.base(), B=32, S=512."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    B, S, warm, timed = 32, 512, 3, 5
+    steps = warm + timed + 1  # the last one runs under the profiler
+    print(f"== training path: bench_bert at BertConfig.base(), B={B}, "
+          f"S={S}, dropout 0.1, Adam under linear warmup over polynomial "
+          "decay, fp32")
+    cfg = BertConfig.base()
+    t0 = time.perf_counter()
+    main, startup, loss, lr, pg, P = build_bench_bert(fluid, layers, cfg, B,
+                                                      S, None)
+    ops = main.global_block.ops
+    print(f"P={P}; {len(ops)} ops of {len({op.type for op in ops})} types, "
+          f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in bench_batches(cfg, B, S, P, 4)]
+    watch = ("bert_l0_attn_qkv_w", "bert_l11_ffn_out_w", "mlm_out_w")
+    snap = {n: scope.find_var(n).clone() for n in watch}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expect = {"attention_fwd": 12, "attention_bwd_dq": 12,
+              "attention_bwd_dkv": 12, "residual_fwd": 24,
+              "residual_bwd": 24, "sum_partials": 24}
+    reset_counts(kc)
+    losses, lrs, host, wall = [], [], [], []
+    for i in range(steps):
+        before = read_counts(kc)
+        outs = []
+
+        def run(i=i, outs=outs):
+            outs += exe.run(main, feed=batches[i % 4], fetch_list=[loss, lr],
+                            scope=scope, return_numpy=False)
+
+        if i == steps - 1:
+            prof = profile_step(run)
+        else:
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        after = read_counts(kc)
+        step = {k: after[k] - before[k] for k in after}
+        check(step == expect, f"step {i} launched {step}, want {expect}")
+        losses.append(outs[0].item())
+        lrs.append(outs[1].item())
+        changed = [n for n in watch
+                   if not torch.equal(scope.find_var(n), snap[n])]
+        if i == 0:
+            check(lrs[0] == 0.0 and not changed,
+                  f"step 0 (lr {lrs[0]}) moved {changed}")
+        elif i == 1:
+            check(lrs[1] > 0.0 and len(changed) == len(watch),
+                  f"step 1 (lr {lrs[1]}) moved only {changed}")
+        if i == steps - 1:
+            continue
+        if i >= warm:
+            host.append(t1 - t0)
+            wall.append(t2 - t0)
+        print(f"  step {i}: loss {losses[-1]:.4f}, lr {lrs[-1]:.3e}, "
+              f"{(t2 - t0) * 1e3:.1f} ms ({(t1 - t0) * 1e3:.1f} ms until "
+              f"Executor.run returned)")
+    counts = read_counts(kc)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counter = int(scope.find_var("@LR_DECAY_COUNTER@").item())
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(counter == steps - 1, f"step counter {counter}")
+    med = statistics.median(wall)
+    stats = dict(step_ms=med * 1e3, step_ms_min=min(wall) * 1e3,
+                 step_ms_max=max(wall) * 1e3,
+                 host_ms=statistics.median(host) * 1e3,
+                 tokens_per_s=B * S / med, peak_gib=peak,
+                 final_loss=losses[-1], steps=steps, profile=prof)
+    print(f"step time (median [min, max] of {timed} after {warm} warm-up "
+          f"steps): {stats['step_ms']:.1f} ms [{stats['step_ms_min']:.1f}, "
+          f"{stats['step_ms_max']:.1f}], {stats['tokens_per_s']:.0f} "
+          f"tokens/s; Executor.run returned after {stats['host_ms']:.1f} ms "
+          f"(host); peak memory {peak:.2f} GiB; counter {counter}")
+    print(f"launches on the training path ({steps} steps): {counts}")
+    print("training: " + json.dumps(stats))
+    del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+    return counts
+
+
+def row(name, path, source, replaces, launches, err, t_k, t_p, b, t_l):
+    return dict(name=f"{name}@{path}", route="cuda",
+                source=f"paddle_tpu_torch/kernels/csrc/{source}",
+                replaces=replaces, launches=launches, max_abs_err=err,
+                ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
+                library_ms=t_l)
+
+
 def kernel_times(fa, fr, main_err, launches):
+    """The forward kernels at the serving path's shapes (test mode)."""
     import torch.nn.functional as F
 
-    print("== kernel times (B=8, S=128, H=12, D=64; R=1024, N=768)")
+    print("== kernel times, serving shapes (B=8, S=128, H=12, D=64; "
+          "R=1024, N=768; test mode)")
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
@@ -415,17 +883,15 @@ def kernel_times(fa, fr, main_err, launches):
         t_p = cuda_ms(lambda: fa.reference_qkv(qkv, 12, bias, **kw))
         t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=0.125))
-        b_ms, b_by = attn_bound(qkv, bias, 12)
+        b = attn_bound(qkv, bias, 12)
         print(f"attention {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"sdpa {t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
         if dtype == torch.float32:
-            rows.append(dict(
-                name="flash_attention_qkv_fwd", route="cuda",
-                source="paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
-                replaces="paddle_tpu/kernels/flash_attention.py:329",
-                launches=launches["attention"],
-                max_abs_err=main_err["attention"], ms=t_k, plain_ms=t_p,
-                bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+            rows.append(row("flash_attention_qkv_fwd", "serving",
+                            "flash_attention_qkv.cu",
+                            "paddle_tpu/kernels/flash_attention.py:329",
+                            launches["attention_fwd"],
+                            main_err["attention"], t_k, t_p, b, t_l))
 
         x, y, g, c = res_inputs(8 * SEQ, 768, dtype, SEED)
         kw = dict(rate=RATE, eps=1e-5)
@@ -435,17 +901,145 @@ def kernel_times(fa, fr, main_err, launches):
         gl, cl = g.to(dtype), c.to(dtype)
         t_l = cuda_ms(lambda: F.layer_norm(x + y * (1 - RATE), (768,), gl,
                                            cl, 1e-5))
-        b_ms, b_by = res_bound(x, 768)
+        b = res_bound(x, 768)
         print(f"residual {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"F.layer_norm {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"F.layer_norm {t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
         if dtype == torch.float32:
-            rows.append(dict(
-                name="fused_dropout_add_ln_fwd", route="cuda",
-                source="paddle_tpu_torch/kernels/csrc/fused_dropout_add_ln.cu",
-                replaces="paddle_tpu/kernels/fused_residual.py:90",
-                launches=launches["residual"],
-                max_abs_err=main_err["residual"], ms=t_k, plain_ms=t_p,
-                bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+            rows.append(row("fused_dropout_add_ln_fwd", "serving",
+                            "fused_dropout_add_ln.cu",
+                            "paddle_tpu/kernels/fused_residual.py:90",
+                            launches["residual_fwd"],
+                            main_err["residual"], t_k, t_p, b, t_l))
+    return rows
+
+
+def train_kernel_times(fa, fr, sp, err, launches):
+    """Every kernel at the training path's shapes, fp32, training dropout
+    0.1: B=32, S=512, H=12, D=64 and R=16384, N=768. Bounds count each
+    input read once and each output written once over 3.35 TB/s, and the
+    fp32 arithmetic of the function (two flops per multiply-add; the
+    backward's recomputation and the Philox integer work not counted)
+    over 67 TFLOP/s. The attention backward as a function does 8*B*H*S^2*D
+    (dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q); its two kernels
+    split that bound by the products each owns, dP and dQ to dq, dV and
+    dK to dkv (dkv's own dP is recomputation), and the reads in halves, so
+    the two bounds sum to the function's. The backward kernels' times come
+    from torch.profiler's trace of the wrappers' own calls, so the pair's
+    kernels, and the residual row kernel and its sum_partials, are timed
+    apart."""
+    import torch.nn.functional as F
+
+    B, S, H, D, R, N = 32, 512, 12, 64, 32 * 512, 768
+    print(f"== kernel times, training shapes (B={B}, S={S}, H={H}, D={D}; "
+          f"R={R}, N={N}; fp32, dropout {TRAIN_RATE} in training)")
+    f32 = torch.float32
+    kw = dict(scale=0.125, dropout_rate=TRAIN_RATE, is_test=False,
+              seed=MASK_SEED)
+    qkv, bias = attn_inputs(B, H, D, f32, SEED, S=S)
+    do = torch.randn(B, S, H * D, device="cuda")
+    q, k, v = (t.contiguous() for t in
+               qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4))
+    mask = bias[:, None, None, :]
+    es, rows = 4, []
+    t_k = cuda_ms(lambda: fa.fused_attention_qkv(qkv, H, bias, **kw),
+                  iters=10, reps=5)
+    t_p = cuda_ms(lambda: fa.reference_qkv(qkv, H, bias, **kw), iters=3,
+                  reps=3)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, dropout_p=TRAIN_RATE, scale=0.125),
+        iters=10, reps=5)
+    b = attn_bound(qkv, bias, H)
+    print(f"attention fwd: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
+          f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    rows.append(row("flash_attention_qkv_fwd", "training",
+                    "flash_attention_qkv.cu",
+                    "paddle_tpu/kernels/flash_attention.py:329",
+                    launches["attention_fwd"], err["attention_fwd"], t_k,
+                    t_p, b, t_l))
+
+    t = traced_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do, **kw),
+                  ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"))
+    t_dq, t_dkv = t["attn_bwd_dq_kernel"], t["attn_bwd_dkv_kernel"]
+    t_pair = cuda_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                                        **kw),
+                     iters=10, reps=5)
+    t_p = cuda_ms(lambda: fa.reference_qkv_bwd(qkv, H, bias, do, **kw),
+                  iters=2, reps=3)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         dropout_p=TRAIN_RATE, scale=0.125)
+    do4 = do.view(B, S, H, D).transpose(1, 2)
+    t_l = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                              retain_graph=True),
+                  iters=10, reps=5)
+    head = B * S * H * D * es
+    reads = qkv.numel() * es + head + bias.numel() * 4  # qkv, dO, bias
+    b_pair = bound(reads + 3 * head, 8 * B * H * S * S * D, f32)
+    b_dq = bound(reads / 2 + head, 4 * B * H * S * S * D, f32)
+    b_dkv = bound(reads / 2 + 2 * head, 4 * B * H * S * S * D, f32)
+    print(f"attention bwd: dq kernel {t_dq:.3f} ms (bound {b_dq[0]:.3f}, "
+          f"{b_dq[1]}), dkv kernel {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}, "
+          f"{b_dkv[1]}) (traced); both through the wrapper {t_pair:.3f} ms "
+          f"(bound {b_pair[0]:.3f}, {b_pair[1]}); plain {t_p:.3f} ms; sdpa "
+          f"backward {t_l:.3f} ms")
+    for which, t, b in (("dq", t_dq, b_dq), ("dkv", t_dkv, b_dkv)):
+        rows.append(row(f"flash_attention_qkv_bwd_{which}", "training",
+                        "flash_attention_qkv.cu",
+                        "paddle_tpu/kernels/flash_attention.py:342",
+                        launches[f"attention_bwd_{which}"],
+                        err["attention_bwd"], t, t_p, b, t_l))
+    del qkv, bias, do, q, k, v, qg, kg, vg, out, do4
+    torch.cuda.empty_cache()
+
+    x, y, g, c = res_inputs(R, N, f32, SEED)
+    do = torch.randn(R, N, device="cuda")
+    rkw = dict(rate=TRAIN_RATE, is_test=False, eps=1e-5, seed=MASK_SEED)
+    t_k = cuda_ms(lambda: fr.fused_dropout_add_ln_fwd(x, y, g, c, **rkw))
+    t_p = cuda_ms(lambda: fr.reference_fwd(x, y, g, c, **rkw), iters=10,
+                  reps=5)
+    t_l = cuda_ms(lambda: F.layer_norm(x + y, (N,), g, c, 1e-5))
+    b = res_bound(x, N)
+    print(f"residual fwd: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"F.layer_norm(x + y) {t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    rows.append(row("fused_dropout_add_ln_fwd", "training",
+                    "fused_dropout_add_ln.cu",
+                    "paddle_tpu/kernels/fused_residual.py:90",
+                    launches["residual_fwd"], err["residual_fwd"], t_k, t_p,
+                    b, t_l))
+    blocks = (R + fr.BWD_ROWS - 1) // fr.BWD_ROWS
+    part_bytes = 2 * blocks * N * 4
+    t = traced_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw),
+                  ("ln_bwd_kernel", "sum_partials_kernel"), iters=20)
+    t_k, t_s = t["ln_bwd_kernel"], t["sum_partials_kernel"]
+    t_both = cuda_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw))
+    t_p = cuda_ms(lambda: fr.reference_bwd(x, y, g, do, **rkw), iters=10,
+                  reps=5)
+    xg, yg, gg, cg = (t.detach().requires_grad_() for t in (x, y, g, c))
+    ln = F.layer_norm(xg + yg, (N,), gg, cg, 1e-5)
+    t_l = cuda_ms(lambda: torch.autograd.grad(ln, (xg, yg, gg, cg), do,
+                                              retain_graph=True))
+    b = bound(5 * R * N * es + N * 4 + part_bytes, 20 * R * N, f32)
+    print(f"residual bwd: row kernel {t_k:.4f} ms (traced), bound "
+          f"{b[0]:.4f} ms ({b[1]}); with sum_partials through the wrapper "
+          f"{t_both:.4f} ms; plain {t_p:.4f} ms, F.layer_norm backward "
+          f"{t_l:.4f} ms")
+    part = torch.randn(2, blocks, N, device="cuda")
+    rows.append(row("fused_dropout_add_ln_bwd", "training",
+                    "fused_dropout_add_ln.cu",
+                    "paddle_tpu/kernels/fused_residual.py:104",
+                    launches["residual_bwd"], err["residual_bwd"], t_k, t_p,
+                    b, t_l))
+    t_sp = cuda_ms(lambda: sp.reference(part))
+    b = bound(part.numel() * 4 + 2 * N * 4, part.numel(), f32)
+    s_err = (sp.sum_partials(part) - sp.reference(part)).abs().max().item()
+    print(f"sum_partials [2, {blocks}, {N}]: kernel {t_s:.4f} ms (traced "
+          f"in the residual backward's calls), plain "
+          f"(= library, part.sum(1)) {t_sp:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}), max_abs_err {s_err:.2e}")
+    check(s_err <= 1e-4, f"sum_partials disagrees: {s_err}")
+    rows.append(row("sum_partials", "training", "sum_partials.cu",
+                    "paddle_tpu/kernels/fused_residual.py:104",
+                    launches["sum_partials"], s_err, t_s, t_sp, b, t_sp))
     return rows
 
 
@@ -458,6 +1052,8 @@ def main():
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_residual as fr
+    from paddle_tpu_torch.kernels import prng_mask as pm
+    from paddle_tpu_torch.kernels import sum_partials as sp
 
     gpu = gpu_line()
     print(f"== device: {gpu}; torch {torch.__version__}, "
@@ -474,10 +1070,17 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    kc = counters(fa, fr, sp)
     main_err = parity(fa, fr)
-    frozen, exe, scope, samples, launches = main_path(fluid, layers, fa, fr)
+    train_err = train_parity(fa, fr, pm)
+    frozen, exe, scope, samples, serve_n = main_path(fluid, layers, kc)
     serve_times(frozen, exe, scope, samples)
-    rows = kernel_times(fa, fr, main_err, launches)
+    del frozen, exe, scope
+    torch.cuda.empty_cache()
+    train_small(fluid, layers)
+    train_n = train_full(fluid, layers, kc)
+    rows = kernel_times(fa, fr, main_err, serve_n)
+    rows += train_kernel_times(fa, fr, sp, train_err, train_n)
 
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -10,10 +10,12 @@ Entry points run on the card (`CUDAPlace(0)`) unless the caller passes
 """
 
 from . import ops  # noqa: F401  (registers every op emitter)
-from . import initializer, layers  # noqa: F401
+from . import initializer, layers, optimizer  # noqa: F401
 from .core import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework import (  # noqa: F401
     Executor,
+    append_backward,
+    gradients,
     Program,
     Scope,
     default_main_program,

@@ -1,9 +1,11 @@
-"""Carry parameters between the JAX package and the port by name.
+"""Carry state between the JAX package and the port by name.
 
 Names match when both programs are built from a fresh `unique_name`
 state. The JAX package runs without 64-bit mode, so its int64 arrays
-arrive as int32; integer arrays are widened to int64, the dtype the
-fluid API declares for ids.
+arrive as int32. Given the program that declares the state, each array
+takes the dtype its variable declares (the LR step counter stays int32,
+as both packages store it); without one, integer arrays are widened to
+int64, the dtype the fluid API declares for ids.
 """
 
 from __future__ import annotations
@@ -11,15 +13,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.dtypes import to_numpy_dtype
 from .core.place import as_device
 
 
-def state_from_numpy(arrays, scope, place):
-    """Load {name: np.ndarray} into `scope` as tensors on `place`."""
+def state_from_numpy(arrays, scope, place, program=None):
+    """Load {name: np.ndarray} into `scope` as tensors on `place`; with
+    `program`, in the dtypes its variables declare."""
     device = as_device(place)
+    declared = {}
+    if program is not None:
+        declared = {v.name: v.dtype for v in program.list_vars()}
     for name, arr in arrays.items():
         arr = np.asarray(arr)
-        if arr.dtype.kind in "iu":
+        if name in declared and declared[name] != "bfloat16":
+            arr = arr.astype(to_numpy_dtype(declared[name]))
+        elif arr.dtype.kind in "iu":
             arr = arr.astype(np.int64)
         scope.set_var(name, torch.tensor(arr, device=device))
 

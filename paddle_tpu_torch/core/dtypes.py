@@ -37,6 +37,11 @@ def convert_dtype(dtype) -> str:
     return name
 
 
+def is_float(dtype) -> bool:
+    return convert_dtype(dtype) in ("float16", "bfloat16", "float32",
+                                    "float64")
+
+
 def to_torch_dtype(dtype) -> torch.dtype:
     return _NAME_TO_TORCH[convert_dtype(dtype)]
 

@@ -1,4 +1,5 @@
 from . import unique_name  # noqa: F401
+from .backward import append_backward, gradients  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .program import (  # noqa: F401
     Block,
@@ -8,6 +9,7 @@ from .program import (  # noqa: F401
     Variable,
     default_main_program,
     default_startup_program,
+    grad_var_name,
     program_guard,
 )
 from .scope import Scope, global_scope, scope_guard  # noqa: F401

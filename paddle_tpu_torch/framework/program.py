@@ -41,14 +41,34 @@ class Variable:
         self.is_data = is_data
         self.lod_level = lod_level
 
-    def __add__(self, other):
+    # fluid-style operator sugar: builds the ops the JAX package's
+    # Variable builds (a float becomes a [1] fill_constant)
+    def _elementwise(self, other, op_type, reverse=False):
         from .. import layers
 
         if not isinstance(other, Variable):
             other = layers.fill_constant([1], self.dtype, float(other))
-        return layers.elementwise_add(self, other)
+        a, b = (other, self) if reverse else (self, other)
+        return getattr(layers, op_type)(a, b)
+
+    def __add__(self, other):
+        return self._elementwise(other, "elementwise_add")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._elementwise(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._elementwise(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._elementwise(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._elementwise(other, "elementwise_div")
 
     def __repr__(self):
         return (
@@ -65,6 +85,13 @@ class Parameter(Variable):
         kw.setdefault("stop_gradient", not trainable)
         super().__init__(block, name, shape=shape, dtype=dtype, **kw)
         self.trainable = trainable
+
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 class Operator:
@@ -186,6 +213,10 @@ class Program:
     def list_vars(self):
         for b in self.blocks:
             yield from b.vars.values()
+
+    def all_parameters(self):
+        return [v for b in self.blocks for v in b.vars.values()
+                if isinstance(v, Parameter)]
 
     def clone(self, for_test=False):
         """Deep copy. for_test=True flips is_test on the ops that carry it

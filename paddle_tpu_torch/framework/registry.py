@@ -33,7 +33,10 @@ class EmitContext:
     RNG: every Operator owns a stable uid; the stream of op U at run S of
     a program seeded with `seed` is a torch.Generator seeded from
     (seed, S, U, crc32(op type)). The op-type salt keeps the startup and
-    main programs of one seed from sharing streams."""
+    main programs of one seed from sharing streams. The fused kernels'
+    keep masks take two seed words from the same digest (seed_words). A
+    grad op replays its forward op under the forward's uid, so its
+    dropout mask is the forward's."""
 
     def __init__(self, device, seed=0, step=0, is_test=False, abstract=False):
         self.device = torch.device(device)
@@ -44,37 +47,73 @@ class EmitContext:
         # substitute BATCH_SENTINEL for -1 dims; at run time -1 is an error
         self.abstract = abstract
 
+    def _digest(self, op_uid, op_type):
+        salt = zlib.crc32(op_type.encode()) & 0x7FFFFFFF
+        return hashlib.blake2b(
+            struct.pack("<qqqq", self.seed, self.step, int(op_uid), salt),
+            digest_size=8,
+        ).digest()
+
     def key_for(self, op_uid: int, op_type: str = ""):
         """torch.Generator on this context's device for one op's draw
         (None while inferring shapes: meta tensors draw nothing)."""
         if self.abstract:
             return None
-        salt = zlib.crc32(op_type.encode()) & 0x7FFFFFFF
-        digest = hashlib.blake2b(
-            struct.pack("<qqqq", self.seed, self.step, int(op_uid), salt),
-            digest_size=8,
-        ).digest()
+        digest = self._digest(op_uid, op_type)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int.from_bytes(digest, "little") & 0x7FFFFFFFFFFFFFFF)
         return gen
 
+    def seed_words(self, op_uid: int, op_type: str = ""):
+        """Two uint32 words for one op's Philox keep mask, from the same
+        digest as key_for, made on the host (None while inferring
+        shapes). A grad op passes its forward op's uid and type, so it
+        regenerates the forward's mask."""
+        if self.abstract:
+            return None
+        digest = self._digest(op_uid, op_type)
+        return (int.from_bytes(digest[:4], "little"),
+                int.from_bytes(digest[4:], "little"))
+
+
+class OpView:
+    """Stand-in for an Operator when a grad op replays its forward op's
+    emitter: the same attrs, so the same `__uid__` and random stream."""
+
+    def __init__(self, op_type, attrs):
+        self.type = op_type
+        self.attrs = dict(attrs or {})
+
+    @property
+    def uid(self):
+        return self.attrs.get("__uid__", 0)
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
 
 class OpDef:
-    def __init__(self, type, emit, input_slots, output_slots):
+    def __init__(self, type, emit, input_slots, output_slots,
+                 differentiable=True, grad_maker=None):
         self.type = type
         self.emit = emit  # fn(ctx, op, ins) -> outs (dict slot -> list)
         self.input_slots = tuple(input_slots)
         self.output_slots = tuple(output_slots)
+        self.differentiable = differentiable
+        # fn(op, block, contribs, finalize, needs_grad=) appending a
+        # dedicated grad op; returning False declines, and the generic
+        # __vjp__ replay (backward.py) takes the op instead
+        self.grad_maker = grad_maker
 
 
 _REGISTRY: dict[str, OpDef] = {}
 
 
-def register_op(type, inputs, outputs):
+def register_op(type, inputs, outputs, **kw):
     """Decorator: @register_op("relu", inputs=["X"], outputs=["Out"])."""
 
     def deco(fn):
-        _REGISTRY[type] = OpDef(type, fn, inputs, outputs)
+        _REGISTRY[type] = OpDef(type, fn, inputs, outputs, **kw)
         return fn
 
     return deco

@@ -3,7 +3,8 @@
 Each source in csrc/ is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface, at first use, into `_build/` beside
 this file (listed in .gitignore). A library's file name carries a hash
-of its source and flags, so an edited source is rebuilt. `build()`
+of its source, the csrc/ headers it includes (philox.cuh) and the flags,
+so an edited source or header is rebuilt. `build()`
 starts one nvcc process per source, all at once. Nothing here runs at
 import time: the CPU tests import every module on a host without nvcc.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ from ..errors import PreconditionNotMetError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention_qkv", "fused_dropout_add_ln")
+SOURCES = ("flash_attention_qkv", "fused_dropout_add_ln", "sum_partials")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,10 +49,33 @@ def _nvcc():
     return found
 
 
-def lib_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name, csrc):
+    """The .cu file of `name` and every header of `csrc` it includes,
+    directly or through another header, in a fixed order."""
+    seen, order = set(), []
+    todo = [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        path = csrc / rel
+        if rel in seen or not path.exists():
+            continue
+        seen.add(rel)
+        order.append(path)
+        todo += [m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return order
+
+
+def lib_path(name, csrc=CSRC):
+    """The library of `name`; its file name carries a hash of the source,
+    every header it includes from `csrc`, and the flags, so an edit to
+    any of them builds anew."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES):

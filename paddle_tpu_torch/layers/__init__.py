@@ -1,13 +1,37 @@
-"""fluid.layers-equivalent functional API: the layers of the serving slice."""
+"""fluid.layers-equivalent functional API: the layers of the serving and
+training slices."""
 
 from .attention import fused_dropout_add_ln, fused_qkv_attention  # noqa: F401
-from .nn import data, dropout, embedding, fc, layer_norm  # noqa: F401
+from .control_flow import increment  # noqa: F401
+from .learning_rate_scheduler import (  # noqa: F401
+    linear_lr_warmup,
+    polynomial_decay,
+)
+from .nn import (  # noqa: F401
+    data,
+    dropout,
+    embedding,
+    fc,
+    layer_norm,
+    softmax_with_cross_entropy,
+)
 from .tensor import (  # noqa: F401
+    cast,
     elementwise_add,
+    elementwise_div,
+    elementwise_max,
+    elementwise_min,
+    elementwise_mul,
+    elementwise_sub,
     fill_constant,
+    gather,
     gelu,
+    less_than,
     matmul,
+    not_equal,
+    pow,
     range,
+    reduce_sum,
     reshape,
     scale,
     slice,

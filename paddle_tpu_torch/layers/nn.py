@@ -1,6 +1,6 @@
-"""Functional layers of the serving slice (counterpart of
+"""Functional layers of the serving and training slices (counterpart of
 paddle_tpu/layers/nn.py; reference python/paddle/fluid/layers/nn.py):
-data, fc, embedding, layer_norm, dropout."""
+data, fc, embedding, layer_norm, dropout, softmax_with_cross_entropy."""
 
 from __future__ import annotations
 
@@ -110,3 +110,15 @@ def dropout(x, dropout_prob, is_test=False, seed=None,
         out_slots=("Out", "Mask"),
     )
     return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax, loss = helper.create_and_append(
+        {"Logits": [logits], "Label": [label]},
+        {"soft_label": soft_label, "ignore_index": ignore_index, "axis": axis},
+        out_slots=("Softmax", "Loss"),
+    )
+    return (loss, softmax) if return_softmax else loss

@@ -1,4 +1,4 @@
-"""Tensor layers of the serving slice (counterpart of
+"""Tensor layers of the serving and training slices (counterpart of
 paddle_tpu/layers/tensor.py; reference python/paddle/fluid/layers/tensor.py).
 
 `transpose` and `matmul` build ops whose emitters come with a later
@@ -76,8 +76,43 @@ def softmax(input, axis=-1, use_cudnn=False, name=None):
     return _simple("softmax", {"X": [input]}, {"axis": axis})
 
 
-def elementwise_add(x, y, axis=-1, name=None):
-    return _simple("elementwise_add", {"X": [x], "Y": [y]}, {"axis": axis})
+def cast(x, dtype):
+    return _simple("cast", {"X": [x]}, {"out_dtype": dtype})
+
+
+def gather(input, index, overwrite=True):
+    return _simple("gather", {"X": [input], "Index": [index]}, {})
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    attrs = {
+        "dim": [dim] if isinstance(dim, int) else (list(dim) if dim else [0]),
+        "keep_dim": keep_dim,
+        "reduce_all": dim is None,
+    }
+    return _simple("reduce_sum", {"X": [input]}, attrs)
+
+
+def pow(x, factor=1.0, name=None):
+    return _simple("pow", {"X": [x]}, {"factor": factor})
+
+
+def _binary(op_type):
+    def fn(x, y, axis=-1, name=None):
+        return _simple(op_type, {"X": [x], "Y": [y]}, {"axis": axis})
+
+    fn.__name__ = op_type
+    return fn
+
+
+elementwise_add = _binary("elementwise_add")
+elementwise_sub = _binary("elementwise_sub")
+elementwise_mul = _binary("elementwise_mul")
+elementwise_div = _binary("elementwise_div")
+elementwise_max = _binary("elementwise_max")
+elementwise_min = _binary("elementwise_min")
+not_equal = _binary("not_equal")
+less_than = _binary("less_than")
 
 
 def gelu(x, name=None, **attrs):

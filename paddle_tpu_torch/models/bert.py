@@ -1,8 +1,9 @@
-"""BERT encoder (counterpart of paddle_tpu/models/bert.py), built on the
-port's layers API. The fused paths are this slice's: one packed-QKV
-attention op and one dropout + residual + LayerNorm op per site. The
-composed attention path (use_fused_attention=False) builds ops whose
-emitters come with a later slice and raises UnimplementedError."""
+"""BERT encoder and MLM pretraining loss (counterpart of
+paddle_tpu/models/bert.py), built on the port's layers API. The fused
+paths are the port's: one packed-QKV attention op and one dropout +
+residual + LayerNorm op per site. The composed attention path
+(use_fused_attention=False) builds ops whose emitters come with a later
+slice and raises UnimplementedError."""
 
 from __future__ import annotations
 
@@ -175,3 +176,52 @@ def bert_encoder(input_ids, token_type_ids, input_mask, cfg, is_test=False,
     emb = layers.dropout(emb, cfg.hidden_dropout, is_test=is_test)
     n = cfg.num_layers if num_layers is None else num_layers
     return bert_encoder_layers(emb, input_mask, cfg, 0, n, is_test)
+
+
+def _mlm_loss(rows, labels, label_shape, cfg):
+    """Mean softmax cross-entropy of the vocab projection of `rows` [N, H]
+    over the labels (reshaped to [N, 1]) that are not -100."""
+    logits = layers.fc(
+        rows,
+        size=cfg.vocab_size,
+        param_attr=ParamAttr(name="mlm_out_w", initializer=_init(cfg)),
+        bias_attr=ParamAttr(name="mlm_out_b"),
+    )
+    labels = layers.reshape(labels, label_shape)
+    loss = layers.softmax_with_cross_entropy(logits, labels, ignore_index=-100)
+    # average over the masked positions only: ignored positions add zero
+    # loss, so a plain mean would scale the loss by the masking ratio
+    ignore = layers.fill_constant([1], "int64", -100)
+    valid = layers.cast(layers.not_equal(labels, ignore), "float32")
+    denom = layers.elementwise_max(
+        layers.reduce_sum(valid), layers.fill_constant([1], "float32", 1.0)
+    )
+    return layers.elementwise_div(layers.reduce_sum(loss), denom)
+
+
+def bert_mlm_head(seq, mlm_labels, cfg):
+    """Masked-LM loss over the [B,S,H] sequence output; mlm_labels [B,S]
+    int64 with ignore_index -100 on unmasked positions."""
+    b, s, h = seq.shape
+    return _mlm_loss(layers.reshape(seq, [b * s, h]), mlm_labels,
+                     [b * s, 1], cfg)
+
+
+def bert_mlm_head_gather(seq, mask_pos, mask_labels, cfg):
+    """MLM head over the masked positions only: mask_pos [P] indexes the
+    flattened [B*S] sequence and the vocab projection runs on those P
+    rows; mask_labels [P] holds vocab ids with -100 padding."""
+    b, s, h = seq.shape
+    picked = layers.gather(layers.reshape(seq, [b * s, h]), mask_pos)
+    return _mlm_loss(picked, mask_labels, [-1, 1], cfg)
+
+
+def bert_pretrain(input_ids, token_type_ids, input_mask, mlm_labels, cfg,
+                  is_test=False, mask_pos=None):
+    """MLM pretraining loss (encoder + head). With mask_pos [P],
+    mlm_labels is the gathered [P] label vector and the vocab projection
+    runs only on the masked rows (bench.py's bench_bert program)."""
+    seq = bert_encoder(input_ids, token_type_ids, input_mask, cfg, is_test)
+    if mask_pos is not None:
+        return bert_mlm_head_gather(seq, mask_pos, mlm_labels, cfg)
+    return bert_mlm_head(seq, mlm_labels, cfg)

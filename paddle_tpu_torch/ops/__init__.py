@@ -1,3 +1,11 @@
-"""Op emitters: importing this package registers every op of the slice."""
+"""Op emitters: importing this package registers every op of the slices."""
 
-from . import activation, fused, math, nn, random, tensor_ops  # noqa: F401
+from . import (  # noqa: F401
+    activation,
+    fused,
+    math,
+    nn,
+    optimizer_ops,
+    random,
+    tensor_ops,
+)

@@ -1,22 +1,91 @@
-"""Fused ops backed by hand-written kernels (counterpart of
-paddle_tpu/ops/fused.py; reference paddle/fluid/operators/fused/).
+"""Fused ops backed by hand-written kernels, with their grad ops
+(counterpart of paddle_tpu/ops/fused.py; reference
+paddle/fluid/operators/fused/).
 
-Forward emitters only: the grad ops and their makers, and training
-dropout inside the kernels, come with the training slice."""
+Each forward op registers a grad maker that appends a dedicated grad op
+calling the backward kernel, instead of the generic `__vjp__` replay
+(framework/backward.py): the backward kernels need only the primal
+inputs and the output gradient, and a replay would run the forward
+kernel a second time. The grad op takes the forward op's uid as
+`__fwd_uid__` and draws its seed words from it, so the backward
+regenerates the forward's dropout mask."""
 
 from __future__ import annotations
 
+from ..framework import unique_name
+from ..framework.backward import _ensure_var
+from ..framework.program import grad_var_name
 from ..framework.registry import register_op
-from ..kernels.flash_attention import fused_attention_qkv
-from ..kernels.fused_residual import fused_dropout_add_ln_fwd
+from ..kernels.flash_attention import (
+    fused_attention_qkv,
+    fused_attention_qkv_bwd,
+)
+from ..kernels.fused_residual import (
+    fused_dropout_add_ln_bwd,
+    fused_dropout_add_ln_fwd,
+)
 
 
 def _is_test(ctx, op):
     return bool(op.attr("is_test", False)) or ctx.is_test
 
 
+def _seed(ctx, op, uid, op_type):
+    """The seed words of op `uid` when it trains with dropout, else None."""
+    if float(op.attr("dropout_prob", 0.0)) > 0.0 and not _is_test(ctx, op):
+        return ctx.seed_words(uid, op_type)
+    return None
+
+
+def _append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
+                    slots):
+    """Append `grad_type` with an `<slot>Grad` output for each input slot
+    in `slots` whose variable needs a gradient. The grad op keeps the
+    forward's attrs but its uid, which becomes `__fwd_uid__`."""
+    outs = {}
+    for slot in slots:
+        if not op.inputs.get(slot):
+            continue
+        n = op.inputs[slot][0]
+        if needs_grad is not None and n not in needs_grad:
+            continue
+        gname = unique_name.generate(grad_var_name(n) + "@RENAME")
+        _ensure_var(block, gname, n)
+        outs[slot + "Grad"] = [gname]
+        contribs.setdefault(n, []).append(gname)
+    if not outs:
+        return
+    attrs = {k: v for k, v in op.attrs.items() if k not in ("__uid__",
+                                                            "__loc__")}
+    attrs["__fwd_uid__"] = op.uid
+    block.append_op(grad_type, inputs, outs, attrs)
+
+
+def _attention_grad_maker(op, block, contribs, finalize, needs_grad=None):
+    g_out = finalize(op.outputs["Out"][0])
+    if g_out is None:
+        return
+    inputs = {"QKV": op.inputs["QKV"], "OutGrad": [g_out]}
+    if op.inputs.get("KeyBias"):
+        inputs["KeyBias"] = op.inputs["KeyBias"]
+    _append_grad_op(op, block, contribs, needs_grad,
+                    "fused_qkv_attention_grad", inputs, ("QKV", "KeyBias"))
+
+
+def _attention_kw(ctx, op):
+    return dict(
+        scale=op.attr("scale", None),
+        dropout_rate=float(op.attr("dropout_prob", 0.0)),
+        is_test=_is_test(ctx, op),
+        dropout_implementation=op.attr(
+            "dropout_implementation", "downgrade_in_infer"
+        ),
+        causal=bool(op.attr("causal", False)),
+    )
+
+
 @register_op("fused_qkv_attention", inputs=["QKV", "KeyBias"],
-             outputs=["Out", "Lse"])
+             outputs=["Out", "Lse"], grad_maker=_attention_grad_maker)
 def _fused_qkv_attention(ctx, op, ins):
     """Attention over the packed qkv projection [B, S, 3*H*D] -> [B, S,
     H*D] (attr num_heads). The kernel reads the projection in place
@@ -26,22 +95,61 @@ def _fused_qkv_attention(ctx, op, ins):
     qkv = ins["QKV"][0]
     bias = ins["KeyBias"][0] if ins.get("KeyBias") else None
     out = fused_attention_qkv(
-        qkv,
-        int(op.attr("num_heads")),
-        key_bias=bias,
-        scale=op.attr("scale", None),
-        dropout_rate=float(op.attr("dropout_prob", 0.0)),
-        is_test=_is_test(ctx, op),
-        dropout_implementation=op.attr(
-            "dropout_implementation", "downgrade_in_infer"
-        ),
-        causal=bool(op.attr("causal", False)),
+        qkv, int(op.attr("num_heads")), key_bias=bias,
+        seed=_seed(ctx, op, op.uid, op.type), **_attention_kw(ctx, op),
     )
     return {"Out": [out], "Lse": []}
 
 
+@register_op("fused_qkv_attention_grad",
+             inputs=["QKV", "KeyBias", "OutGrad"],
+             outputs=["QKVGrad", "KeyBiasGrad"], differentiable=False)
+def _fused_qkv_attention_grad(ctx, op, ins):
+    """Backward of fused_qkv_attention through the backward kernels; the
+    mask regenerates from the forward op's seed words. KeyBiasGrad is
+    computed only when the op has that output."""
+    qkv = ins["QKV"][0]
+    bias = ins["KeyBias"][0] if ins.get("KeyBias") else None
+    want_dbias = bool(op.outputs.get("KeyBiasGrad")) and bias is not None
+    d_out = ins["OutGrad"][0].contiguous()
+    dqkv, dbias = fused_attention_qkv_bwd(
+        qkv, int(op.attr("num_heads")), bias, d_out,
+        seed=_seed(ctx, op, op.attr("__fwd_uid__"), "fused_qkv_attention"),
+        want_dbias=want_dbias, **_attention_kw(ctx, op),
+    )
+    outs = {}
+    if op.outputs.get("QKVGrad"):
+        outs["QKVGrad"] = [dqkv]
+    if want_dbias:
+        outs["KeyBiasGrad"] = [dbias.to(bias.dtype)]
+    return outs
+
+
+def _residual_grad_maker(op, block, contribs, finalize, needs_grad=None):
+    g_out = finalize(op.outputs["Out"][0])
+    if g_out is None:
+        return
+    inputs = {"X": op.inputs["X"], "Y": op.inputs["Y"], "OutGrad": [g_out]}
+    for slot in ("Scale", "LnBias"):
+        if op.inputs.get(slot):
+            inputs[slot] = op.inputs[slot]
+    _append_grad_op(op, block, contribs, needs_grad,
+                    "fused_dropout_add_ln_grad", inputs,
+                    ("X", "Y", "Scale", "LnBias"))
+
+
+def _residual_kw(ctx, op):
+    return dict(
+        rate=float(op.attr("dropout_prob", 0.0)),
+        is_test=_is_test(ctx, op),
+        upscale=op.attr("dropout_implementation", "downgrade_in_infer")
+        == "upscale_in_train",
+        eps=float(op.attr("epsilon", 1e-5)),
+    )
+
+
 @register_op("fused_dropout_add_ln", inputs=["X", "Y", "Scale", "LnBias"],
-             outputs=["Out"])
+             outputs=["Out"], grad_maker=_residual_grad_maker)
 def _fused_dropout_add_ln(ctx, op, ins):
     """Out = LayerNorm(X + dropout(Y)) over the last axis as one kernel —
     the transformer residual tail. X is the residual, Y the branch output,
@@ -52,10 +160,35 @@ def _fused_dropout_add_ln(ctx, op, ins):
     n = x.shape[-1]
     out2 = fused_dropout_add_ln_fwd(
         x.reshape(-1, n), y.reshape(-1, n), g, c,
-        rate=float(op.attr("dropout_prob", 0.0)),
-        is_test=_is_test(ctx, op),
-        upscale=op.attr("dropout_implementation", "downgrade_in_infer")
-        == "upscale_in_train",
-        eps=float(op.attr("epsilon", 1e-5)),
+        seed=_seed(ctx, op, op.uid, op.type), **_residual_kw(ctx, op),
     )
     return {"Out": [out2.reshape(x.shape)]}
+
+
+@register_op("fused_dropout_add_ln_grad",
+             inputs=["X", "Y", "Scale", "LnBias", "OutGrad"],
+             outputs=["XGrad", "YGrad", "ScaleGrad", "LnBiasGrad"],
+             differentiable=False)
+def _fused_dropout_add_ln_grad(ctx, op, ins):
+    """Backward of fused_dropout_add_ln through the backward kernel; the
+    mask regenerates from the forward op's seed words."""
+    x, y, dout = ins["X"][0], ins["Y"][0], ins["OutGrad"][0]
+    g = ins["Scale"][0] if ins.get("Scale") else None
+    c = ins["LnBias"][0] if ins.get("LnBias") else None
+    n = x.shape[-1]
+    dx, dy, dg, dc = fused_dropout_add_ln_bwd(
+        x.reshape(-1, n), y.reshape(-1, n), g,
+        dout.contiguous().reshape(-1, n),
+        seed=_seed(ctx, op, op.attr("__fwd_uid__"), "fused_dropout_add_ln"),
+        **_residual_kw(ctx, op),
+    )
+    outs = {}
+    if op.outputs.get("XGrad"):
+        outs["XGrad"] = [dx.reshape(x.shape)]
+    if op.outputs.get("YGrad"):
+        outs["YGrad"] = [dy.reshape(y.shape)]
+    if op.outputs.get("ScaleGrad") and g is not None:
+        outs["ScaleGrad"] = [dg.to(g.dtype)]
+    if op.outputs.get("LnBiasGrad") and c is not None:
+        outs["LnBiasGrad"] = [dc.to(c.dtype)]
+    return outs

@@ -1,5 +1,6 @@
-"""Dense math ops of the serving slice (counterpart of paddle_tpu/ops/math.py;
-reference elementwise_add_op, scale_op.cc, mul_op.cc)."""
+"""Dense math ops of the serving and training slices (counterpart of
+paddle_tpu/ops/math.py; reference elementwise ops, scale_op.cc, mul_op.cc,
+reduce_sum_op.cc, sum_op.cc, compare_op.cc)."""
 
 from __future__ import annotations
 
@@ -11,10 +12,52 @@ from ..framework.registry import register_op
 from ._helpers import fluid_broadcast
 
 
-@register_op("elementwise_add", inputs=["X", "Y"], outputs=["Out"])
-def _elementwise_add(ctx, op, ins):
-    x, y = fluid_broadcast(ins["X"][0], ins["Y"][0], op.attr("axis", -1))
-    return {"Out": [x + y]}
+def _register_elementwise(op_type, fn, differentiable=True):
+    @register_op(op_type, inputs=["X", "Y"], outputs=["Out"],
+                 differentiable=differentiable)
+    def emit(ctx, op, ins):
+        x, y = fluid_broadcast(ins["X"][0], ins["Y"][0], op.attr("axis", -1))
+        return {"Out": [fn(x, y)]}
+
+    return emit
+
+
+_register_elementwise("elementwise_add", torch.add)
+_register_elementwise("elementwise_sub", torch.sub)
+_register_elementwise("elementwise_mul", torch.mul)
+_register_elementwise("elementwise_div", torch.div)
+_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("not_equal", torch.ne, differentiable=False)
+_register_elementwise("less_than", torch.lt, differentiable=False)
+
+
+@register_op("pow", inputs=["X"], outputs=["Out"])
+def _pow(ctx, op, ins):
+    return {"Out": [torch.pow(ins["X"][0], op.attr("factor", 1.0))]}
+
+
+@register_op("reduce_sum", inputs=["X"], outputs=["Out"])
+def _reduce_sum(ctx, op, ins):
+    x = ins["X"][0]
+    keep = op.attr("keep_dim", False)
+    if op.attr("reduce_all", False):
+        out = x.sum()
+        if keep:
+            out = out.reshape((1,) * x.dim())
+    else:
+        dim = tuple(d % x.dim() for d in op.attr("dim", [0]))
+        out = x.sum(dim=dim, keepdim=keep)
+    return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
+
+
+@register_op("sum", inputs=["X"], outputs=["Out"])
+def _sum(ctx, op, ins):
+    xs = [x for x in ins["X"] if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
 
 
 @register_op("scale", inputs=["X"], outputs=["Out"])

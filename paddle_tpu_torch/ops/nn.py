@@ -1,10 +1,12 @@
-"""NN ops of the serving slice (counterpart of paddle_tpu/ops/nn.py;
-reference layer_norm_op.cc, lookup_table_v2_op.cc, dropout_op.cc)."""
+"""NN ops of the serving and training slices (counterpart of
+paddle_tpu/ops/nn.py; reference layer_norm_op.cc, lookup_table_v2_op.cc,
+dropout_op.cc, softmax_with_cross_entropy_op.cc)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..errors import UnimplementedError
 from ..framework.registry import register_op
 
 
@@ -62,3 +64,27 @@ def _dropout(ctx, op, ins):
                                               device=x.device))
     return {"Out": [out.to(x.dtype)], "Mask": [keep.to(torch.uint8)]}
 
+
+
+@register_op("softmax_with_cross_entropy", inputs=["Logits", "Label"],
+             outputs=["Softmax", "Loss"])
+def _softmax_with_cross_entropy(ctx, op, ins):
+    """Hard labels, in the JAX package's logsumexp-minus-picked form with
+    fp32 statistics: loss = lse(logits) - logits[label], 0 where the
+    label is ignore_index."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    axis = op.attr("axis", -1)
+    if op.attr("soft_label", False):
+        raise UnimplementedError(
+            "softmax_with_cross_entropy: soft labels are not in this slice"
+        )
+    lbl = label if label.dim() == logits.dim() else label.unsqueeze(axis)
+    valid = lbl != op.attr("ignore_index", -100)
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl)).long()
+    lf = logits.float()
+    m = lf.amax(dim=axis, keepdim=True)
+    lse = m + torch.log(torch.exp(lf - m).sum(dim=axis, keepdim=True))
+    picked = torch.gather(lf, axis, safe)
+    loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    softmax = torch.exp(lf - lse).to(logits.dtype)
+    return {"Softmax": [softmax], "Loss": [loss]}

@@ -1,6 +1,7 @@
-"""Tensor ops of the serving slice (counterpart of
+"""Tensor ops of the serving and training slices (counterpart of
 paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, slice_op.cc,
-fill_constant_op.cc, range_op.cc)."""
+fill_constant_op.cc, range_op.cc, cast_op.cc, assign_op.cc,
+gather_op.cc, increment_op.cc)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,31 @@ def _range(ctx, op, ins):
             )
         ]
     }
+
+
+@register_op("cast", inputs=["X"], outputs=["Out"])
+def _cast(ctx, op, ins):
+    return {"Out": [ins["X"][0].to(to_torch_dtype(op.attr("out_dtype")))]}
+
+
+@register_op("assign", inputs=["X"], outputs=["Out"])
+def _assign(ctx, op, ins):
+    # no copy: no emitter writes into a tensor in place, so the two names
+    # may share one tensor
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("gather", inputs=["X", "Index"], outputs=["Out"])
+def _gather(ctx, op, ins):
+    x, idx = ins["X"][0], ins["Index"][0]
+    if idx.dim() == 2 and idx.shape[1] == 1:
+        idx = idx[:, 0]
+    return {"Out": [torch.index_select(x, op.attr("axis", 0), idx.long())]}
+
+
+@register_op("increment", inputs=["X"], outputs=["Out"], differentiable=False)
+def _increment(ctx, op, ins):
+    """Counter bump (reference increment_op.cc). Out has X's name, so the
+    executor writes the new value back to the scope."""
+    x = ins["X"][0]
+    return {"Out": [x + torch.tensor(op.attr("step", 1.0)).to(x.dtype)]}

@@ -185,7 +185,14 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import sys
         import paddle_tpu_torch
         import paddle_tpu_torch.convert, paddle_tpu_torch.models.bert
-        import paddle_tpu_torch.serving
+        import paddle_tpu_torch.serving, paddle_tpu_torch.optimizer
+        import paddle_tpu_torch.framework.backward
+        import paddle_tpu_torch.framework.state
+        import paddle_tpu_torch.layers.control_flow
+        import paddle_tpu_torch.layers.learning_rate_scheduler
+        import paddle_tpu_torch.ops.optimizer_ops
+        import paddle_tpu_torch.kernels.prng_mask
+        import paddle_tpu_torch.kernels.sum_partials
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "paddle_tpu" or m.startswith("paddle_tpu.")]

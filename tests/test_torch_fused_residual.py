@@ -1,9 +1,12 @@
-"""Port parity: paddle_tpu_torch.kernels.fused_residual (plain version on
-the CPU) against the JAX package's fused_dropout_add_ln_fwd in Pallas
-interpret mode and its jnp reference_fwd, at R=16, N=128.
+"""Port parity: paddle_tpu_torch.kernels.fused_residual (plain versions on
+the CPU) against the JAX package's fused_dropout_add_ln_fwd and
+fused_dropout_add_ln_bwd in Pallas interpret mode and its jnp
+reference_fwd, at R=16, N=128; and the port's training dropout, whose
+forward and backward regenerate one Philox mask.
 
 Inputs come from numpy with a fixed seed. Tolerance: fp32 atol 1e-5
-(normalised outputs of magnitude < 10; the sums run in another order).
+(normalised outputs of magnitude < 10; the sums run in another order);
+dg and dc, sums over 16 rows, atol 1e-4.
 """
 
 import numpy as np
@@ -12,9 +15,14 @@ import torch
 
 import jax.numpy as jnp
 
+import paddle_tpu_torch as tf
 from paddle_tpu.kernels import fused_residual as jfr
-from paddle_tpu_torch.errors import UnimplementedError
+from paddle_tpu_torch import layers as tl
+from paddle_tpu_torch.errors import InvalidArgumentError
+from paddle_tpu_torch.framework.registry import EmitContext
 from paddle_tpu_torch.kernels import fused_residual as tfr
+from paddle_tpu_torch.kernels import prng_mask
+from paddle_tpu_torch.kernels import sum_partials as tsp
 
 R, N = 16, 128
 EPS = 1e-5
@@ -73,12 +81,106 @@ def test_meta_tensor_gives_output_shape():
 
 
 def test_training_dropout_raises_on_every_device():
-    """Training dropout waits for the training slice's keep mask: the plain
-    version refuses it as the kernel does; shape inference of a training
-    program (meta tensors) still gets its output shape."""
+    """Training dropout without the op's seed words raises on every device
+    (a mask unrelated to the forward's would give wrong gradients); shape
+    inference of a training program (meta tensors) still gets its output
+    shape."""
     x, y, g, c = (torch.from_numpy(a) for a in _inputs(seed=3))
-    with pytest.raises(UnimplementedError):
+    with pytest.raises(InvalidArgumentError):
         tfr.fused_dropout_add_ln_fwd(x, y, g, c, rate=0.1, is_test=False)
+    with pytest.raises(InvalidArgumentError):
+        tfr.fused_dropout_add_ln_bwd(x, y, g, x, rate=0.1, is_test=False)
     meta = torch.empty(R, N, device="meta")
     out = tfr.fused_dropout_add_ln_fwd(meta, meta, rate=0.1, is_test=False)
     assert tuple(out.shape) == (R, N)
+
+
+def _d_out(seed=4):
+    return np.random.RandomState(seed).randn(R, N).astype(np.float32)
+
+
+@pytest.mark.parametrize("upscale", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_matches_pallas_interpret(rate, upscale):
+    x, y, g, c = _inputs(seed=5)
+    do = _d_out()
+    got = tfr.fused_dropout_add_ln_bwd(
+        *(torch.from_numpy(a) for a in (x, y, g, do)), rate=rate,
+        is_test=True, upscale=upscale, eps=EPS)
+    want = jfr.fused_dropout_add_ln_bwd(
+        *(jnp.asarray(a) for a in (x, y, g)), jnp.zeros(2, jnp.uint32),
+        jnp.asarray(do), rate, True, upscale, EPS, interpret=True)
+    for name, a, b, atol in zip(("dx", "dy", "dg", "dc"), got, want,
+                                (1e-5, 1e-5, 1e-4, 1e-4)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("upscale", [False, True])
+def test_training_backward_is_the_gradient_of_the_training_forward(upscale):
+    """With dropout in training, the plain backward equals autograd's
+    gradient of the plain forward under the same seed words, and dy is
+    zero exactly where the forward dropped y."""
+    seed = (5, 6)
+    x, y, g, c = (torch.from_numpy(a).requires_grad_()
+                  for a in _inputs(seed=6))
+    do = torch.from_numpy(_d_out())
+    kw = dict(rate=0.3, is_test=False, upscale=upscale, eps=EPS, seed=seed)
+    out = tfr.fused_dropout_add_ln_fwd(x, y, g, c, **kw)
+    want = torch.autograd.grad(out, (x, y, g, c), do)
+    got = tfr.fused_dropout_add_ln_bwd(x.detach(), y.detach(), g.detach(),
+                                       do, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    keep = prng_mask.keep_mask(seed, 0.3, R, N)
+    assert torch.equal(got[1] == 0, ~keep) and 0.5 < keep.float().mean() < 0.9
+    # the forward ignores a dropped y entirely
+    y2 = torch.where(keep, y.detach(), torch.full_like(y, 1e3))
+    torch.testing.assert_close(
+        tfr.fused_dropout_add_ln_fwd(x.detach(), y2, g.detach(), c.detach(),
+                                     **kw), out.detach(), rtol=0, atol=0)
+
+
+def test_autograd_function_matches_the_grad_op():
+    """FusedDropoutAddLn's gradients equal the fused_dropout_add_ln_grad
+    op's outputs in a training program with dropout, under the op's seed
+    words."""
+    x, y, _, _ = _inputs(seed=7)
+    w = _d_out(seed=8)
+    main, startup = tf.Program(), tf.Program()
+    main.random_seed = startup.random_seed = 9
+    with tf.unique_name.guard(), tf.program_guard(main, startup):
+        vx = tf.data("x", [R, N], "float32")
+        vy = tf.data("y", [R, N], "float32")
+        vw = tf.data("w", [R, N], "float32")
+        vx.stop_gradient = vy.stop_gradient = False
+        out = tl.fused_dropout_add_ln(vx, vy, dropout_prob=0.3)
+        loss = tl.reduce_sum(tl.elementwise_mul(out, vw))
+        pg = tf.append_backward(
+            loss, parameter_list=[vx, vy] + main.all_parameters())
+    op = next(o for o in main.global_block.ops
+              if o.type == "fused_dropout_add_ln")
+    assert [p.name for p, _ in pg] == op.input_names()
+    scope, exe = tf.Scope(), tf.Executor(tf.CPUPlace())
+    exe.run(startup, scope=scope)
+    gam, bet = (scope.find_var(n).clone() for n in op.input_names()[2:])
+    fetch = [out] + [grad for _, grad in pg]
+    got = exe.run(main, feed={"x": x, "y": y, "w": w}, fetch_list=fetch,
+                  scope=scope)
+    words = EmitContext("cpu", seed=9, step=0).seed_words(op.uid, op.type)
+    tx, ty = (torch.from_numpy(a).requires_grad_() for a in (x, y))
+    gam.requires_grad_()
+    bet.requires_grad_()
+    o = tfr.fused_dropout_add_ln(tx, ty, gam, bet, rate=0.3, is_test=False,
+                                 seed=words)
+    want = torch.autograd.grad(o, (tx, ty, gam, bet), torch.from_numpy(w))
+    np.testing.assert_array_equal(o.detach().numpy(), got[0])
+    for a, b in zip(want, got[1:]):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-5)
+
+
+def test_sum_partials_plain_version():
+    part = torch.from_numpy(
+        np.random.RandomState(0).randn(2, 7, 33).astype(np.float32))
+    np.testing.assert_allclose(tsp.sum_partials(part).numpy(),
+                               part.numpy().sum(1), rtol=0, atol=1e-6)
