@@ -12,7 +12,8 @@ Phases, each fatal on failure:
    at the serving path's shapes in test mode, and at the training path's
    shapes with training dropout (both draw the same Philox mask), forward
    and backward, in fp32 and bf16; check the kernels' keep mask against
-   the plain one, its keep rate and its independence from the tiling;
+   the plain one, its keep rate and its independence from the tiling; the
+   KV-tiled kernels at S = 1152 and 2048, training dropout on and off;
 4. serving path: build the BERT-base classifier of bench_serving.py's
    bert_classify mix (full width, random weights from a seed), freeze it,
    serve requests through paddle_tpu_torch.serving.Server, check every
@@ -34,8 +35,22 @@ Phases, each fatal on failure:
    and 24 residual backward kernels; step time, tokens/s, peak memory,
    and the profiled step's card busy time by kind of kernel, idle share
    and host-device synchronisations;
-7. kernel times: each kernel beside its plain version, its bound and one
-   PyTorch call, at the serving and at the training shapes.
+7. GPT training, reduced depth: bench.py's bench_gpt_longctx program at
+   GPT-small width with 2 layers, B=1, S=2048 (the KV-tiled path), no
+   dropout, two Adam steps on the card and on the CPU from one state,
+   under phase 5's tolerances;
+8. GPT training path: bench_gpt_longctx at GPT-small (V=32000), B=4,
+   S=2048, dropout 0.1, Adam(1e-4), fp32 (its AMP is not ported yet): 3
+   warm-up and 5 timed steps, one under torch.profiler; every step
+   launches the tiled forward, dq and dkv kernels 12 times each and the
+   whole-row attention never;
+9. GPT serving path: GPTConfig.small() through the KV-cache generator
+   (batch 8, context 128, 128 new tokens) behind serving.Server on a
+   generate endpoint; the served tokens against full recompute on the card
+   (the whole-row kernel, causal, test mode), near-ties counted, and the
+   prefill and first decode step's logits against the CPU;
+10. kernel times: each kernel beside its plain version, its bound and one
+   PyTorch call, at the serving, the BERT training and the GPT shapes.
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -87,6 +103,9 @@ TOL = {
                      torch.bfloat16: (5e-5, 2 ** -7)},
     "residual_sums": {torch.float32: (1e-3, 1e-5),
                       torch.bfloat16: (1e-3, 1e-5)},
+    # the tiled forward's row logsumexp, fp32 for both input dtypes: a
+    # log of up to 2048 terms summed in another order, values near 10
+    "lse": {torch.float32: (1e-5, 0.0)},
 }
 # training parity (phases 3 and 6): BERT's dropout, seed words of a mask
 TRAIN_RATE = 0.1
@@ -105,6 +124,13 @@ SMALL_LR = 1e-3
 UPDATE_RTOL, UPDATE_AGREE, UPDATE_EXEMPT = 1e-3, 1e-4, 0.02
 # served / direct / CPU probabilities: 12 fp32 layers summed in other orders
 PROB_ATOL = 1e-4
+# bench_gpt_longctx's batch and sequence on an accelerator
+GPT_B, GPT_S = 4, 2048
+# GPT serving (GPTConfig.small()): a batch of 8 generates 128 tokens after
+# a context of 128 (full recompute at S=256); prefill and decode logits on
+# the card vs the CPU, and the top two logits of a near-tie, within 1e-4
+GEN_BATCH, GEN_CTX, GEN_MAX, GEN_NEW, GEN_ROUNDS = 8, 128, 256, 128, 3
+LOGIT_ATOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -116,7 +142,7 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def counters(fa, fr, sp):
+def counters(fa, fr, sp, ft):
     """{kernel: (wrapper, attribute)} of every launch counter."""
     return {
         "attention_fwd": (fa.fused_attention_qkv, "launches"),
@@ -125,6 +151,9 @@ def counters(fa, fr, sp):
         "residual_fwd": (fr.fused_dropout_add_ln_fwd, "launches"),
         "residual_bwd": (fr.fused_dropout_add_ln_bwd, "launches"),
         "sum_partials": (sp.sum_partials, "launches"),
+        "tiled_fwd": (ft.flash_tiled_fwd, "launches"),
+        "tiled_bwd_dq": (ft.flash_tiled_bwd, "launches_dq"),
+        "tiled_bwd_dkv": (ft.flash_tiled_bwd, "launches_dkv"),
     }
 
 
@@ -135,6 +164,29 @@ def reset_counts(kc):
 
 def read_counts(kc):
     return {name: getattr(obj, attr) for name, (obj, attr) in kc.items()}
+
+
+def ptxas_usage(report):
+    """[(kernel, registers, spill line)] from ptxas -v output: each entry
+    function's name (with its dtype and head dim where it is a template),
+    its spills and its registers."""
+    out, kernel, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"entry function '\w*?\d([a-z]\w*?_kernel)(I\w*)?", line)
+        if m:
+            kernel, spill = m.group(1), ""
+            args = m.group(2) or ""
+            if args:
+                dtype = "bf16" if "bfloat16" in args else "f32"
+                dim = re.search(r"Li(\d+)E", args)
+                kernel += f"<{dtype}{', ' + dim.group(1) if dim else ''}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and kernel:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((kernel, regs, spill))
+            kernel = None
+    return out
 
 
 def gpu_line():
@@ -171,8 +223,9 @@ def traced_ms(fn, frags, iters=10):
     """{fragment: median device time in ms of the kernel whose name holds
     it} over iters + 2 calls of fn traced by torch.profiler (after 3
     untraced calls). Each call launches each such kernel once; the trace
-    may miss a launch at its start (seen on the H100), so it must hold
-    at least iters of each."""
+    may lose launches (seen on the H100: up to 3 of 12; the launch
+    counters, not the trace, show that each call launched), so it must
+    hold at least half of the calls' launches of each."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -189,7 +242,7 @@ def traced_ms(fn, frags, iters=10):
                 if f in ev.name:
                     times[f].append(ev.device_time / 1e3)
     for f, ts in times.items():
-        check(iters <= len(ts) <= iters + 2,
+        check(iters // 2 <= len(ts) <= iters + 2,
               f"traced {len(ts)} launches of {f} in {iters + 2} calls")
     return {f: statistics.median(ts) for f, ts in times.items()}
 
@@ -217,12 +270,21 @@ def res_inputs(R, N, dtype, seed):
     return x, y, gam, beta
 
 
-def attn_bound(qkv, bias, H):
+def live_pairs(S, causal):
+    """(query, key) pairs an attention row set computes: S^2, or the
+    S(S+1)/2 on and below the diagonal under a causal mask."""
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def attn_bound(qkv, bias, H, causal=False):
     B, S, three_hd = qkv.shape
     D = three_hd // 3 // H
     es = qkv.element_size()
-    nbytes = qkv.numel() * es + bias.numel() * 4 + B * S * H * D * es
-    ops = 4 * B * H * S * S * D  # q k^T and p v, two flops per product
+    nbytes = qkv.numel() * es + B * S * H * D * es
+    if bias is not None:
+        nbytes += bias.numel() * 4
+    # q k^T and p v over the live pairs, two flops per product
+    ops = 4 * B * H * D * live_pairs(S, causal)
     return bound(nbytes, ops, qkv.dtype)
 
 
@@ -376,6 +438,55 @@ def train_parity(fa, fr, pm):
         check(torch.equal(tile, full[..., r0:r0 + 64, c0:c0 + 64]),
               f"mask tile at ({r0}, {c0}) differs from the whole mask")
     print("kernel mask == plain mask; tiles == slices of the whole mask")
+    return err
+
+
+def tiled_parity(ft):
+    """#7-#9 against their plain versions on the card at GPT's width (H=12,
+    D=64), S in {1152, 2048}, B in {1, 4}: causal without a key bias (as
+    GPT) and non-causal with padded keys, dropout 0.1 in training and in
+    test mode, fp32 and bf16. Returns the fp32 errors at the GPT training
+    path's case (B=4, S=2048, causal, training)."""
+    print("== parity, tiled: #7-#9 vs plain version on the card")
+    H, D, err = 12, 64, {}
+    for B, S in ((1, 1152), (GPT_B, GPT_S)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                for training in (False, True):
+                    qkv, bias = attn_inputs(B, H, D, dtype, SEED + S + B,
+                                            S=S)
+                    bias = None if causal else bias
+                    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+                    do = torch.randn(B, S, H * D, generator=g,
+                                     device="cuda").to(dtype)
+                    seed = MASK_SEED if training else None
+                    kw = dict(scale=0.125, rate=TRAIN_RATE,
+                              is_test=not training, causal=causal)
+                    tag = (f"B={B} S={S} {str(dtype)[6:]} causal={causal} "
+                           f"training={training}")
+                    out, lse = ft.flash_tiled_fwd(qkv, bias, seed, H, D, **kw)
+                    want_o, want_l = ft.reference_fwd(qkv, bias, seed, H, D,
+                                                      **kw)
+                    e_f = compare(out, want_o, "attention", dtype,
+                                  f"tiled fwd {tag}")
+                    compare(lse, want_l, "lse", torch.float32,
+                            f"tiled fwd lse {tag}")
+                    dqkv, dbias = ft.flash_tiled_bwd(
+                        qkv, bias, seed, do, out, lse, H, D,
+                        want_dbias=bias is not None, **kw)
+                    want_q, want_b = ft.reference_bwd(qkv, bias, seed, do,
+                                                      out, lse, H, D, **kw)
+                    e_q = compare(dqkv[..., :H * D], want_q[..., :H * D],
+                                  "attention_bwd", dtype, f"tiled dq {tag}")
+                    e_kv = compare(dqkv[..., H * D:], want_q[..., H * D:],
+                                   "attention_bwd", dtype, f"tiled dkv {tag}")
+                    if bias is not None:
+                        compare(dbias, want_b, "attention_bwd", torch.float32,
+                                f"tiled dbias {tag}")
+                    if (B, S, dtype, causal, training) == (
+                            GPT_B, GPT_S, torch.float32, True, True):
+                        err = dict(tiled_fwd=e_f, tiled_bwd_dq=e_q,
+                                   tiled_bwd_dkv=e_kv)
     return err
 
 
@@ -618,7 +729,6 @@ def bench_batches(cfg, B, S, P, n):
 def train_small(fluid, layers):
     """Two Adam steps at BERT-base width, 2 layers, on the card and on the
     CPU from one state."""
-    from paddle_tpu_torch import convert
     from paddle_tpu_torch.models.bert import BertConfig
 
     print("== training, reduced depth: BERT-base width, 2 layers, B=2, "
@@ -631,6 +741,15 @@ def train_small(fluid, layers):
     feeds = bench_batches(cfg, 2, 128, P, 2)
     for f in feeds:
         f["mask"][1, 100:] = 0.0  # padded keys in the second sample
+    card_vs_cpu(fluid, main, startup, loss, pg, feeds)
+
+
+def card_vs_cpu(fluid, main, startup, loss, pg, feeds):
+    """One Adam step per feed on the card and on the CPU from one state,
+    under the tolerances above: the loss, every @GRAD, the moments, beta
+    powers, lr and counters, and each parameter's update."""
+    from paddle_tpu_torch import convert
+
     gexe, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     gexe.run(startup, scope=gscope)
     start = convert.state_to_numpy(gscope)
@@ -678,14 +797,14 @@ def train_small(fluid, layers):
                                            SMALL_LR)
     moved += sum(not np.array_equal(start[n], cend[n]) for n in grads)
     check(moved > 3 * len(pg), f"only {moved} state tensors moved")
-    print(f"2 steps, {len(pg)} gradients, {len(cend)} state tensors "
-          f"({moved} moved); max error vs CPU: loss {worst['loss']:.2e} "
-          f"relative, @GRAD {worst['grad']:.2e}, moments {worst_m:.2e}, "
-          f"beta powers and lr {worst_s:.2e} relative, parameter updates "
-          f"{worst_u:.2e} of (|update| + lr) over {total - exempt} "
-          f"elements ({exempt} of {total} exempt, gradients apart by more "
-          f"than {UPDATE_AGREE:g}) (bounds 1e-5, 1e-5 + 1e-3|g|, 1e-7 + "
-          f"1e-3|m|, 1e-6, {UPDATE_RTOL:g}); "
+    print(f"{len(feeds)} steps, {len(pg)} gradients, {len(cend)} state "
+          f"tensors ({moved} moved); max error vs CPU: loss "
+          f"{worst['loss']:.2e} relative, @GRAD {worst['grad']:.2e}, moments "
+          f"{worst_m:.2e}, beta powers and lr {worst_s:.2e} relative, "
+          f"parameter updates {worst_u:.2e} of (|update| + lr) over "
+          f"{total - exempt} elements ({exempt} of {total} exempt, gradients "
+          f"apart by more than {UPDATE_AGREE:g}) (bounds 1e-5, 1e-5 + "
+          f"1e-3|g|, 1e-7 + 1e-3|m|, 1e-6, {UPDATE_RTOL:g}); "
           f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -722,6 +841,9 @@ KINDS = (
     ("attention forward (ours)", ("attn_fwd_kernel",)),
     ("attention backward (ours)", ("attn_bwd_dq_kernel",
                                    "attn_bwd_dkv_kernel")),
+    ("tiled attention forward (ours)", ("tiled_fwd_kernel",)),
+    ("tiled attention backward (ours)", ("tiled_dq_kernel",
+                                         "tiled_dkv_kernel")),
     ("residual fwd/bwd + sum_partials (ours)",
      ("ln_fwd_kernel", "ln_bwd_kernel", "sum_partials_kernel")),
     ("matmul (cuBLAS)", ("gemm", "sgemm", "cutlass", "xmma", "sm90_")),
@@ -768,12 +890,71 @@ def profile_step(run):
                 busy_ms_by_kind=kinds, syncs=syncs)
 
 
+def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
+              after=None, warm=3, timed=5):
+    """warm + timed steps through Executor.run, then one under
+    torch.profiler; each step must launch the kernels of `expect`. after(i,
+    values) checks step i's fetched scalars. Returns (every step's values,
+    stats: step time median [min, max] of the timed steps, tokens/s, the
+    time until Executor.run returned, peak memory, the profile)."""
+    steps = warm + timed + 1  # the last one runs under the profiler
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kc)
+    values, host, wall = [], [], []
+    for i in range(steps):
+        before = read_counts(kc)
+        outs = []
+
+        def run(i=i, outs=outs):
+            outs += exe.run(main, feed=batches[i % len(batches)],
+                            fetch_list=fetch, scope=scope,
+                            return_numpy=False)
+
+        if i == steps - 1:
+            prof = profile_step(run)
+        else:
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        now = read_counts(kc)
+        step = {k: now[k] - before[k] for k in now}
+        check(step == expect, f"step {i} launched {step}, want {expect}")
+        values.append([o.item() for o in outs])
+        if after is not None:
+            after(i, values[-1])
+        if i == steps - 1:
+            continue
+        if i >= warm:
+            host.append(t1 - t0)
+            wall.append(t2 - t0)
+        shown = ", ".join(f"{n} {v:.4g}" for n, v in zip(labels, values[-1]))
+        print(f"  step {i}: {shown}, {(t2 - t0) * 1e3:.1f} ms "
+              f"({(t1 - t0) * 1e3:.1f} ms until Executor.run returned)")
+    check(all(math.isfinite(v[0]) for v in values),
+          f"losses {[v[0] for v in values]}")
+    med = statistics.median(wall)
+    stats = dict(step_ms=med * 1e3, step_ms_min=min(wall) * 1e3,
+                 step_ms_max=max(wall) * 1e3,
+                 host_ms=statistics.median(host) * 1e3,
+                 tokens_per_s=tokens / med,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 final_loss=values[-1][0], steps=steps, profile=prof)
+    print(f"step time (median [min, max] of {timed} after {warm} warm-up "
+          f"steps): {stats['step_ms']:.1f} ms [{stats['step_ms_min']:.1f}, "
+          f"{stats['step_ms_max']:.1f}], {stats['tokens_per_s']:.0f} "
+          f"tokens/s; Executor.run returned after {stats['host_ms']:.1f} ms "
+          f"(host); peak memory {stats['peak_gib']:.2f} GiB")
+    return values, stats
+
+
 def train_full(fluid, layers, kc):
     """bench_bert's training step at BertConfig.base(), B=32, S=512."""
     from paddle_tpu_torch.models.bert import BertConfig
 
-    B, S, warm, timed = 32, 512, 3, 5
-    steps = warm + timed + 1  # the last one runs under the profiler
+    B, S = 32, 512
     print(f"== training path: bench_bert at BertConfig.base(), B={B}, "
           f"S={S}, dropout 0.1, Adam under linear warmup over polynomial "
           "decay, fp32")
@@ -790,69 +971,259 @@ def train_full(fluid, layers, kc):
                for b in bench_batches(cfg, B, S, P, 4)]
     watch = ("bert_l0_attn_qkv_w", "bert_l11_ffn_out_w", "mlm_out_w")
     snap = {n: scope.find_var(n).clone() for n in watch}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     expect = {"attention_fwd": 12, "attention_bwd_dq": 12,
               "attention_bwd_dkv": 12, "residual_fwd": 24,
-              "residual_bwd": 24, "sum_partials": 24}
-    reset_counts(kc)
-    losses, lrs, host, wall = [], [], [], []
-    for i in range(steps):
-        before = read_counts(kc)
-        outs = []
+              "residual_bwd": 24, "sum_partials": 24, "tiled_fwd": 0,
+              "tiled_bwd_dq": 0, "tiled_bwd_dkv": 0}
 
-        def run(i=i, outs=outs):
-            outs += exe.run(main, feed=batches[i % 4], fetch_list=[loss, lr],
-                            scope=scope, return_numpy=False)
-
-        if i == steps - 1:
-            prof = profile_step(run)
-        else:
-            t0 = time.perf_counter()
-            run()
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        after = read_counts(kc)
-        step = {k: after[k] - before[k] for k in after}
-        check(step == expect, f"step {i} launched {step}, want {expect}")
-        losses.append(outs[0].item())
-        lrs.append(outs[1].item())
+    def after(i, values):
+        lr_i = values[1]
         changed = [n for n in watch
                    if not torch.equal(scope.find_var(n), snap[n])]
         if i == 0:
-            check(lrs[0] == 0.0 and not changed,
-                  f"step 0 (lr {lrs[0]}) moved {changed}")
+            check(lr_i == 0.0 and not changed,
+                  f"step 0 (lr {lr_i}) moved {changed}")
         elif i == 1:
-            check(lrs[1] > 0.0 and len(changed) == len(watch),
-                  f"step 1 (lr {lrs[1]}) moved only {changed}")
-        if i == steps - 1:
-            continue
-        if i >= warm:
-            host.append(t1 - t0)
-            wall.append(t2 - t0)
-        print(f"  step {i}: loss {losses[-1]:.4f}, lr {lrs[-1]:.3e}, "
-              f"{(t2 - t0) * 1e3:.1f} ms ({(t1 - t0) * 1e3:.1f} ms until "
-              f"Executor.run returned)")
+            check(lr_i > 0.0 and len(changed) == len(watch),
+                  f"step 1 (lr {lr_i}) moved only {changed}")
+
+    values, stats = run_steps(exe, main, scope, batches, [loss, lr],
+                              ("loss", "lr"), kc, expect, B * S, after)
     counts = read_counts(kc)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counter = int(scope.find_var("@LR_DECAY_COUNTER@").item())
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(counter == steps - 1, f"step counter {counter}")
-    med = statistics.median(wall)
-    stats = dict(step_ms=med * 1e3, step_ms_min=min(wall) * 1e3,
-                 step_ms_max=max(wall) * 1e3,
-                 host_ms=statistics.median(host) * 1e3,
-                 tokens_per_s=B * S / med, peak_gib=peak,
-                 final_loss=losses[-1], steps=steps, profile=prof)
-    print(f"step time (median [min, max] of {timed} after {warm} warm-up "
-          f"steps): {stats['step_ms']:.1f} ms [{stats['step_ms_min']:.1f}, "
-          f"{stats['step_ms_max']:.1f}], {stats['tokens_per_s']:.0f} "
-          f"tokens/s; Executor.run returned after {stats['host_ms']:.1f} ms "
-          f"(host); peak memory {peak:.2f} GiB; counter {counter}")
-    print(f"launches on the training path ({steps} steps): {counts}")
+    check(counter == stats["steps"] - 1, f"step counter {counter}")
+    print(f"step counter {counter}; launches on the training path "
+          f"({stats['steps']} steps): {counts}")
     print("training: " + json.dumps(stats))
     del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# GPT: bench.py's bench_gpt_longctx program, and KV-cache serving
+# ---------------------------------------------------------------------------
+
+def gpt_longctx_config(num_layers=12):
+    """bench_gpt_longctx's GPT-small on an accelerator, S = 2048."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=32000, hidden_size=768,
+                     num_layers=num_layers, num_heads=12,
+                     intermediate_size=3072, max_position=GPT_S)
+
+
+def build_bench_gpt(fluid, cfg, B, S, lr):
+    """bench.py's bench_gpt_longctx program (without its AMP): gpt_lm_loss
+    with Adam at a constant lr. Returns (main, startup, loss, params_grads)."""
+    from paddle_tpu_torch.models.gpt import gpt_lm_loss
+    from paddle_tpu_torch.optimizer import Adam
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [B, S], "int64")
+        loss = gpt_lm_loss(ids, cfg)
+        _, pg = Adam(lr).minimize(loss, startup)
+    return main, startup, loss, pg
+
+
+def gpt_batches(cfg, B, S):
+    """bench_gpt_longctx's two int32 batches from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    return [{"ids": rng.randint(0, cfg.vocab_size, (B, S)).astype("int32")}
+            for _ in range(2)]
+
+
+def gpt_train_small(fluid):
+    """Two Adam steps of the bench_gpt_longctx program at GPT-small width
+    with 2 layers, B=1, S=2048 (the tiled path), dropout 0, on the card
+    and on the CPU from one state, under phase 5's tolerances."""
+    print("== GPT training, reduced depth: GPT-small width, 2 layers, B=1, "
+          f"S={GPT_S}, no dropout, lr {SMALL_LR:g}; card vs CPUPlace()")
+    cfg = gpt_longctx_config(num_layers=2)
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    main, startup, loss, pg = build_bench_gpt(fluid, cfg, 1, GPT_S, SMALL_LR)
+    check(sum(op.type == "fused_qkv_attention_grad" and "Lse" in op.inputs
+              for op in main.global_block.ops) == 2,
+          "the grad ops do not read the saved Lse")
+    card_vs_cpu(fluid, main, startup, loss, pg, gpt_batches(cfg, 1, GPT_S))
+
+
+def gpt_train_full(fluid, kc):
+    """bench_gpt_longctx's training step at GPT-small, B=4, S=2048,
+    dropout 0.1, Adam(1e-4), fp32 (the JAX package adds AMP bf16 on an
+    accelerator; AMP is not ported yet)."""
+    B, S = GPT_B, GPT_S
+    print(f"== GPT training path: bench_gpt_longctx at GPT-small (V=32000, "
+          f"hidden 768, 12 layers, 12 heads), B={B}, S={S}, dropout 0.1, "
+          "Adam(1e-4), fp32")
+    cfg = gpt_longctx_config()
+    t0 = time.perf_counter()
+    main, startup, loss, pg = build_bench_gpt(fluid, cfg, B, S, 1e-4)
+    ops = main.global_block.ops
+    print(f"{len(ops)} ops of {len({op.type for op in ops})} types, "
+          f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in gpt_batches(cfg, B, S)]
+    watch = ("gpt_l0_attn_qkv_w", "gpt_l11_mlp_out_w", "lm_head_w")
+    snap = {n: scope.find_var(n).clone() for n in watch}
+    # the tiled kernels once per layer each, the forward never again in
+    # the backward; no whole-row attention, no residual kernel, no dbias
+    expect = dict.fromkeys(kc, 0)
+    expect.update(tiled_fwd=12, tiled_bwd_dq=12, tiled_bwd_dkv=12)
+
+    def after(i, values):
+        if i == 0:
+            moved = [n for n in watch
+                     if not torch.equal(scope.find_var(n), snap[n])]
+            check(len(moved) == len(watch), f"step 0 moved only {moved}")
+
+    _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",), kc,
+                         expect, B * S, after)
+    counts = read_counts(kc)
+    print(f"launches on the GPT training path ({stats['steps']} steps): "
+          f"{counts}")
+    print("gpt training: " + json.dumps(stats))
+    del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+    return counts
+
+
+def near_ties(gen, ctx, cached, full):
+    """Rows where the cached tokens differ from full recompute's. At a
+    row's first difference the two top logits of full recompute at that
+    step (a run over the shared prefix) must lie within LOGIT_ATOL: greedy
+    decoding on random weights meets near-ties, which sums in another
+    order may break either way. A row is not compared past it. Returns
+    (rows, full-recompute runs made)."""
+    diff = cached != full
+    rows = np.nonzero(diff.any(1))[0]
+    if not len(rows):
+        return 0, 0
+    logits = gen.full_recompute_logits(np.concatenate([ctx, cached], 1))
+    for r in rows:
+        t = int(np.argmax(diff[r]))  # its first differing step
+        top = logits[r, GEN_CTX + t - 1].topk(2).values
+        gap = (top[0] - top[1]).item()
+        print(f"  row {r}: tokens differ from step {t}; top two logits "
+              f"{gap:.2e} apart")
+        check(gap <= LOGIT_ATOL, f"row {r} step {t}: cached and full "
+              f"recompute disagree where no tie is ({gap:.2e})")
+    return len(rows), 1
+
+
+def gpt_serving(fluid, kc):
+    """GPTConfig.small() through the KV-cache generator behind
+    serving.Server, checked against full recompute on the card (#1, causal,
+    test mode) and against the port's CPU run of the prefill and the first
+    decode step. Returns the phase's launch counts."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.errors import InvalidArgumentError
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_cache_names
+    from paddle_tpu_torch.serving import (
+        EndpointConfig,
+        GPTGenerateRunner,
+        GPTGenerator,
+        Server,
+    )
+
+    print(f"== GPT serving path: GPTConfig.small() (V=50257, 12 layers) "
+          f"through the KV cache, batch {GEN_BATCH}, context {GEN_CTX}, "
+          f"{GEN_NEW} new tokens, behind serving.Server")
+    cfg = GPTConfig.small()
+    gen = GPTGenerator(cfg, GEN_BATCH, GEN_CTX, GEN_MAX,
+                       executor=fluid.Executor(fluid.CUDAPlace(0)))
+    gen.init_params(seed=SEED)
+    rng = np.random.RandomState(SEED)
+    contexts = [rng.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_CTX))
+                for _ in range(GEN_ROUNDS)]
+
+    cpu = GPTGenerator(cfg, GEN_BATCH, GEN_CTX, GEN_MAX,
+                       executor=fluid.Executor(fluid.CPUPlace()))
+    convert.state_from_numpy(convert.state_to_numpy(gen.scope), cpu.scope,
+                             fluid.CPUPlace(), program=cpu.prefill_prog,
+                             exclude=gpt_cache_names(cfg))
+    errs = []
+    for g in (gen, cpu):
+        g.reset()
+    logits = [g.prefill(contexts[0]).cpu() for g in (gen, cpu)]
+    errs.append((logits[0] - logits[1]).abs().max().item())
+    tok = logits[0][:, -1].argmax(-1).numpy()
+    logits = [g.decode(tok, GEN_CTX).cpu() for g in (gen, cpu)]
+    errs.append((logits[0] - logits[1]).abs().max().item())
+    print(f"card vs CPUPlace(), same weights: prefill logits max_abs_err "
+          f"{errs[0]:.3e}, first decode step {errs[1]:.3e} (tol "
+          f"{LOGIT_ATOL:g})")
+    check(max(errs) <= LOGIT_ATOL, f"card and CPU logits differ: {errs}")
+    del cpu
+
+    # the steps alone: prefill, then decode steps with the host's argmax
+    prefill_ms, decode_ms = [], []
+    for _ in range(3):
+        gen.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = gen.prefill(contexts[0])[:, -1].argmax(-1).cpu().numpy()
+        t1 = time.perf_counter()
+        for t in range(1, GEN_NEW):
+            tok = gen.decode(tok, GEN_CTX + t - 1)[:, -1].argmax(-1)
+            tok = tok.cpu().numpy()
+        t2 = time.perf_counter()
+        prefill_ms.append((t1 - t0) * 1e3)
+        decode_ms.append((t2 - t1) * 1e3 / (GEN_NEW - 1))
+
+    runner = GPTGenerateRunner(gen, GEN_NEW)
+    srv = Server()
+    reset_counts(kc)
+    try:
+        try:
+            srv.add_endpoint("gpt_bad", runner, EndpointConfig(buckets=(1, 8)))
+            check(False, "a generate endpoint took buckets (1, 8)")
+        except InvalidArgumentError:
+            pass
+        ep = srv.add_endpoint("gpt", runner, EndpointConfig(
+            buckets=(GEN_BATCH,), max_wait_ms=50.0))
+        served, walls = [], []
+        for ctx in contexts:
+            t0 = time.perf_counter()
+            futs = [srv.submit("gpt", {"context_ids": r}) for r in ctx]
+            served.append(np.stack([f.result(timeout=600)[0] for f in futs]))
+            walls.append(time.perf_counter() - t0)
+        batches = list(ep.batches)
+    finally:
+        check(srv.close(timeout=300), "server did not drain")
+    check(batches == [(GEN_BATCH, GEN_BATCH)] * GEN_ROUNDS,
+          f"served batches {batches}")
+    ties, extra = 0, 0
+    for ctx, cached in zip(contexts, served):
+        check(cached.shape == (GEN_BATCH, GEN_NEW)
+              and ((cached >= 0) & (cached < cfg.vocab_size)).all(),
+              f"served tokens: shape {cached.shape} or out of range")
+        full = gen.generate_full_recompute(ctx, GEN_NEW)
+        rows, runs = near_ties(gen, ctx, cached, full)
+        ties, extra = ties + rows, extra + runs
+    counts = read_counts(kc)
+    want = cfg.num_layers * (GEN_ROUNDS * GEN_NEW + extra)
+    check(counts["attention_fwd"] == want and
+          sum(counts.values()) == want,
+          f"launches {counts}: want {want} of #1 (full recompute) only")
+    stats = dict(prefill_ms=statistics.median(prefill_ms),
+                 decode_ms_per_step=statistics.median(decode_ms),
+                 tokens_per_s=GEN_BATCH * GEN_NEW / statistics.median(walls),
+                 round_s=walls, near_tie_rows=ties,
+                 rows=GEN_ROUNDS * GEN_BATCH)
+    print(f"served {GEN_ROUNDS} rounds of {GEN_BATCH} requests: "
+          f"{[f'{w:.2f}' for w in walls]} s a round; cached tokens == full "
+          f"recompute on the card but for {ties} of "
+          f"{GEN_ROUNDS * GEN_BATCH} rows (near-ties); prefill "
+          f"{stats['prefill_ms']:.1f} ms, decode {stats['decode_ms_per_step']:.2f} "
+          f"ms a step, {stats['tokens_per_s']:.0f} generated tokens/s at "
+          f"batch {GEN_BATCH}; launches {counts}")
+    print("gpt serving: " + json.dumps(stats))
+    del gen, runner
     torch.cuda.empty_cache()
     return counts
 
@@ -1043,6 +1414,104 @@ def train_kernel_times(fa, fr, sp, err, launches):
     return rows
 
 
+def gpt_kernel_times(fa, ft, err, train_n, serve_n):
+    """#7-#9 at the GPT training path's shape (B=4, S=2048, H=12, D=64,
+    causal, no key bias, fp32, dropout 0.1 in training) and #1 at the GPT
+    serving path's full recompute (B=8, S=256, causal, test mode). Bounds
+    count the live S(S+1)/2 pairs of each head, two flops per
+    multiply-add, no recomputation; #7 reads qkv and writes out and lse;
+    the backward as a function does 8*B*H*D*pairs flops (dP, dQ to #9; dV,
+    dK to #8) and reads qkv, dO, out and lse once, split in halves between
+    the two kernels, #9 writing dq and #8 dk and dv. #8 and #9 are timed
+    from a torch.profiler trace of the wrapper's calls."""
+    import torch.nn.functional as F
+
+    B, S, H, D = GPT_B, GPT_S, 12, 64
+    f32, es = torch.float32, 4
+    print(f"== kernel times, GPT training shape (B={B}, S={S}, H={H}, D={D}, "
+          f"causal, fp32, dropout {TRAIN_RATE} in training)")
+    kw = dict(scale=0.125, rate=TRAIN_RATE, is_test=False, causal=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(B, S, 3 * H * D, generator=g, device="cuda")
+    do = torch.randn(B, S, H * D, generator=g, device="cuda")
+    q, k, v = (t.contiguous() for t in
+               qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4))
+    pairs = live_pairs(S, True)
+    head = B * S * H * D * es
+    lse_bytes = B * H * S * 4
+    rows = []
+    t_k = cuda_ms(lambda: ft.flash_tiled_fwd(qkv, None, MASK_SEED, H, D, **kw),
+                  iters=10, reps=5)
+    t_p = cuda_ms(lambda: ft.reference_fwd(qkv, None, MASK_SEED, H, D, **kw),
+                  iters=2, reps=3)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, dropout_p=TRAIN_RATE, scale=0.125),
+        iters=10, reps=5)
+    b = bound(qkv.numel() * es + head + lse_bytes, 4 * B * H * D * pairs, f32)
+    print(f"tiled fwd (#7): kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
+          f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    rows.append(row("flash_tiled_fwd", "gpt_training", "flash_tiled.cu",
+                    "paddle_tpu/kernels/flash_tiled.py:127",
+                    train_n["tiled_fwd"], err["tiled_fwd"], t_k, t_p, b, t_l))
+
+    out, lse = ft.flash_tiled_fwd(qkv, None, MASK_SEED, H, D, **kw)
+    t = traced_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
+                                             lse, H, D, **kw),
+                  ("tiled_dq_kernel", "tiled_dkv_kernel"))
+    t_dq, t_dkv = t["tiled_dq_kernel"], t["tiled_dkv_kernel"]
+    t_pair = cuda_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
+                                                lse, H, D, **kw),
+                     iters=10, reps=5)
+    t_p = cuda_ms(lambda: ft.reference_bwd(qkv, None, MASK_SEED, do, out, lse,
+                                           H, D, **kw), iters=2, reps=3)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        dropout_p=TRAIN_RATE, scale=0.125)
+    do4 = do.view(B, S, H, D).transpose(1, 2)
+    t_l = cuda_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4,
+                                              retain_graph=True),
+                  iters=10, reps=5)
+    reads = qkv.numel() * es + 2 * head + lse_bytes  # qkv, dO, out, lse
+    b_dq = bound(reads / 2 + head, 4 * B * H * D * pairs, f32)
+    b_dkv = bound(reads / 2 + 2 * head, 4 * B * H * D * pairs, f32)
+    print(f"tiled bwd: dq (#9) {t_dq:.3f} ms (bound {b_dq[0]:.3f}, "
+          f"{b_dq[1]}), dkv (#8) {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}, "
+          f"{b_dkv[1]}) (traced); both through the wrapper {t_pair:.3f} ms; "
+          f"plain {t_p:.3f} ms; sdpa backward {t_l:.3f} ms")
+    for which, src, t_w, b_w in (("dq", 342, t_dq, b_dq),
+                                 ("dkv", 269, t_dkv, b_dkv)):
+        rows.append(row(f"flash_tiled_bwd_{which}", "gpt_training",
+                        "flash_tiled.cu",
+                        f"paddle_tpu/kernels/flash_tiled.py:{src}",
+                        train_n[f"tiled_bwd_{which}"],
+                        err[f"tiled_bwd_{which}"], t_w, t_p, b_w, t_l))
+    del qkv, do, q, k, v, out, lse, qg, kg, vg, o4, do4
+    torch.cuda.empty_cache()
+
+    Bs, Ss = GEN_BATCH, GEN_MAX
+    print(f"== kernel times, GPT serving's full recompute (B={Bs}, S={Ss}, "
+          f"H={H}, D={D}, causal, test mode)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    qkv = torch.randn(Bs, Ss, 3 * H * D, generator=g, device="cuda")
+    skw = dict(scale=0.125, dropout_rate=RATE, is_test=True, causal=True)
+    e = compare(fa.fused_attention_qkv(qkv, H, **skw),
+                fa.reference_qkv(qkv, H, **skw), "attention", f32,
+                f"attention B={Bs} S={Ss} causal test mode")
+    q, k, v = qkv.view(Bs, Ss, 3, H, D).permute(2, 0, 3, 1, 4)
+    t_k = cuda_ms(lambda: fa.fused_attention_qkv(qkv, H, **skw))
+    t_p = cuda_ms(lambda: fa.reference_qkv(qkv, H, **skw))
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=0.125))
+    b = attn_bound(qkv, None, H, causal=True)
+    print(f"attention (#1): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
+          f"{t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    rows.append(row("flash_attention_qkv", "gpt_serving",
+                    "flash_attention_qkv.cu",
+                    "paddle_tpu/kernels/flash_attention.py:329",
+                    serve_n["attention_fwd"], e, t_k, t_p, b, t_l))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1051,6 +1520,7 @@ def main():
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import flash_tiled as ft
     from paddle_tpu_torch.kernels import fused_residual as fr
     from paddle_tpu_torch.kernels import prng_mask as pm
     from paddle_tpu_torch.kernels import sum_partials as sp
@@ -1066,21 +1536,25 @@ def main():
     report = _build.build()
     print(f"built {sorted(report)} in {time.perf_counter() - t0:.1f}s")
     for name, (secs, ptxas) in sorted(report.items()):
-        for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_usage(ptxas):
+            print(f"  {name}: {kernel} {regs} registers, {spill}")
 
-    kc = counters(fa, fr, sp)
+    kc = counters(fa, fr, sp, ft)
     main_err = parity(fa, fr)
     train_err = train_parity(fa, fr, pm)
+    tiled_err = tiled_parity(ft)
     frozen, exe, scope, samples, serve_n = main_path(fluid, layers, kc)
     serve_times(frozen, exe, scope, samples)
     del frozen, exe, scope
     torch.cuda.empty_cache()
     train_small(fluid, layers)
     train_n = train_full(fluid, layers, kc)
+    gpt_train_small(fluid)
+    gpt_train_n = gpt_train_full(fluid, kc)
+    gpt_serve_n = gpt_serving(fluid, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n)
+    rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n)
 
     print(json.dumps({"kernels": rows}))
     print(gpu)

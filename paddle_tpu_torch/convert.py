@@ -17,14 +17,19 @@ from .core.dtypes import to_numpy_dtype
 from .core.place import as_device
 
 
-def state_from_numpy(arrays, scope, place, program=None):
+def state_from_numpy(arrays, scope, place, program=None, exclude=()):
     """Load {name: np.ndarray} into `scope` as tensors on `place`; with
-    `program`, in the dtypes its variables declare."""
+    `program`, in the dtypes its variables declare. Names in `exclude`
+    are not carried (a generator's KV caches: runtime state, reset before
+    every generation)."""
     device = as_device(place)
     declared = {}
     if program is not None:
         declared = {v.name: v.dtype for v in program.list_vars()}
+    skip = set(exclude)
     for name, arr in arrays.items():
+        if name in skip:
+            continue
         arr = np.asarray(arr)
         if name in declared and declared[name] != "bfloat16":
             arr = arr.astype(to_numpy_dtype(declared[name]))

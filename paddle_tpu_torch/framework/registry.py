@@ -94,7 +94,7 @@ class OpView:
 
 class OpDef:
     def __init__(self, type, emit, input_slots, output_slots,
-                 differentiable=True, grad_maker=None):
+                 differentiable=True, grad_maker=None, mutates=()):
         self.type = type
         self.emit = emit  # fn(ctx, op, ins) -> outs (dict slot -> list)
         self.input_slots = tuple(input_slots)
@@ -104,6 +104,9 @@ class OpDef:
         # dedicated grad op; returning False declines, and the generic
         # __vjp__ replay (backward.py) takes the op instead
         self.grad_maker = grad_maker
+        # (output slot, input slot) pairs whose output is the input's
+        # tensor updated in place (kv_cache_write's Out is its Cache)
+        self.mutates = tuple(mutates)
 
 
 _REGISTRY: dict[str, OpDef] = {}

@@ -3,7 +3,8 @@
 Each source in csrc/ is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface, at first use, into `_build/` beside
 this file (listed in .gitignore). A library's file name carries a hash
-of its source, the csrc/ headers it includes (philox.cuh) and the flags,
+of its source, the csrc/ headers it includes (philox.cuh,
+attn_tiles.cuh) and the flags,
 so an edited source or header is rebuilt. `build()`
 starts one nvcc process per source, all at once. Nothing here runs at
 import time: the CPU tests import every module on a host without nvcc.
@@ -25,7 +26,8 @@ from ..errors import PreconditionNotMetError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention_qkv", "fused_dropout_add_ln", "sum_partials")
+SOURCES = ("flash_attention_qkv", "flash_tiled", "fused_dropout_add_ln",
+           "sum_partials")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,15 +3,9 @@
 //
 // Replaces the TPU kernels paddle_tpu/kernels/flash_attention.py:
 // _fwd_kernel_qkv (launched by _pallas_fwd_qkv) and _bwd_kernel_qkv
-// (launched by _pallas_bwd_qkv). Per batch b and head h of a packed
-// projection qkv[B, S, 3*H*D] (section i in {q, k, v}, head h at column
-// i*H*D + h*D):
-//
-//   s    = q k^T * scale + bias[b]     (bias: additive fp32 key bias [B, S];
-//                                       causal entries j > i at -1e30)
-//   p    = softmax(s)                  (fp32 statistics)
-//   out  = drop_scale * (keep . p) v   (keep: the Philox mask of
-//                                       philox.cuh, or all ones)
+// (launched by _pallas_bwd_qkv): attention over a packed projection
+// qkv[B, S, 3*H*D], as set out in attn_tiles.cuh, whose device code these
+// kernels share with the KV-tiled ones (flash_tiled.cu).
 //
 // drop_scale carries fluid's dropout: 1/(1-p) under upscale_in_train and 1
 // under downgrade_in_infer in training (use_mask = 1); 1-p or 1 in test
@@ -50,270 +44,24 @@
 // the design keeps every [S, S] tile out of device memory so bytes never
 // become the bound.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-
-#include <mutex>
-
-#include "philox.cuh"
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // query rows per block
-constexpr int BN = 64;          // keys per shared-memory tile
-constexpr int TPR = 4;          // threads per (query or key) row
-constexpr int THREADS = BM * TPR;
-constexpr int GROUPS = BN / 8;  // Philox blocks per tile row
-constexpr float NEG_INF = -1e30f;
-static_assert(BM == BN, "the backward's tiles are square");
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Dropout {
-  int use_mask;        // training dropout: apply the Philox keep mask
-  uint32_t seed0, seed1, threshold;
-  float scale;         // multiplier of a kept probability
-};
-
-template <int D>
-struct Layout {
-  // row strides in floats: +4 keeps rows 16-byte aligned for float4 and
-  // staggers consecutive rows by four banks (conflict-free float4 reads)
-  static constexpr int LD = D + 4;
-  static constexpr int PLD = BN + 4;
-  static constexpr size_t mask_bytes = BM * GROUPS;
-  static constexpr size_t fwd =
-      sizeof(float) * (size_t)(BM * LD + 2 * BN * LD + BM * PLD) + mask_bytes;
-  static constexpr size_t dq =
-      sizeof(float) * (size_t)(2 * BM * LD + 2 * BN * LD + BM * PLD) +
-      mask_bytes;
-  static constexpr size_t dkv =
-      sizeof(float) * (size_t)(2 * BM * LD + 2 * BN * LD + 2 * BN * PLD +
-                               2 * BM) +
-      mask_bytes;
-};
-
-// Load rows [r0, r0 + ROWS) of one head's D columns into shared memory as
-// fp32 (zeros past the sequence end).
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          long long row_stride, int r0,
-                                          int S, int tid) {
-  constexpr int LD = Layout<D>::LD;
-  for (int i = tid; i < ROWS * D; i += THREADS) {
-    const int rr = i / D, c = i % D, s = r0 + rr;
-    dst[rr * LD + c] = s < S ? to_f(src[(long long)s * row_stride + c]) : 0.f;
-  }
-}
-
-// Keep bytes of the (query rows q0.., keys k0..) tile: byte rr * GROUPS + g
-// holds the keep bits of keys k0 + 8g .. k0 + 8g + 7 for query q0 + rr.
-__device__ __forceinline__ void fill_mask(unsigned char* sM, const Dropout& dr,
-                                          int q0, int k0, int h, int b,
-                                          int tid) {
-  if (!dr.use_mask) return;
-  for (int i = tid; i < BM * GROUPS; i += THREADS) {
-    const int rr = i / GROUPS, g = i % GROUPS;
-    sM[i] = (unsigned char)philox::keep_byte(
-        (uint32_t)((k0 >> 3) + g), (uint32_t)(q0 + rr), (uint32_t)h,
-        (uint32_t)b, dr.seed0, dr.seed1, dr.threshold);
-  }
-}
-
-__device__ __forceinline__ bool kept(const unsigned char* sM, int use_mask,
-                                     int rr, int jl) {
-  return !use_mask || ((sM[rr * GROUPS + (jl >> 3)] >> (jl & 7)) & 1);
-}
-
-// dot products of one shared-memory row `a` with JPT rows of `bmat`
-// (rows t, t + TPR, ...), accumulated in ascending d with fmaf
-template <int D, int JPT>
-__device__ __forceinline__ void row_dots(float (&acc)[JPT], const float* a,
-                                         const float* bmat, int t) {
-  constexpr int LD = Layout<D>::LD;
-#pragma unroll
-  for (int jj = 0; jj < JPT; ++jj) acc[jj] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 av = *reinterpret_cast<const float4*>(a + d);
-#pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      const float4 bv =
-          *reinterpret_cast<const float4*>(bmat + (t + TPR * jj) * LD + d);
-      float x = acc[jj];
-      x = fmaf(av.x, bv.x, x);
-      x = fmaf(av.y, bv.y, x);
-      x = fmaf(av.z, bv.z, x);
-      x = fmaf(av.w, bv.w, x);
-      acc[jj] = x;
-    }
-  }
-}
-
-// acc[D/4 columns of this thread] += sum_j w[j] * mat[j, :] over BN rows
-template <int D>
-__device__ __forceinline__ void accumulate_rows(float* acc, const float* w,
-                                                const float* mat, int t) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int CHUNKS = D / (4 * TPR);
-#pragma unroll 2
-  for (int j = 0; j < BN; j += 4) {
-    const float4 wv = *reinterpret_cast<const float4*>(w + j);
-    const float wj[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float* mrow = mat + (j + u) * LD;
-#pragma unroll
-      for (int k = 0; k < CHUNKS; ++k) {
-        const float4 mv =
-            *reinterpret_cast<const float4*>(mrow + (k * TPR + t) * 4);
-        acc[4 * k + 0] = fmaf(wj[u], mv.x, acc[4 * k + 0]);
-        acc[4 * k + 1] = fmaf(wj[u], mv.y, acc[4 * k + 1]);
-        acc[4 * k + 2] = fmaf(wj[u], mv.z, acc[4 * k + 2]);
-        acc[4 * k + 3] = fmaf(wj[u], mv.w, acc[4 * k + 3]);
-      }
-    }
-  }
-}
+using namespace attn;
 
 template <typename T, int D>
-__device__ __forceinline__ void store_cols(T* row, const float* acc,
-                                           float mul, int t) {
-  constexpr int CHUNKS = D / (4 * TPR);
-#pragma unroll
-  for (int k = 0; k < CHUNKS; ++k) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      row[(k * TPR + t) * 4 + u] = from_f<T>(acc[4 * k + u] * mul);
-    }
-  }
-}
-
-// the score of query `row` and key `j` from its dot product
-__device__ __forceinline__ float score(float dot, float scale,
-                                       const float* brow, int row, int j,
-                                       int S, int causal) {
-  if (j >= S) return -INFINITY;  // past the sequence end: no weight at all
-  const float s = dot * scale + (brow ? brow[j] : 0.f);
-  return (causal && j > row) ? NEG_INF : s;
-}
-
-// number of key tiles a block of query rows [q0, q0 + BM) needs: tiles
-// wholly above the diagonal for every row add exp(NEG_INF - m) == 0
-__device__ __forceinline__ int key_tiles(int q0, int S, int causal) {
-  int n = (S + BN - 1) / BN;
-  if (causal) n = min(n, (min(q0 + BM, S) - 1) / BN + 1);
-  return n;
-}
-
-__device__ __forceinline__ float row_max4(float v) {
-  // the TPR threads of a row are consecutive lanes of one warp
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float row_sum4(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                T* __restrict__ out, int S, int H, long long qkv_sb,
-                long long qkv_ss, long long out_sb, long long out_ss,
-                float scale, int causal, Dropout dr) {
-  static_assert(D % (4 * TPR) == 0, "head dim must split into float4 chunks");
-  constexpr int LD = Layout<D>::LD;
-  constexpr int PLD = Layout<D>::PLD;
-  constexpr int JPT = BN / TPR;          // scores per thread per key tile
-  constexpr int CHUNKS = D / (4 * TPR);  // float4 output chunks per thread
-
+__global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BM * LD;
-  float* sV = sK + BN * LD;
-  float* sP = sV + BN * LD;
-  unsigned char* sM = reinterpret_cast<unsigned char*>(sP + BM * PLD);
-
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;  // query row within the tile
-  const int t = tid % TPR;  // this thread's share of the row
-  const int row = q0 + r;
-  const int HD = H * D;
-
-  const T* base = qkv + (long long)b * qkv_sb + (long long)h * D;
-  const float* brow = bias ? bias + (long long)b * S : nullptr;
-  load_rows<T, D, BM>(sQ, base, qkv_ss, q0, S, tid);
-
-  float acc[4 * CHUNKS];
-#pragma unroll
-  for (int i = 0; i < 4 * CHUNKS; ++i) acc[i] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  const int n_tiles = key_tiles(q0, S, causal);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // every read of the previous tile is done
-    load_rows<T, D, BN>(sK, base + HD, qkv_ss, k0, S, tid);
-    load_rows<T, D, BN>(sV, base + 2 * HD, qkv_ss, k0, S, tid);
-    fill_mask(sM, dr, q0, k0, h, b, tid);
-    __syncthreads();
-
-    float sc[JPT];
-    row_dots<D, JPT>(sc, sQ + r * LD, sK, t);
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      sc[jj] = score(sc[jj], scale, brow, row, k0 + t + TPR * jj, S, causal);
-      tile_max = fmaxf(tile_max, sc[jj]);
-    }
-    // key k0 < S is in every tile, so tile_max and m_new are finite
-    const float m_new = fmaxf(m, row_max4(tile_max));
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      const int jl = t + TPR * jj;
-      const float p = expf(sc[jj] - m_new);
-      psum += p;  // the row sum counts every probability, dropped or not
-      sP[r * PLD + jl] = kept(sM, dr.use_mask, r, jl) ? p : 0.f;
-    }
-    l = l * alpha + row_sum4(psum);
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < 4 * CHUNKS; ++i) acc[i] *= alpha;
-    __syncwarp();  // the row's P values, written by its own warp
-    accumulate_rows<D>(acc, sP + r * PLD, sV, t);
-  }
-
-  if (row < S) {
-    T* orow = out + (long long)b * out_sb + (long long)row * out_ss +
-              (long long)h * D;
-    store_cols<T, D>(orow, acc, dr.scale / l, t);
-  }
+  fwd_block<T, D>(reinterpret_cast<float*>(smem4),
+                  static_cast<const T*>(a.qkv), a.bias,
+                  static_cast<T*>(a.out), nullptr, a);
 }
 
-// ---------------------------------------------------------------------------
-// backward, kernel 1: row statistics, delta and dq
-// ---------------------------------------------------------------------------
-
+// backward, kernel 1: row statistics, delta and dq. Its own body, with the
+// launch's values as separate parameters: written so, ptxas fits it in 128
+// registers, two blocks to an SM; built from the shared bodies it took
+// more registers, one block to an SM, and ran slower.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
@@ -428,222 +176,52 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-// ---------------------------------------------------------------------------
 // backward, kernel 2: dk, dv and the per-head dbias partial
-// ---------------------------------------------------------------------------
-
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                    const T* __restrict__ dout, T* __restrict__ dqkv,
-                    const float* __restrict__ lse_in,
-                    const float* __restrict__ delta_in,
-                    float* __restrict__ dbias_part, int S, int H,
-                    long long qkv_sb, long long qkv_ss, long long do_sb,
-                    long long do_ss, long long dqkv_sb, long long dqkv_ss,
-                    float scale, int causal, Dropout dr) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int PLD = Layout<D>::PLD;
-  constexpr int IPT = BM / TPR;  // queries per thread per query tile
-  constexpr int CHUNKS = D / (4 * TPR);
-
+__global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + BN * LD;
-  float* sQ = sV + BN * LD;
-  float* sDO = sQ + BM * LD;
-  float* sP = sDO + BM * LD;      // [key][query]: kept, scaled p
-  float* sS = sP + BN * PLD;      // [key][query]: dS
-  float* sLse = sS + BN * PLD;
-  float* sDelta = sLse + BM;
-  unsigned char* sM = reinterpret_cast<unsigned char*>(sDelta + BM);
-
-  const int k0 = blockIdx.x * BN;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;  // key row within the tile
-  const int t = tid % TPR;
-  const int j = k0 + r;
-  const int HD = H * D;
-
-  const T* base = qkv + (long long)b * qkv_sb + (long long)h * D;
-  const T* dobase = dout + (long long)b * do_sb + (long long)h * D;
-  const float* stats = lse_in + ((long long)b * H + h) * S;
-  const float* dstats = delta_in + ((long long)b * H + h) * S;
-  load_rows<T, D, BN>(sK, base + HD, qkv_ss, k0, S, tid);
-  load_rows<T, D, BN>(sV, base + 2 * HD, qkv_ss, k0, S, tid);
-  const float bj = (bias && j < S) ? bias[(long long)b * S + j] : 0.f;
-
-  float dk[4 * CHUNKS], dv[4 * CHUNKS];
-#pragma unroll
-  for (int i = 0; i < 4 * CHUNKS; ++i) dk[i] = dv[i] = 0.f;
-  float db = 0.f;
-
-  const int n_qt = (S + BM - 1) / BM;
-  // causal: query tiles wholly above key k0 see none of this tile's keys
-  const int qt0 = causal ? k0 / BM : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_rows<T, D, BM>(sQ, base, qkv_ss, q0, S, tid);
-    load_rows<T, D, BM>(sDO, dobase, do_ss, q0, S, tid);
-    for (int i = tid; i < BM; i += THREADS) {
-      const bool ok = q0 + i < S;
-      // rows past the end: p = exp(s - inf) = 0, so they add nothing
-      sLse[i] = ok ? stats[q0 + i] : INFINITY;
-      sDelta[i] = ok ? dstats[q0 + i] : 0.f;
-    }
-    fill_mask(sM, dr, q0, k0, h, b, tid);
-    __syncthreads();
-
-    float sc[IPT], dpv[IPT];
-    row_dots<D, IPT>(sc, sK + r * LD, sQ, t);
-    row_dots<D, IPT>(dpv, sV + r * LD, sDO, t);
-#pragma unroll
-    for (int ii = 0; ii < IPT; ++ii) {
-      const int il = t + TPR * ii;
-      const int i = q0 + il;
-      float s;
-      if (j >= S) {
-        s = -INFINITY;
-      } else {
-        s = sc[ii] * scale + bj;
-        if (causal && j > i) s = NEG_INF;
-      }
-      const float p = expf(s - sLse[il]);
-      const bool keep = kept(sM, dr.use_mask, il, r);
-      const float ds = p * ((keep ? dpv[ii] * dr.scale : 0.f) - sDelta[il]);
-      sP[r * PLD + il] = keep ? p * dr.scale : 0.f;
-      sS[r * PLD + il] = ds;
-      db += ds;
-    }
-    __syncwarp();
-    accumulate_rows<D>(dv, sP + r * PLD, sDO, t);
-    accumulate_rows<D>(dk, sS + r * PLD, sQ, t);
-  }
-
-  db = row_sum4(db);
-  if (j < S) {
-    T* drow = dqkv + (long long)b * dqkv_sb + (long long)j * dqkv_ss +
-              (long long)h * D;
-    store_cols<T, D>(drow + HD, dk, scale, t);
-    store_cols<T, D>(drow + 2 * HD, dv, 1.f, t);
-    if (dbias_part && t == 0) dbias_part[((long long)b * H + h) * S + j] = db;
-  }
+  dkv_block<T, D>(reinterpret_cast<float*>(smem4),
+                  static_cast<const T*>(a.qkv), a.bias,
+                  static_cast<const T*>(a.dout), static_cast<T*>(a.out),
+                  a.lse, a.delta, a.dbias_part, a);
 }
 
-// ---------------------------------------------------------------------------
-// launch
-// ---------------------------------------------------------------------------
+#define ATTN_KERNEL(NAME, KERNEL, SMEM)                                      \
+  template <typename T, int D>                                               \
+  struct NAME {                                                              \
+    static constexpr size_t smem = Layout<D>::SMEM;                          \
+    static const void* fn() { return (const void*)KERNEL<T, D>; }            \
+    static void launch(dim3 grid, cudaStream_t st, const Args& a) {          \
+      KERNEL<T, D><<<grid, THREADS, smem, st>>>(a);                          \
+    }                                                                        \
+  };
 
-enum Which { FWD = 0, BWD_DQ = 1, BWD_DKV = 2 };
+ATTN_KERNEL(Fwd, attn_fwd_kernel, fwd)
+ATTN_KERNEL(BwdDkv, attn_bwd_dkv_kernel, dkv)
 
-template <typename T, int D, int W>
-struct Kernel;
 template <typename T, int D>
-struct Kernel<T, D, FWD> {
-  static constexpr size_t smem = Layout<D>::fwd;
-  static const void* fn() { return (const void*)attn_fwd_kernel<T, D>; }
-};
-template <typename T, int D>
-struct Kernel<T, D, BWD_DQ> {
+struct BwdDq {
   static constexpr size_t smem = Layout<D>::dq;
   static const void* fn() { return (const void*)attn_bwd_dq_kernel<T, D>; }
-};
-template <typename T, int D>
-struct Kernel<T, D, BWD_DKV> {
-  static constexpr size_t smem = Layout<D>::dkv;
-  static const void* fn() { return (const void*)attn_bwd_dkv_kernel<T, D>; }
-};
-
-// Above 48 KB a block's shared memory must be opted into, per kernel and
-// device. Done once for each (instantiation, device), not on every launch.
-template <typename T, int D, int W>
-cudaError_t opt_in_smem() {
-  constexpr int kMaxDevices = 64;
-  static std::once_flag once[kMaxDevices];
-  static cudaError_t result[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::call_once(once[dev], [dev] {
-    result[dev] = cudaFuncSetAttribute(
-        Kernel<T, D, W>::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Kernel<T, D, W>::smem);
-  });
-  return result[dev];
-}
-
-struct Args {
-  const void* qkv;
-  const float* bias;
-  const void* dout;
-  void* out;  // forward: out; backward: dqkv
-  float* lse;
-  float* delta;
-  float* dbias_part;
-  int B, S, H;
-  long long qkv_sb, qkv_ss, do_sb, do_ss, out_sb, out_ss;
-  float scale;
-  int causal;
-  Dropout dr;
-};
-
-template <typename T, int D, int W>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  cudaError_t err = opt_in_smem<T, D, W>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BM - 1) / BM, a.H, a.B);
-  const size_t smem = Kernel<T, D, W>::smem;
-  const T* qkv = static_cast<const T*>(a.qkv);
-  const T* dout = static_cast<const T*>(a.dout);
-  T* out = static_cast<T*>(a.out);
-  if (W == FWD) {
-    attn_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        qkv, a.bias, out, a.S, a.H, a.qkv_sb, a.qkv_ss, a.out_sb, a.out_ss,
-        a.scale, a.causal, a.dr);
-  } else if (W == BWD_DQ) {
-    attn_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        qkv, a.bias, dout, out, a.lse, a.delta, a.S, a.H, a.qkv_sb, a.qkv_ss,
+  static void launch(dim3 grid, cudaStream_t st, const Args& a) {
+    attn_bwd_dq_kernel<T, D><<<grid, THREADS, smem, st>>>(
+        static_cast<const T*>(a.qkv), a.bias, static_cast<const T*>(a.dout),
+        static_cast<T*>(a.out), a.lse, a.delta, a.S, a.H, a.qkv_sb, a.qkv_ss,
         a.do_sb, a.do_ss, a.out_sb, a.out_ss, a.scale, a.causal, a.dr);
-  } else {
-    attn_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        qkv, a.bias, dout, out, a.lse, a.delta, a.dbias_part, a.S, a.H,
-        a.qkv_sb, a.qkv_ss, a.do_sb, a.do_ss, a.out_sb, a.out_ss, a.scale,
-        a.causal, a.dr);
   }
-  return cudaGetLastError();
-}
+};
 
-template <typename T, int W>
-cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32, W>(a, stream);
-    case 64: return launch<T, 64, W>(a, stream);
-    case 128: return launch<T, 128, W>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int W>
-int dispatch(int dtype, int D, const Args& a, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float, W>(D, a, st);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16, W>(D, a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-Dropout make_dropout(int use_mask, unsigned seed0, unsigned seed1,
-                     unsigned threshold, float drop_scale) {
-  Dropout dr;
-  dr.use_mask = use_mask;
-  dr.seed0 = seed0;
-  dr.seed1 = seed1;
-  dr.threshold = threshold;
-  dr.scale = drop_scale;
-  return dr;
+Args make_args(const void* qkv, const float* bias, const void* dout,
+               void* out, float* lse, float* delta, float* dbias_part, int B,
+               int S, int H, long long qkv_sb, long long qkv_ss,
+               long long do_sb, long long do_ss, long long out_sb,
+               long long out_ss, float scale, float drop_scale, int causal,
+               int use_mask, unsigned seed0, unsigned seed1,
+               unsigned threshold) {
+  return Args{qkv, bias, dout, nullptr, out, lse, delta, dbias_part,
+              B, S, H, qkv_sb, qkv_ss, do_sb, do_ss, out_sb, out_ss, 0, 0,
+              scale, causal,
+              make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
 }
 
 }  // namespace
@@ -659,10 +237,11 @@ extern "C" int flash_attention_qkv_fwd(
     long long out_ss, float scale, float drop_scale, int causal,
     int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
     int dtype, void* stream) {
-  Args a{qkv, bias, nullptr, out, nullptr, nullptr, nullptr, B, S, H,
-         qkv_sb, qkv_ss, 0, 0, out_sb, out_ss, scale, causal,
-         make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
-  return dispatch<FWD>(dtype, D, a, stream);
+  const Args a = make_args(qkv, bias, nullptr, out, nullptr, nullptr, nullptr,
+                           B, S, H, qkv_sb, qkv_ss, 0, 0, out_sb, out_ss,
+                           scale, drop_scale, causal, use_mask, seed0, seed1,
+                           threshold);
+  return dispatch<Fwd>(dtype, D, a, stream);
 }
 
 extern "C" int flash_attention_qkv_bwd_dq(
@@ -672,10 +251,11 @@ extern "C" int flash_attention_qkv_bwd_dq(
     long long dqkv_ss, float scale, float drop_scale, int causal,
     int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
     int dtype, void* stream) {
-  Args a{qkv, bias, dout, dqkv, lse, delta, nullptr, B, S, H,
-         qkv_sb, qkv_ss, do_sb, do_ss, dqkv_sb, dqkv_ss, scale, causal,
-         make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
-  return dispatch<BWD_DQ>(dtype, D, a, stream);
+  const Args a = make_args(qkv, bias, dout, dqkv, lse, delta, nullptr, B, S,
+                           H, qkv_sb, qkv_ss, do_sb, do_ss, dqkv_sb, dqkv_ss,
+                           scale, drop_scale, causal, use_mask, seed0, seed1,
+                           threshold);
+  return dispatch<BwdDq>(dtype, D, a, stream);
 }
 
 extern "C" int flash_attention_qkv_bwd_dkv(
@@ -685,8 +265,9 @@ extern "C" int flash_attention_qkv_bwd_dkv(
     long long dqkv_sb, long long dqkv_ss, float scale, float drop_scale,
     int causal, int use_mask, unsigned seed0, unsigned seed1,
     unsigned threshold, int dtype, void* stream) {
-  Args a{qkv, bias, dout, dqkv, lse, delta, dbias_part, B, S, H,
-         qkv_sb, qkv_ss, do_sb, do_ss, dqkv_sb, dqkv_ss, scale, causal,
-         make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
-  return dispatch<BWD_DKV>(dtype, D, a, stream);
+  const Args a = make_args(qkv, bias, dout, dqkv, lse, delta, dbias_part, B,
+                           S, H, qkv_sb, qkv_ss, do_sb, do_ss, dqkv_sb,
+                           dqkv_ss, scale, drop_scale, causal, use_mask,
+                           seed0, seed1, threshold);
+  return dispatch<BwdDkv>(dtype, D, a, stream);
 }

@@ -1,0 +1,255 @@
+// KV-tiled packed-QKV attention with a saved row logsumexp, forward and
+// backward, for Hopper (sm_90a), plain C interface.
+//
+// Replaces the TPU kernels paddle_tpu/kernels/flash_tiled.py: _fwd_kernel
+// (launched by flash_tiled_fwd), _dkv_kernel and _dq_kernel (both
+// launched by flash_tiled_bwd), which carry every attention longer than
+// the whole-row kernel's cap of 1024 (causal GPT at S = 2048). The math is
+// attn_tiles.cuh's, as for flash_attention_qkv.cu; what the tiled trio
+// adds is the saved statistics:
+//
+//   tiled_fwd: one block per (query tile, head, batch) streams the key
+//     tiles through shared memory with an online softmax and writes, beside
+//     the output, the row logsumexp L = m + log(l) of the softmax before
+//     dropout to an fp32 [B, H, S] tensor.
+//   tiled_dq: one block per (query tile, head, batch). It never re-runs the
+//     forward: delta_i = rowsum(dO_i . out_i) comes from the saved output
+//     (written to a [B, H, S] scratch for tiled_dkv), p = exp(s - L) from
+//     the saved L, and one pass over the key tiles forms
+//     dS = p (dp - delta) and dq = scale * dS k.
+//   tiled_dkv: one block per (key tile, head, batch) loops over the query
+//     tiles with L and delta: dk, dv, and, when asked, per-head column sums
+//     of dS that sum_partials.cu adds over heads in a fixed order.
+//
+// Tiles wholly above the causal diagonal are skipped in all three. The
+// dropout mask is philox.cuh's, keyed by (b, h, row, col), so the three
+// kernels, the whole-row kernels and the plain versions all draw one mask
+// whatever their tiling. bf16 inputs are widened to fp32 in shared memory,
+// so the exp tail runs in fp32 for both dtypes.
+//
+// What bounds it on the H100: at B=4, S=2048, H=12, D=64, causal, each
+// kernel owns 25.8 GFLOP of products against ~0.1 GB of bytes, 250 flops
+// a byte: bounded by operations (0.385 ms at 67 TFLOP/s fp32). This first
+// version runs fp32 on the CUDA cores; tensor cores (wgmma), TMA and warp
+// specialisation are later work.
+
+#include "attn_tiles.cuh"
+
+namespace {
+
+using namespace attn;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) tiled_fwd_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  fwd_block<T, D>(reinterpret_cast<float*>(smem4),
+                  static_cast<const T*>(a.qkv), a.bias,
+                  static_cast<T*>(a.out), a.lse, a);
+}
+
+// ---------------------------------------------------------------------------
+// dq: given each row's lse and delta, one pass over the key tiles
+// recomputes p = exp(s - lse), forms dS = p (dp - delta) (dp = dO v^T,
+// masked and scaled as the forward scaled p) and accumulates
+// dq = scale * dS k into acc. sQ and sDO hold the block's query rows.
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__device__ __forceinline__ void dq_pass(float* acc, float* smem,
+                                        const T* __restrict__ qkv,
+                                        const float* __restrict__ bias,
+                                        const Args& a, float lse,
+                                        float delta) {
+  constexpr int LD = Layout<D>::LD;
+  constexpr int PLD = Layout<D>::PLD;
+  constexpr int JPT = BN / TPR;
+  constexpr int CHUNKS = D / (4 * TPR);
+
+  float* sQ = smem;
+  float* sDO = sQ + BM * LD;
+  float* sK = sDO + BM * LD;
+  float* sV = sK + BN * LD;
+  float* sP = sV + BN * LD;
+  unsigned char* sM = reinterpret_cast<unsigned char*>(sP + BM * PLD);
+
+  const int S = a.S, H = a.H;
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int r = tid / TPR;
+  const int t = tid % TPR;
+  const int row = q0 + r;
+  const int HD = H * D;
+  const Dropout& dr = a.dr;
+  const T* base = qkv + (long long)b * a.qkv_sb + (long long)h * D;
+  const float* brow = bias ? bias + (long long)b * S : nullptr;
+
+#pragma unroll
+  for (int i = 0; i < 4 * CHUNKS; ++i) acc[i] = 0.f;
+  const int n_tiles = key_tiles(q0, S, a.causal);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BN;
+    __syncthreads();
+    load_rows<T, D, BN>(sK, base + HD, a.qkv_ss, k0, S, tid);
+    load_rows<T, D, BN>(sV, base + 2 * HD, a.qkv_ss, k0, S, tid);
+    fill_mask(sM, dr, q0, k0, h, b, tid);
+    __syncthreads();
+
+    float sc[JPT], dpv[JPT];
+    row_dots<D, JPT>(sc, sQ + r * LD, sK, t);
+    row_dots<D, JPT>(dpv, sDO + r * LD, sV, t);
+#pragma unroll
+    for (int jj = 0; jj < JPT; ++jj) {
+      const int jl = t + TPR * jj;
+      const float p = expf(
+          score(sc[jj], a.scale, brow, row, k0 + jl, S, a.causal) - lse);
+      const float dp = kept(sM, dr.use_mask, r, jl) ? dpv[jj] * dr.scale : 0.f;
+      sP[r * PLD + jl] = p * (dp - delta);
+    }
+    __syncwarp();
+    accumulate_rows<D>(acc, sP + r * PLD, sK, t);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void dq_block(
+    float* smem, const T* __restrict__ qkv, const float* __restrict__ bias,
+    const T* __restrict__ dout, const T* __restrict__ fwd_out,
+    const float* __restrict__ lse_in, T* __restrict__ dqkv,
+    float* __restrict__ delta_out, const Args& a) {
+  constexpr int LD = Layout<D>::LD;
+  constexpr int CHUNKS = D / (4 * TPR);
+
+  float* sQ = smem;
+  float* sDO = sQ + BM * LD;
+
+  const int S = a.S, H = a.H;
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int r = tid / TPR;
+  const int t = tid % TPR;
+  const int row = q0 + r;
+
+  load_rows<T, D, BM>(sQ, qkv + (long long)b * a.qkv_sb + (long long)h * D,
+                      a.qkv_ss, q0, S, tid);
+  load_rows<T, D, BM>(sDO, dout + (long long)b * a.do_sb + (long long)h * D,
+                      a.do_ss, q0, S, tid);
+  __syncthreads();
+
+  // delta = rowsum(dO . out) from the saved output; rows past the end get
+  // lse = inf, so p = 0 there
+  float lse = INFINITY, part = 0.f;
+  if (row < S) {
+    const T* orow = fwd_out + (long long)b * a.fo_sb +
+                    (long long)row * a.fo_ss + (long long)h * D;
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = (k * TPR + t) * 4 + u;
+        part = fmaf(sDO[r * LD + c], to_f(orow[c]), part);
+      }
+    }
+    lse = lse_in[((long long)b * H + h) * S + row];
+  }
+  const float delta = row_sum4(part);
+
+  float acc[4 * CHUNKS];
+  dq_pass<T, D>(acc, smem, qkv, bias, a, lse, delta);
+
+  if (row < S) {
+    T* drow = dqkv + (long long)b * a.out_sb + (long long)row * a.out_ss +
+              (long long)h * D;
+    store_cols<T, D>(drow, acc, a.scale, t);
+    if (t == 0) delta_out[((long long)b * H + h) * S + row] = delta;
+  }
+}
+
+// two blocks to an SM: capped at 128 registers (a few spill), the dq kernel
+// runs faster than uncapped, one block to an SM
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 2) tiled_dq_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  dq_block<T, D>(reinterpret_cast<float*>(smem4),
+                 static_cast<const T*>(a.qkv), a.bias,
+                 static_cast<const T*>(a.dout),
+                 static_cast<const T*>(a.fwd_out), a.lse,
+                 static_cast<T*>(a.out), a.delta, a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) tiled_dkv_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  dkv_block<T, D>(reinterpret_cast<float*>(smem4),
+                  static_cast<const T*>(a.qkv), a.bias,
+                  static_cast<const T*>(a.dout), static_cast<T*>(a.out),
+                  a.lse, a.delta, a.dbias_part, a);
+}
+
+#define TILED_KERNEL(NAME, KERNEL, SMEM)                                     \
+  template <typename T, int D>                                               \
+  struct NAME {                                                              \
+    static constexpr size_t smem = Layout<D>::SMEM;                          \
+    static const void* fn() { return (const void*)KERNEL<T, D>; }            \
+    static void launch(dim3 grid, cudaStream_t st, const Args& a) {          \
+      KERNEL<T, D><<<grid, THREADS, smem, st>>>(a);                          \
+    }                                                                        \
+  };
+
+TILED_KERNEL(Fwd, tiled_fwd_kernel, fwd)
+TILED_KERNEL(Dq, tiled_dq_kernel, dq)
+TILED_KERNEL(Dkv, tiled_dkv_kernel, dkv)
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (qkv, dout, out and dqkv alike). bias may
+// be null (all keys kept). Strides are in elements; every last dim is
+// contiguous. lse is fp32 [B, H, S], written by the forward and read by
+// both backward kernels; delta, fp32 [B, H, S], is written by bwd_dq and
+// read by bwd_dkv, which must run after it on the same stream; dbias_part,
+// fp32 [B, H, S], may be null. Each returns the cudaError_t of its launch
+// (0 on success).
+extern "C" int flash_tiled_fwd(
+    const void* qkv, const float* bias, void* out, float* lse, int B, int S,
+    int H, int D, long long qkv_sb, long long qkv_ss, long long out_sb,
+    long long out_ss, float scale, float drop_scale, int causal,
+    int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
+    int dtype, void* stream) {
+  const Args a{qkv, bias, nullptr, nullptr, out, lse, nullptr, nullptr,
+               B, S, H, qkv_sb, qkv_ss, 0, 0, out_sb, out_ss, 0, 0,
+               scale, causal,
+               make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+  return dispatch<Fwd>(dtype, D, a, stream);
+}
+
+extern "C" int flash_tiled_bwd_dq(
+    const void* qkv, const float* bias, const void* dout,
+    const void* fwd_out, const float* lse, void* dqkv, float* delta, int B,
+    int S, int H, int D, long long qkv_sb, long long qkv_ss, long long do_sb,
+    long long do_ss, long long fo_sb, long long fo_ss, long long dqkv_sb,
+    long long dqkv_ss, float scale, float drop_scale, int causal,
+    int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
+    int dtype, void* stream) {
+  const Args a{qkv, bias, dout, fwd_out, dqkv, const_cast<float*>(lse),
+               delta, nullptr, B, S, H, qkv_sb, qkv_ss, do_sb, do_ss,
+               dqkv_sb, dqkv_ss, fo_sb, fo_ss, scale, causal,
+               make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+  return dispatch<Dq>(dtype, D, a, stream);
+}
+
+extern "C" int flash_tiled_bwd_dkv(
+    const void* qkv, const float* bias, const void* dout, const float* lse,
+    const float* delta, void* dqkv, float* dbias_part, int B, int S, int H,
+    int D, long long qkv_sb, long long qkv_ss, long long do_sb,
+    long long do_ss, long long dqkv_sb, long long dqkv_ss, float scale,
+    float drop_scale, int causal, int use_mask, unsigned seed0,
+    unsigned seed1, unsigned threshold, int dtype, void* stream) {
+  const Args a{qkv, bias, dout, nullptr, dqkv, const_cast<float*>(lse),
+               const_cast<float*>(delta), dbias_part, B, S, H, qkv_sb,
+               qkv_ss, do_sb, do_ss, dqkv_sb, dqkv_ss, 0, 0, scale, causal,
+               make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+  return dispatch<Dkv>(dtype, D, a, stream);
+}

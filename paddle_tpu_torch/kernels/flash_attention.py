@@ -27,9 +27,13 @@ kernel (dk, dv, per-head dbias partials), reading the packed projection
 in place and writing one packed dqkv. The mask is regenerated from its
 coordinates in every kernel, never stored.
 
-Dispatch: a CUDA tensor goes to the kernels, or raises if they do not
-take it; a CPU tensor goes to the plain version; a meta tensor (shape
-inference) gets an empty output of the right shape.
+Dispatch: a sequence longer than MAX_SEQ = 1024 goes to the KV-tiled
+kernels of flash_tiled.py (#7-#9), which also save the row logsumexp;
+the rule reads only shapes and dtypes (uses_tiled_path), so a program
+built before its device is known takes the same branch on the card and
+on the CPU. Then a CUDA tensor goes to the kernels, or raises if they do
+not take it; a CPU tensor goes to the plain version; a meta tensor
+(shape inference) gets an empty output of the right shape.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import math
 
 import torch
 
+from ..core.dtypes import to_torch_dtype
 from ..errors import InvalidArgumentError
 from . import _build
 from .prng_mask import drop_scale, keep_mask, mask_args
@@ -48,6 +53,29 @@ NEG_INF = -1e30
 # head dims the kernels are instantiated for (BertConfig.tiny: 32, base: 64)
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# the JAX package's whole-row cap (paddle_tpu/kernels/flash_attention.py):
+# longer sequences take the KV-tiled kernels
+MAX_SEQ = 1024
+
+
+def _kernel_kind(head_dim, dtype):
+    dtype = to_torch_dtype(dtype) if isinstance(dtype, str) else dtype
+    return head_dim in HEAD_DIMS and dtype in DTYPES
+
+
+def supports_packed(seq_len, num_heads, head_dim, dtype):
+    """True when fused_attention_qkv takes the whole-row kernels (#1, #3)
+    for these static properties."""
+    return seq_len <= MAX_SEQ and _kernel_kind(head_dim, dtype)
+
+
+def uses_tiled_path(seq_len, num_heads, head_dim, dtype):
+    """True when fused_attention_qkv dispatches the KV-tiled kernels (#7-#9)
+    for these static properties. The op builder uses it at graph-build
+    time to wire the forward's saved (Out, Lse) into the grad op
+    (ops/fused.py), so it must mirror the dispatch below; it reads no
+    device, so the CPU's plain versions take the same branch."""
+    return seq_len > MAX_SEQ and _kernel_kind(head_dim, dtype)
 
 
 def _heads(qkv, H):
@@ -156,20 +184,45 @@ def _shape(qkv, num_heads, who):
     return D
 
 
+def _tiled_kw(scale, dropout_rate, is_test, dropout_implementation,
+              causal):
+    return dict(scale=scale, rate=float(dropout_rate), is_test=bool(is_test),
+                upscale=dropout_implementation == "upscale_in_train",
+                causal=bool(causal))
+
+
 def fused_attention_qkv(qkv, num_heads, key_bias=None, *, scale=None,
                         dropout_rate=0.0, is_test=True,
                         dropout_implementation="downgrade_in_infer",
-                        causal=False, seed=None):
+                        causal=False, seed=None, return_lse=False):
     """Attention over a packed qkv projection [B, S, 3*H*D] -> [B, S, H*D].
 
-    The kernel takes: fp32 or bf16 qkv on a CUDA device with a contiguous
+    The kernels take: fp32 or bf16 qkv on a CUDA device with a contiguous
     last dim, H*D*3 columns with D in HEAD_DIMS, and any S. Training
     dropout (rate > 0, not is_test) needs `seed`, the op's two seed words
-    (registry.EmitContext.seed_words), on every device."""
+    (registry.EmitContext.seed_words), on every device. With return_lse
+    the result is (out, lse): lse fp32 [B, H, S] on the tiled path, else
+    None."""
     D = _shape(qkv, num_heads, "fused_attention_qkv")
     B, S, _ = qkv.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if uses_tiled_path(S, num_heads, D, qkv.dtype):
+        from .flash_tiled import flash_tiled_fwd
+
+        out, lse = flash_tiled_fwd(
+            qkv, key_bias, seed, num_heads, D,
+            **_tiled_kw(scale, dropout_rate, is_test, dropout_implementation,
+                        causal))
+        return (out, lse) if return_lse else out
+    out = _whole_row_fwd(qkv, num_heads, key_bias, D, scale, dropout_rate,
+                         is_test, dropout_implementation, causal, seed)
+    return (out, None) if return_lse else out
+
+
+def _whole_row_fwd(qkv, num_heads, key_bias, D, scale, dropout_rate, is_test,
+                   dropout_implementation, causal, seed):
+    B, S, _ = qkv.shape
     upscale = dropout_implementation == "upscale_in_train"
     if qkv.device.type == "meta":
         return torch.empty((B, S, num_heads * D), dtype=qkv.dtype,
@@ -205,15 +258,31 @@ fused_attention_qkv.launches = 0
 def fused_attention_qkv_bwd(qkv, num_heads, key_bias, d_out, *, scale=None,
                             dropout_rate=0.0, is_test=True,
                             dropout_implementation="downgrade_in_infer",
-                            causal=False, seed=None, want_dbias=False):
+                            causal=False, seed=None, want_dbias=False,
+                            saved_out=None, saved_lse=None):
     """(dqkv [B, S, 3*H*D], dbias fp32 [B, S] or None) of
     fused_attention_qkv for the output gradient d_out [B, S, H*D], with
     the forward's mask regenerated from the same seed words. The kernels
     take what the forward kernel takes, and d_out of qkv's dtype with a
-    contiguous last dim. dbias is computed only when want_dbias."""
+    contiguous last dim. dbias is computed only when want_dbias. On the
+    tiled path the backward kernels read the forward's saved output and
+    lse (fused_attention_qkv(return_lse=True)); without them the forward
+    runs again first."""
     D = _shape(qkv, num_heads, "fused_attention_qkv_bwd")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    B, S, _ = qkv.shape
+    if uses_tiled_path(S, num_heads, D, qkv.dtype):
+        from .flash_tiled import flash_tiled_bwd, flash_tiled_fwd
+
+        kw = _tiled_kw(scale, dropout_rate, is_test, dropout_implementation,
+                       causal)
+        if saved_out is None or saved_lse is None:
+            saved_out, saved_lse = flash_tiled_fwd(qkv, key_bias, seed,
+                                                   num_heads, D, **kw)
+        return flash_tiled_bwd(qkv, key_bias, seed, d_out, saved_out,
+                               saved_lse, num_heads, D,
+                               want_dbias=want_dbias, **kw)
     upscale = dropout_implementation == "upscale_in_train"
     use_mask, s0, s1, thr = mask_args(dropout_rate, is_test, seed,
                                       "fused_attention_qkv_bwd")
@@ -278,24 +347,27 @@ fused_attention_qkv_bwd.launches_dkv = 0
 
 class FlashQKV(torch.autograd.Function):
     """Differentiable fused_attention_qkv (counterpart of the JAX
-    package's `_flash_qkv` custom_vjp): the backward calls the same
-    backward kernels, with the forward's seed words, so it regenerates the
-    forward's mask. The static graph uses the dedicated
-    fused_qkv_attention_grad op instead (ops/fused.py)."""
+    package's `_flash_qkv` and `flash_tiled_outs` custom_vjps): the
+    backward calls the same backward kernels, with the forward's seed
+    words, so it regenerates the forward's mask; on the tiled path it
+    reads the forward's saved output and lse. The static graph uses the
+    dedicated fused_qkv_attention_grad op instead (ops/fused.py)."""
 
     @staticmethod
     def forward(ctx, qkv, key_bias, num_heads, kw):
-        ctx.save_for_backward(qkv, key_bias)
+        out, lse = fused_attention_qkv(qkv, num_heads, key_bias,
+                                       return_lse=True, **kw)
+        ctx.save_for_backward(qkv, key_bias, out, lse)
         ctx.num_heads, ctx.kw = num_heads, kw
-        return fused_attention_qkv(qkv, num_heads, key_bias, **kw)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        qkv, key_bias = ctx.saved_tensors
+        qkv, key_bias, out, lse = ctx.saved_tensors
         want_dbias = key_bias is not None and ctx.needs_input_grad[1]
         dqkv, dbias = fused_attention_qkv_bwd(
             qkv, ctx.num_heads, key_bias, d_out.contiguous(),
-            want_dbias=want_dbias, **ctx.kw,
+            want_dbias=want_dbias, saved_out=out, saved_lse=lse, **ctx.kw,
         )
         if dbias is not None:
             dbias = dbias.to(key_bias.dtype)

@@ -13,6 +13,7 @@ from .nn import (  # noqa: F401
     embedding,
     fc,
     layer_norm,
+    mean,
     softmax_with_cross_entropy,
 )
 from .tensor import (  # noqa: F401
@@ -37,4 +38,6 @@ from .tensor import (  # noqa: F401
     slice,
     softmax,
     transpose,
+    tril,
+    triu,
 )

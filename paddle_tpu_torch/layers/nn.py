@@ -1,6 +1,7 @@
 """Functional layers of the serving and training slices (counterpart of
 paddle_tpu/layers/nn.py; reference python/paddle/fluid/layers/nn.py):
-data, fc, embedding, layer_norm, dropout, softmax_with_cross_entropy."""
+data, fc, embedding, layer_norm, dropout, softmax_with_cross_entropy,
+mean."""
 
 from __future__ import annotations
 
@@ -122,3 +123,8 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
         out_slots=("Softmax", "Loss"),
     )
     return (loss, softmax) if return_softmax else loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    return helper.create_and_append({"X": [x]}, {})

@@ -1,9 +1,5 @@
-"""Tensor layers of the serving and training slices (counterpart of
-paddle_tpu/layers/tensor.py; reference python/paddle/fluid/layers/tensor.py).
-
-`transpose` and `matmul` build ops whose emitters come with a later
-slice: building them raises UnimplementedError from the registry, which
-is how BERT's composed attention path fails in this slice."""
+"""Tensor layers of the port's slices (counterpart of
+paddle_tpu/layers/tensor.py; reference python/paddle/fluid/layers/tensor.py)."""
 
 from __future__ import annotations
 
@@ -117,3 +113,13 @@ less_than = _binary("less_than")
 
 def gelu(x, name=None, **attrs):
     return _simple("gelu", {"X": [x]}, attrs)
+
+
+def tril(x, diagonal=0, name=None):
+    return _simple("tril_triu", {"X": [x]},
+                   {"diagonal": diagonal, "lower": True})
+
+
+def triu(x, diagonal=0, name=None):
+    return _simple("tril_triu", {"X": [x]},
+                   {"diagonal": diagonal, "lower": False})

@@ -1,9 +1,9 @@
 """BERT encoder and MLM pretraining loss (counterpart of
 paddle_tpu/models/bert.py), built on the port's layers API. The fused
 paths are the port's: one packed-QKV attention op and one dropout +
-residual + LayerNorm op per site. The composed attention path
-(use_fused_attention=False) builds ops whose emitters come with a later
-slice and raises UnimplementedError."""
+residual + LayerNorm op per site; the composed paths
+(use_fused_attention=False, use_fused_residual=False) build the same math
+from plain ops."""
 
 from __future__ import annotations
 

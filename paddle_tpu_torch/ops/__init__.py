@@ -3,6 +3,7 @@
 from . import (  # noqa: F401
     activation,
     fused,
+    kv_cache,
     math,
     nn,
     optimizer_ops,

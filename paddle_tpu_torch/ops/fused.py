@@ -8,7 +8,8 @@ calling the backward kernel, instead of the generic `__vjp__` replay
 inputs and the output gradient, and a replay would run the forward
 kernel a second time. The grad op takes the forward op's uid as
 `__fwd_uid__` and draws its seed words from it, so the backward
-regenerates the forward's dropout mask."""
+regenerates the forward's dropout mask. On the KV-tiled path the
+forward's saved Out and Lse go to the grad op as well."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..framework.registry import register_op
 from ..kernels.flash_attention import (
     fused_attention_qkv,
     fused_attention_qkv_bwd,
+    uses_tiled_path,
 )
 from ..kernels.fused_residual import (
     fused_dropout_add_ln_bwd,
@@ -68,8 +70,25 @@ def _attention_grad_maker(op, block, contribs, finalize, needs_grad=None):
     inputs = {"QKV": op.inputs["QKV"], "OutGrad": [g_out]}
     if op.inputs.get("KeyBias"):
         inputs["KeyBias"] = op.inputs["KeyBias"]
+    if op.outputs.get("Lse") and _qkv_tiled_at_build(op, block):
+        # the forward saves (Out, Lse): the tiled backward kernels read
+        # both and never re-run the forward
+        inputs["Out"] = op.outputs["Out"]
+        inputs["Lse"] = op.outputs["Lse"]
     _append_grad_op(op, block, contribs, needs_grad,
                     "fused_qkv_attention_grad", inputs, ("QKV", "KeyBias"))
+
+
+def _qkv_tiled_at_build(op, block):
+    """Build-time mirror of fused_attention_qkv's tiled-path dispatch,
+    from the declared shape and dtype of QKV (uses_tiled_path reads no
+    device, so the rule holds wherever the program runs)."""
+    v = block._find_var_recursive(op.inputs["QKV"][0])
+    if v is None or not v.shape or len(v.shape) != 3:
+        return False
+    H = int(op.attr("num_heads"))
+    S, D = int(v.shape[1]), int(v.shape[2]) // 3 // H
+    return uses_tiled_path(S, H, D, v.dtype)
 
 
 def _attention_kw(ctx, op):
@@ -89,25 +108,28 @@ def _attention_kw(ctx, op):
 def _fused_qkv_attention(ctx, op, ins):
     """Attention over the packed qkv projection [B, S, 3*H*D] -> [B, S,
     H*D] (attr num_heads). The kernel reads the projection in place
-    through its strides: no head-split copies. `Lse` stays empty: the JAX
-    package fills it only on its KV-tiled path for S > 1024, whose port
-    comes later."""
+    through its strides: no head-split copies. On the KV-tiled path (S >
+    1024) the op also emits the row logsumexp as `Lse` (fp32 [B, H, S]),
+    so the grad op runs the backward without re-running the forward;
+    elsewhere `Lse` stays empty."""
     qkv = ins["QKV"][0]
     bias = ins["KeyBias"][0] if ins.get("KeyBias") else None
-    out = fused_attention_qkv(
+    out, lse = fused_attention_qkv(
         qkv, int(op.attr("num_heads")), key_bias=bias,
-        seed=_seed(ctx, op, op.uid, op.type), **_attention_kw(ctx, op),
+        seed=_seed(ctx, op, op.uid, op.type), return_lse=True,
+        **_attention_kw(ctx, op),
     )
-    return {"Out": [out], "Lse": []}
+    return {"Out": [out], "Lse": [] if lse is None else [lse]}
 
 
 @register_op("fused_qkv_attention_grad",
-             inputs=["QKV", "KeyBias", "OutGrad"],
+             inputs=["QKV", "KeyBias", "OutGrad", "Out", "Lse"],
              outputs=["QKVGrad", "KeyBiasGrad"], differentiable=False)
 def _fused_qkv_attention_grad(ctx, op, ins):
     """Backward of fused_qkv_attention through the backward kernels; the
-    mask regenerates from the forward op's seed words. KeyBiasGrad is
-    computed only when the op has that output."""
+    mask regenerates from the forward op's seed words, and the tiled
+    kernels read the forward's saved Out and Lse. KeyBiasGrad is computed
+    only when the op has that output."""
     qkv = ins["QKV"][0]
     bias = ins["KeyBias"][0] if ins.get("KeyBias") else None
     want_dbias = bool(op.outputs.get("KeyBiasGrad")) and bias is not None
@@ -115,7 +137,10 @@ def _fused_qkv_attention_grad(ctx, op, ins):
     dqkv, dbias = fused_attention_qkv_bwd(
         qkv, int(op.attr("num_heads")), bias, d_out,
         seed=_seed(ctx, op, op.attr("__fwd_uid__"), "fused_qkv_attention"),
-        want_dbias=want_dbias, **_attention_kw(ctx, op),
+        want_dbias=want_dbias,
+        saved_out=ins["Out"][0] if ins.get("Out") else None,
+        saved_lse=ins["Lse"][0] if ins.get("Lse") else None,
+        **_attention_kw(ctx, op),
     )
     outs = {}
     if op.outputs.get("QKVGrad"):

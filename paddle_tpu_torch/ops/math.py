@@ -1,6 +1,6 @@
 """Dense math ops of the serving and training slices (counterpart of
 paddle_tpu/ops/math.py; reference elementwise ops, scale_op.cc, mul_op.cc,
-reduce_sum_op.cc, sum_op.cc, compare_op.cc)."""
+matmul_op.cc, mean_op.cc, reduce_sum_op.cc, sum_op.cc, compare_op.cc)."""
 
 from __future__ import annotations
 
@@ -51,6 +51,11 @@ def _reduce_sum(ctx, op, ins):
     return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
 
 
+@register_op("mean", inputs=["X"], outputs=["Out"])
+def _mean(ctx, op, ins):
+    return {"Out": [ins["X"][0].mean().reshape(1)]}
+
+
 @register_op("sum", inputs=["X"], outputs=["Out"])
 def _sum(ctx, op, ins):
     xs = [x for x in ins["X"] if x is not None]
@@ -84,3 +89,15 @@ def _mul(ctx, op, ins):
     x2 = x.reshape(math.prod(xs[:xnc]), -1)
     y2 = y.reshape(math.prod(ys[:ync]), -1)
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:])]}
+
+
+@register_op("matmul", inputs=["X", "Y"], outputs=["Out"])
+def _matmul(ctx, op, ins):
+    x, y = ins["X"][0], ins["Y"][0]
+    if op.attr("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if op.attr("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = op.attr("alpha", 1.0)
+    return {"Out": [out * alpha if alpha != 1.0 else out]}

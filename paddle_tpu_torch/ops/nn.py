@@ -1,6 +1,6 @@
 """NN ops of the serving and training slices (counterpart of
-paddle_tpu/ops/nn.py; reference layer_norm_op.cc, lookup_table_v2_op.cc,
-dropout_op.cc, softmax_with_cross_entropy_op.cc)."""
+paddle_tpu/ops/nn.py; reference layer_norm_op.cc, lookup_table_op.cc,
+lookup_table_v2_op.cc, dropout_op.cc, softmax_with_cross_entropy_op.cc)."""
 
 from __future__ import annotations
 
@@ -48,6 +48,15 @@ def _lookup_table_v2(ctx, op, ins):
     return {"Out": [out]}
 
 
+@register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"])
+def _lookup_table(ctx, op, ins):
+    # v1 keeps a trailing [.., 1] ids dim (lookup_table_op.cc)
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    return _lookup_table_v2(ctx, op, {"W": [w], "Ids": [ids]})
+
+
 @register_op("dropout", inputs=["X"], outputs=["Out", "Mask"])
 def _dropout(ctx, op, ins):
     x = ins["X"][0]
@@ -63,7 +72,6 @@ def _dropout(ctx, op, ins):
     out = torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                               device=x.device))
     return {"Out": [out.to(x.dtype)], "Mask": [keep.to(torch.uint8)]}
-
 
 
 @register_op("softmax_with_cross_entropy", inputs=["Logits", "Label"],

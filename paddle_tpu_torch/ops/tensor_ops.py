@@ -1,7 +1,7 @@
 """Tensor ops of the serving and training slices (counterpart of
-paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, slice_op.cc,
-fill_constant_op.cc, range_op.cc, cast_op.cc, assign_op.cc,
-gather_op.cc, increment_op.cc)."""
+paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, transpose_op.cc,
+slice_op.cc, fill_constant_op.cc, range_op.cc, cast_op.cc, assign_op.cc,
+gather_op.cc, increment_op.cc, tril_triu_op.cc)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,11 @@ def _reshape2(ctx, op, ins):
         "Out": [x.reshape(_resolve_shape(op.attr("shape"), x.shape))],
         "XShape": [],
     }
+
+
+@register_op("transpose2", inputs=["X"], outputs=["Out", "XShape"])
+def _transpose2(ctx, op, ins):
+    return {"Out": [ins["X"][0].permute(*op.attr("axis"))], "XShape": []}
 
 
 @register_op("slice", inputs=["Input"], outputs=["Out"])
@@ -74,8 +79,9 @@ def _cast(ctx, op, ins):
 
 @register_op("assign", inputs=["X"], outputs=["Out"])
 def _assign(ctx, op, ins):
-    # no copy: no emitter writes into a tensor in place, so the two names
-    # may share one tensor
+    # no copy: the only emitter that writes in place is kv_cache_write,
+    # into a persistable cache no program assigns, so the two names may
+    # share one tensor
     return {"Out": [ins["X"][0]]}
 
 
@@ -93,3 +99,10 @@ def _increment(ctx, op, ins):
     executor writes the new value back to the scope."""
     x = ins["X"][0]
     return {"Out": [x + torch.tensor(op.attr("step", 1.0)).to(x.dtype)]}
+
+
+@register_op("tril_triu", inputs=["X"], outputs=["Out"])
+def _tril_triu(ctx, op, ins):
+    """Lower/upper triangle (reference operators/tril_triu_op.cc)."""
+    fn = torch.tril if op.attr("lower", True) else torch.triu
+    return {"Out": [fn(ins["X"][0], int(op.attr("diagonal", 0)))]}

@@ -106,6 +106,11 @@ class Endpoint:
         self.name = name
         self.runner = runner
         self.config = config or EndpointConfig()
+        # runners with static shape constraints (the GPT generator's cache
+        # batch) veto incompatible bucket configs up front
+        validate = getattr(runner, "validate_config", None)
+        if validate is not None:
+            validate(self.config)
         self._queue = deque()
         self._cond = threading.Condition()
         # serializes runner.run between the scheduler thread and warmup()

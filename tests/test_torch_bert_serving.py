@@ -30,7 +30,7 @@ from paddle_tpu.serving import freeze_program as jfreeze_program
 import paddle_tpu_torch as tf
 from paddle_tpu_torch import convert
 from paddle_tpu_torch import layers as tl
-from paddle_tpu_torch.errors import PreconditionNotMetError, UnimplementedError
+from paddle_tpu_torch.errors import PreconditionNotMetError
 from paddle_tpu_torch.models.bert import BertConfig as TBertConfig
 from paddle_tpu_torch.models.bert import bert_encoder as tbert_encoder
 from paddle_tpu_torch.serving import EndpointConfig, Server
@@ -170,14 +170,34 @@ def test_server_answers_like_a_direct_run():
 
 
 def test_composed_attention_path_is_not_in_this_slice():
-    main, startup = tf.Program(), tf.Program()
-    cfg = TBertConfig.tiny()
-    cfg.use_fused_attention = False
-    with tf.unique_name.guard(), tf.program_guard(main, startup):
-        ids = tf.data("ids", [-1, S], "int64")
-        mask = tf.data("mask", [-1, S], "float32")
-        with pytest.raises(UnimplementedError):
-            tbert_encoder(ids, ids, mask, cfg, is_test=True)
+    """The composed attention path (use_fused_attention=False) was left out
+    of the serving slice and raised UnimplementedError; it came with GPT's
+    dense branch (transpose2, matmul). It now builds, and gives the fused
+    path's hidden states on one state (atol 1e-5)."""
+    rng = np.random.RandomState(4)
+    feed = {"ids": rng.randint(0, 1024, (3, S)),
+            "types": np.zeros((3, S), np.int64),
+            "mask": np.ones((3, S), np.float32)}
+    feed["mask"][2, 10:] = 0.0
+    scope, exe = tf.Scope(), tf.Executor(tf.CPUPlace())
+    outs = {}
+    for fused in (True, False):
+        main, startup = tf.Program(), tf.Program()
+        main.random_seed = startup.random_seed = 7
+        cfg = TBertConfig.tiny()
+        cfg.use_fused_attention = fused
+        with tf.unique_name.guard(), tf.program_guard(main, startup):
+            ids = tf.data("ids", [-1, S], "int64")
+            types = tf.data("types", [-1, S], "int64")
+            mask = tf.data("mask", [-1, S], "float32")
+            seq = tbert_encoder(ids, types, mask, cfg, is_test=True)
+        if fused:
+            exe.run(startup, scope=scope)
+        types_ = {op.type for op in main.global_block.ops}
+        assert ("fused_qkv_attention" in types_) == fused
+        outs[fused], = exe.run(main, feed=feed, fetch_list=[seq],
+                               scope=scope)
+    np.testing.assert_allclose(outs[False], outs[True], rtol=0, atol=1e-5)
 
 
 def test_import_pulls_in_neither_jax_nor_paddle_tpu():
@@ -193,6 +213,10 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.ops.optimizer_ops
         import paddle_tpu_torch.kernels.prng_mask
         import paddle_tpu_torch.kernels.sum_partials
+        import paddle_tpu_torch.kernels.flash_tiled
+        import paddle_tpu_torch.models.gpt
+        import paddle_tpu_torch.ops.kv_cache
+        import paddle_tpu_torch.serving.generate
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "paddle_tpu" or m.startswith("paddle_tpu.")]

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels on the card: each against its plain
 PyTorch version (training dropout included: both draw the same Philox
 mask), philox.cuh against the CUDA toolkit's curand Philox, the wrappers'
-refusals, the launch counters, and BERT-tiny programs (frozen inference
-and two training steps) on the card against the same programs on the CPU.
+refusals, the launch counters, and BERT-tiny and GPT-tiny programs (frozen
+inference, training steps, KV-cache generation) on the card against the
+same programs on the CPU.
 
 Needs a CUDA card and nvcc; skips elsewhere. Run on the card with
 
@@ -28,6 +29,7 @@ from paddle_tpu_torch import convert, layers
 from paddle_tpu_torch.errors import InvalidArgumentError
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import flash_tiled as ft
 from paddle_tpu_torch.kernels import fused_residual as fr
 from paddle_tpu_torch.kernels import prng_mask as pm
 from paddle_tpu_torch.kernels import sum_partials as sp
@@ -36,8 +38,13 @@ from paddle_tpu_torch.models.bert import (
     bert_encoder,
     bert_pretrain,
 )
+from paddle_tpu_torch.models.gpt import (
+    GPTConfig,
+    gpt_cache_names,
+    gpt_lm_loss,
+)
 from paddle_tpu_torch.optimizer import Adam
-from paddle_tpu_torch.serving import freeze_program
+from paddle_tpu_torch.serving import GPTGenerator, freeze_program
 
 pytestmark = pytest.mark.cuda
 
@@ -426,3 +433,182 @@ def test_bert_tiny_training_on_the_card_matches_the_cpu(dev, dropout):
         exempt, total = exempt + noisy.sum(), total + noisy.size
     print(f"updates: {exempt} of {total} elements exempt")
     assert exempt < 0.02 * total
+
+
+def _tiled_counts():
+    return (ft.flash_tiled_fwd.launches, ft.flash_tiled_bwd.launches_dq,
+            ft.flash_tiled_bwd.launches_dkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,S", [(1, 1152), (4, 2048)])
+def test_tiled_kernels_match_their_plain_versions(dev, B, S, causal,
+                                                  with_bias, training, dtype):
+    """#7 (forward, lse), #9 (dq, delta) and #8 (dk, dv, dbias) against the
+    plain tiled versions, dropout 0.1 in training or test mode. Tolerances
+    as the whole-row kernels' (sums over up to 2048 rows); lse atol 5e-6."""
+    H, D = 3, 64
+    qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=S + B)
+    bias = bias if with_bias else None
+    g = torch.Generator(device=dev).manual_seed(5)
+    do = torch.randn(B, S, H * D, generator=g, device=dev).to(dtype)
+    kw = dict(scale=1 / 8, rate=0.1, is_test=not training, causal=causal)
+    seed = SEED if training else None
+    before = _tiled_counts()
+    out, lse = ft.flash_tiled_fwd(qkv, bias, seed, H, D, **kw)
+    dqkv, dbias = ft.flash_tiled_bwd(qkv, bias, seed, do, out, lse, H, D,
+                                     want_dbias=with_bias, **kw)
+    assert _tiled_counts() == tuple(n + 1 for n in before)
+    want_o, want_l = ft.reference_fwd(qkv, bias, seed, H, D, **kw)
+    _close(out, want_o, "attention", dtype)
+    torch.testing.assert_close(lse, want_l, atol=5e-6, rtol=0)
+    want_q, want_b = ft.reference_bwd(qkv, bias, seed, do, out, lse, H, D,
+                                      **kw)
+    _close(dqkv, want_q, "attention_bwd", dtype)
+    if with_bias:
+        _close(dbias, want_b, "attention_bwd", torch.float32)
+    else:
+        assert dbias is None
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_tiled_kernels_take_every_head_dim(dev, D):
+    qkv, bias = _qkv(dev, 2, 1100, 2, D, torch.float32, seed=D)
+    do = torch.randn(2, 1100, 2 * D, device=dev)
+    kw = dict(rate=0.2, is_test=False, causal=True)
+    out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, 2, D, **kw)
+    dqkv, dbias = ft.flash_tiled_bwd(qkv, bias, SEED, do, out, lse, 2, D,
+                                     want_dbias=True, **kw)
+    want_o, _ = ft.reference_fwd(qkv, bias, SEED, 2, D, scale=D ** -0.5,
+                                 **kw)
+    want_q, want_b = ft.reference_bwd(qkv, bias, SEED, do, out, lse, 2, D,
+                                      scale=D ** -0.5, **kw)
+    _close(out, want_o, "attention", torch.float32)
+    _close(dqkv, want_q, "attention_bwd", torch.float32)
+    _close(dbias, want_b, "attention_bwd", torch.float32)
+
+
+def test_tiled_kernels_draw_the_whole_row_kernels_mask(dev):
+    """One seed, S=512 (both paths take it): #7's output equals #1's bit
+    for bit (one device function), and the dv of one query row from #8 is
+    zero exactly where #3's is and where the plain mask drops."""
+    B, S, H, D, rate = 2, 512, 2, 64, 0.25
+    qkv, bias = _qkv(dev, B, S, H, D, torch.float32, seed=9)
+    kw = dict(scale=1 / 8, is_test=False, causal=False)
+    out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, H, D, rate=rate, **kw)
+    whole = fa.fused_attention_qkv(qkv, H, bias, dropout_rate=rate, seed=SEED,
+                                   **kw)
+    assert torch.equal(out, whole)
+    row, head = 77, 1
+    one = torch.zeros(B, S, H * D, device=dev)
+    one[:, row, head * D:(head + 1) * D] = 1.0
+    dqkv, _ = ft.flash_tiled_bwd(qkv, bias, SEED, one, out, lse, H, D,
+                                 rate=rate, **kw)
+    dqkv_w, _ = fa.fused_attention_qkv_bwd(qkv, H, bias, one,
+                                           dropout_rate=rate, seed=SEED, **kw)
+    sec = slice(2 * H * D + head * D, 2 * H * D + (head + 1) * D)
+    zero = (dqkv[0, :, sec] == 0).all(-1)
+    keep = pm.keep_mask(SEED, rate, S, S, lead=(B, H), device=dev)
+    live = bias[0] > -1  # padded keys get p = 0 whatever the mask
+    assert torch.equal(zero[live], ~keep[0, head, row][live])
+    assert torch.equal(zero, (dqkv_w[0, :, sec] == 0).all(-1))
+
+
+def test_attention_dispatch_takes_the_tiled_kernels_past_1024(dev):
+    """fused_attention_qkv and its backward launch #7-#9 past MAX_SEQ and
+    #1, #3 up to it; with the saved (out, lse) the backward does not run
+    the forward again."""
+    qkv, _ = _qkv(dev, 1, 1536, 2, 64, torch.float32)
+    do = torch.randn(1, 1536, 128, device=dev)
+    w0 = (fa.fused_attention_qkv.launches,
+          fa.fused_attention_qkv_bwd.launches_dq)
+    t0 = _tiled_counts()
+    out, lse = fa.fused_attention_qkv(qkv, 2, causal=True, return_lse=True)
+    fa.fused_attention_qkv_bwd(qkv, 2, None, do, causal=True, saved_out=out,
+                               saved_lse=lse)
+    assert _tiled_counts() == tuple(n + 1 for n in t0)
+    fa.fused_attention_qkv_bwd(qkv, 2, None, do, causal=True)  # no saved
+    assert _tiled_counts() == (t0[0] + 2, t0[1] + 2, t0[2] + 2)
+    fa.fused_attention_qkv(qkv[:, :1024], 2, causal=True)
+    assert (fa.fused_attention_qkv.launches,
+            fa.fused_attention_qkv_bwd.launches_dq) == (w0[0] + 1, w0[1])
+
+
+def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    counts = _tiled_counts()
+    qkv, bias = _qkv(dev, 1, 1100, 2, 48, torch.float32)
+    with pytest.raises(InvalidArgumentError):  # head dim 48
+        ft.flash_tiled_fwd(qkv, bias, None, 2, 48)
+    qkv, bias = _qkv(dev, 1, 1100, 2, 64, torch.float32)
+    with pytest.raises(InvalidArgumentError):  # fp16
+        ft.flash_tiled_fwd(qkv.half(), bias, None, 2, 64)
+    with pytest.raises(InvalidArgumentError):  # bias on another device
+        ft.flash_tiled_fwd(qkv, bias.cpu(), None, 2, 64)
+    out, lse = ft.flash_tiled_fwd(qkv, bias, None, 2, 64)
+    do = torch.zeros(1, 1100, 128, device=dev)
+    with pytest.raises(InvalidArgumentError):  # lse of another layout
+        ft.flash_tiled_bwd(qkv, bias, None, do, out, lse.transpose(1, 2)
+                           .contiguous(), 2, 64)
+    with pytest.raises(InvalidArgumentError):  # out on the CPU
+        ft.flash_tiled_bwd(qkv, bias, None, do, out.cpu(), lse, 2, 64)
+    assert _tiled_counts() == (counts[0] + 1, counts[1], counts[2])
+
+
+def test_gpt_tiny_at_s2048_trains_on_the_card_like_the_cpu(dev):
+    """Two Adam steps of GPT-tiny (max_position 2048, B=1, S=2048, dropout
+    0) on the card and the CPU from one state: every step launches #7, #9
+    and #8 once per layer and #1, #3 never. Tolerances as the BERT-tiny
+    test's, with 5% exempt updates (the CPU test's bound for GPT)."""
+    cfg = GPTConfig.tiny()
+    cfg.max_position = 2048
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [1, 2048], "int64")
+        loss = gpt_lm_loss(ids, cfg)
+        _, pg = Adam(1e-3).minimize(loss, startup)
+    feed = {"ids": np.random.RandomState(1).randint(0, 512, (1, 2048))}
+    fetch = [loss] + [g for _, g in pg]
+    gscope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=gscope)
+    cscope, cexe = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
+    convert.state_from_numpy(convert.state_to_numpy(gscope), cscope,
+                             fluid.CPUPlace(), program=main)
+    t0 = _tiled_counts()
+    w0 = (fa.fused_attention_qkv.launches,
+          fa.fused_attention_qkv_bwd.launches_dq)
+    for step in range(2):
+        gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+        cpu = cexe.run(main, feed=feed, fetch_list=fetch, scope=cscope)
+        np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-5)
+        for g, c, (p, _) in zip(gpu[1:], cpu[1:], pg):
+            np.testing.assert_allclose(g, c, rtol=1e-3, atol=1e-5,
+                                       err_msg=p.name)
+    n = 2 * cfg.num_layers
+    assert _tiled_counts() == (t0[0] + n, t0[1] + n, t0[2] + n)
+    assert (fa.fused_attention_qkv.launches,
+            fa.fused_attention_qkv_bwd.launches_dq) == w0
+
+
+def test_gpt_tiny_generation_on_the_card_matches_the_cpu(dev):
+    """KV-cache generation of GPT-tiny on the card gives the CPU's tokens
+    and the card's full recompute's (which launches #1 causal)."""
+    cfg = GPTConfig.tiny()
+    gen = GPTGenerator(cfg, batch=2, context_len=12, max_len=24)
+    gen.init_params(seed=3)
+    assert gen.scope.find_var("wte").is_cuda
+    cpu = GPTGenerator(cfg, batch=2, context_len=12, max_len=24,
+                       executor=fluid.Executor(fluid.CPUPlace()))
+    convert.state_from_numpy(convert.state_to_numpy(gen.scope), cpu.scope,
+                             fluid.CPUPlace(), program=cpu.prefill_prog,
+                             exclude=gpt_cache_names(cfg))
+    ctx = np.random.RandomState(0).randint(0, 512, (2, 12))
+    got = gen.generate(ctx, 8)
+    np.testing.assert_array_equal(got, cpu.generate(ctx, 8))
+    a0 = fa.fused_attention_qkv.launches
+    np.testing.assert_array_equal(got, gen.generate_full_recompute(ctx, 8))
+    assert fa.fused_attention_qkv.launches - a0 == 8 * cfg.num_layers
