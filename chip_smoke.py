@@ -13,7 +13,10 @@ Phases, each fatal on failure:
    shapes with training dropout (both draw the same Philox mask), forward
    and backward, in fp32 and bf16; check the kernels' keep mask against
    the plain one, its keep rate and its independence from the tiling; the
-   KV-tiled kernels at S = 1152 and 2048, training dropout on and off;
+   KV-tiled kernels at S = 1152 and 2048, training dropout on and off; the
+   standalone LayerNorm kernels (#10, #11) at [8192, 768] and R = 1001,
+   fp32 and bf16, scale and bias fp32, bf16 or absent, and #11's bits
+   equal over two runs;
 4. serving path: build the BERT-base classifier of bench_serving.py's
    bert_classify mix (full width, random weights from a seed), freeze it,
    serve requests through paddle_tpu_torch.serving.Server, check every
@@ -29,28 +32,47 @@ Phases, each fatal on failure:
 6. training path: bench_bert's program at BertConfig.base(), B=32, S=512,
    P=2457, dropout 0.1, Adam under linear warmup over polynomial decay,
    fp32: 3 warm-up and 5 timed steps through Executor.run, then one
-   under torch.profiler; every loss finite, the weights held at lr 0 and
-   moved after, the step counter advanced, and each step launched 12
-   attention forward, 12 + 12 attention backward, 24 residual forward
-   and 24 residual backward kernels; step time, tokens/s, peak memory,
-   and the profiled step's card busy time by kind of kernel, idle share
-   and host-device synchronisations;
+   under torch.profiler and one with the host's time taken by op type;
+   every loss finite, the weights held at lr 0 and moved after, the step
+   counter advanced, and each step launched 12 attention forward, 12 + 12
+   attention backward, 24 residual forward and 24 residual backward
+   kernels; step time, tokens/s, peak memory, the profiled step's card
+   busy time by kind of kernel, idle share and host-device
+   synchronisations, and the host's ms in each op type's emitters;
 7. GPT training, reduced depth: bench.py's bench_gpt_longctx program at
    GPT-small width with 2 layers, B=1, S=2048 (the KV-tiled path), no
    dropout, two Adam steps on the card and on the CPU from one state,
    under phase 5's tolerances;
 8. GPT training path: bench_gpt_longctx at GPT-small (V=32000), B=4,
-   S=2048, dropout 0.1, Adam(1e-4), fp32 (its AMP is not ported yet): 3
-   warm-up and 5 timed steps, one under torch.profiler; every step
-   launches the tiled forward, dq and dkv kernels 12 times each and the
-   whole-row attention never;
+   S=2048, dropout 0.1, Adam(1e-4), fp32 (the yardstick of its AMP
+   training in phase 12): 3 warm-up and 5 timed steps, one under
+   torch.profiler, one timed by op type; every step launches the tiled
+   forward, dq and dkv kernels 12 times each and the whole-row attention
+   never;
 9. GPT serving path: GPTConfig.small() through the KV-cache generator
    (batch 8, context 128, 128 new tokens) behind serving.Server on a
    generate endpoint; the served tokens against full recompute on the card
    (the whole-row kernel, causal, test mode), near-ties counted, and the
    prefill and first decode step's logits against the CPU;
-10. kernel times: each kernel beside its plain version, its bound and one
-   PyTorch call, at the serving, the BERT training and the GPT shapes.
+10. AMP, reduced depth: phase 7's program under bench.py's `_amp` (bf16,
+   static loss scale 1.0, layer_norm and softmax white-listed) with
+   FLAGS_paddle_tpu_pallas_layer_norm on, two Adam steps on the card and
+   on the CPU from one state, under bf16 tolerances (AMP_TOL), with the
+   share of exempt update elements under its cap;
+11. BERT AMP path: phase 6's step under `_amp`: every loss finite, the
+   weights held at lr 0 and moved after, the loss scale still 1.0 and
+   good_steps counting the steps, #1 12, #3 12 + 12, #2 24 and #4 24
+   launches a step on bf16 activations; the same figures as phase 6, the
+   rewritten program's op count and the cost of check_finite_and_unscale
+   and of its unread outputs;
+12. GPT AMP path: phase 8's step under `_amp`, twice: with the flag off
+   (bench.py's default; #10/#11 never launch) and on (#10 and #11 25
+   times each a step, and #11's sum_partials as often); #7-#9 12 times
+   each a step in both; the same figures as phase 8;
+13. kernel times: each kernel beside its plain version, its bound and one
+   PyTorch call, at the serving, the BERT training and the GPT shapes, and
+   #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32 line
+   printed beside).
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -106,6 +128,14 @@ TOL = {
     # the tiled forward's row logsumexp, fp32 for both input dtypes: a
     # log of up to 2048 terms summed in another order, values near 10
     "lse": {torch.float32: (1e-5, 0.0)},
+    # the standalone LayerNorm (#10, #11): as the residual kernels; its
+    # fp32 statistics, and its column sums over up to 8192 rows
+    "layer_norm": {torch.float32: (5e-6, 0.0),
+                   torch.bfloat16: (5e-6, 2 ** -7)},
+    "layer_norm_bwd": {torch.float32: (5e-5, 0.0),
+                       torch.bfloat16: (5e-5, 2 ** -7)},
+    "ln_stats": {torch.float32: (5e-6, 1e-5)},
+    "ln_sums": {torch.float32: (1e-3, 1e-5)},
 }
 # training parity (phases 3 and 6): BERT's dropout, seed words of a mask
 TRAIN_RATE = 0.1
@@ -121,11 +151,26 @@ MASK_SEED = (0x2024ABCD, 0x5EED0001)
 # gradient of ~1e-8 against Adam's epsilon of 1e-8) its size and sign.
 # They are counted and must stay under 2% of the elements
 SMALL_LR = 1e-3
-UPDATE_RTOL, UPDATE_AGREE, UPDATE_EXEMPT = 1e-3, 1e-4, 0.02
+FP32_TOL = dict(loss=1e-5, grad=("elementwise", 1e-5, 1e-3),
+                moment=("elementwise", 1e-7, 1e-3), update=(1e-3, 1e-4, 0.02))
+# the same under AMP (bf16 activations and gradients on both sides; a
+# bf16 unit is 2^-8 relative), as tests/test_torch_gpt_amp.py holds the
+# port against the JAX package: cuBLAS and the CPU round their bf16
+# matmuls' sums at other places, so a gradient is held by its relative
+# L2 error and an update by the elements whose gradients agree within
+# 2^-4; the rest are exempt (an element whose gradient is rounding noise,
+# as the key bias's, may move the other way under Adam) and must stay
+# under 20% of the elements. Loss rtol one bf16 unit; @GRAD relative L2
+# 2^-4; moments 2^-3 (moment2 squares the error); updates 2^-4 of
+# (|update| + lr)
+AMP_TOL = dict(loss=2 ** -8, grad=("l2", 2 ** -4), moment=("l2", 2 ** -3),
+               update=(2 ** -4, 2 ** -4, 0.2))
 # served / direct / CPU probabilities: 12 fp32 layers summed in other orders
 PROB_ATOL = 1e-4
 # bench_gpt_longctx's batch and sequence on an accelerator
 GPT_B, GPT_S = 4, 2048
+# the flag that routes layer_norm through #10/#11
+LN_FLAG = "FLAGS_paddle_tpu_pallas_layer_norm"
 # GPT serving (GPTConfig.small()): a batch of 8 generates 128 tokens after
 # a context of 128 (full recompute at S=256); prefill and decode logits on
 # the card vs the CPU, and the top two logits of a near-tie, within 1e-4
@@ -142,9 +187,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def counters(fa, fr, sp, ft):
+def counters(fa, fr, sp, ft, lnk):
     """{kernel: (wrapper, attribute)} of every launch counter."""
     return {
+        "layer_norm_fwd": (lnk.layer_norm_fwd, "launches"),
+        "layer_norm_bwd": (lnk.layer_norm_bwd, "launches"),
         "attention_fwd": (fa.fused_attention_qkv, "launches"),
         "attention_bwd_dq": (fa.fused_attention_qkv_bwd, "launches_dq"),
         "attention_bwd_dkv": (fa.fused_attention_qkv_bwd, "launches_dkv"),
@@ -172,7 +219,8 @@ def ptxas_usage(report):
     its spills and its registers."""
     out, kernel, spill = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"entry function '\w*?\d([a-z]\w*?_kernel)(I\w*)?", line)
+        m = re.search(r"entry function '.*?\d+([a-z_]+_kernel)(I\w*)?",
+                      line)
         if m:
             kernel, spill = m.group(1), ""
             args = m.group(2) or ""
@@ -490,6 +538,59 @@ def tiled_parity(ft):
     return err
 
 
+def ln_inputs(R, N, dtype, affine, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(R, N, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    dy = torch.randn(R, N, generator=g, device="cuda").to(dtype)
+    s = (1 + 0.1 * torch.randn(N, generator=g, device="cuda"))
+    b = 0.1 * torch.randn(N, generator=g, device="cuda")
+    if affine is None:
+        return x, dy, None, None
+    return x, dy, s.to(affine), b.to(affine)
+
+
+def ln_parity(lnk):
+    """#10 and #11 against their plain versions on the card at GPT's
+    [8192, 768] and at R = 1001 (a multiple of no block size) with N in
+    {256, 1024, 4096}, fp32 and bf16 x, scale and bias fp32, bf16 or
+    absent; #11 twice on the same inputs gives the same bits. Returns the
+    errors at the GPT AMP path's case ([8192, 768], bf16 x, scale and
+    bias) and in fp32."""
+    print("== parity, layer_norm: #10/#11 vs plain version on the card")
+    err = {}
+    for R, N in ((8192, 768), (1001, 256), (1001, 1024), (1001, 4096)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for affine in (torch.float32, torch.bfloat16, None):
+                x, dy, s, b = ln_inputs(R, N, dtype, affine, SEED + N)
+                tag = (f"R={R} N={N} {str(dtype)[6:]} scale/bias "
+                       f"{str(affine)[6:] if affine else 'none'}")
+                y, mean, var = lnk.layer_norm_fwd(x, s, b, 1e-5)
+                want = lnk.reference_fwd(x, s, b, 1e-5)
+                e_f = compare(y, want[0], "layer_norm", dtype,
+                              f"layer_norm fwd {tag}")
+                for n, a, w in zip(("mean", "var"), (mean, var), want[1:]):
+                    compare(a, w, "ln_stats", torch.float32,
+                            f"layer_norm fwd {n} {tag}")
+                dx, ds, db = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+                want = lnk.reference_bwd(x, s, dy, 1e-5)
+                e_b = compare(dx, want[0], "layer_norm_bwd", dtype,
+                              f"layer_norm bwd dx {tag}")
+                for n, a, w in zip(("dscale", "dbias"), (ds, db), want[1:]):
+                    compare(a, w, "ln_sums", torch.float32,
+                            f"layer_norm bwd {n} {tag}")
+                if (R, N, affine) == (8192, 768, dtype):
+                    key = "" if dtype == torch.bfloat16 else "_fp32"
+                    err["layer_norm_fwd" + key] = e_f
+                    err["layer_norm_bwd" + key] = e_b
+    x, dy, s, _ = ln_inputs(8192, 768, torch.bfloat16, torch.bfloat16, SEED)
+    first = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+    second = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "two runs of #11 on the same inputs differ")
+    print("layer_norm bwd: two runs give the same bits (dx, dscale, dbias)")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # main path: BERT-base classifier behind the Server
 # ---------------------------------------------------------------------------
@@ -684,11 +785,27 @@ def serve_times(frozen, exe, scope, samples):
 # ---------------------------------------------------------------------------
 
 
-def build_bench_bert(fluid, layers, cfg, B, S, lr):
+def bench_amp(opt):
+    """bench.py's `_amp`: the optimizer under AMP as bench.py trains on an
+    accelerator (bf16, static loss scale 1.0, layer_norm and softmax
+    white-listed)."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+
+    return mp.decorate(
+        opt,
+        amp_lists=mp.AutoMixedPrecisionLists(
+            custom_white_list={"softmax", "layer_norm"}),
+        use_dynamic_loss_scaling=False, init_loss_scaling=1.0,
+        dest_dtype="bfloat16",
+    )
+
+
+def build_bench_bert(fluid, layers, cfg, B, S, lr, amp=False):
     """bench.py's bench_bert program: MLM pretraining with the gathered
-    head and Adam; lr a float, or None for bench_bert's schedule (linear
-    warmup over polynomial decay). Returns (main, startup, loss, lr (the
-    float or the schedule's Variable), params_grads, P)."""
+    head and Adam (under bench_amp with amp=True); lr a float, or None for
+    bench_bert's schedule (linear warmup over polynomial decay). Returns
+    (main, startup, loss, lr (the float or the schedule's Variable),
+    params_grads, P, optimizer)."""
     from paddle_tpu_torch.models.bert import bert_pretrain
     from paddle_tpu_torch.optimizer import Adam
 
@@ -705,8 +822,9 @@ def build_bench_bert(fluid, layers, cfg, B, S, lr):
         if lr is None:
             lr = layers.linear_lr_warmup(
                 layers.polynomial_decay(1e-4, 100000, 1e-5), 1000, 0.0, 1e-4)
-        _, pg = Adam(lr).minimize(loss, startup)
-    return main, startup, loss, lr, pg, P
+        opt = bench_amp(Adam(lr)) if amp else Adam(lr)
+        _, pg = opt.minimize(loss, startup)
+    return main, startup, loss, lr, pg, P, opt
 
 
 def bench_batches(cfg, B, S, P, n):
@@ -736,18 +854,33 @@ def train_small(fluid, layers):
     cfg = BertConfig.base()
     cfg.num_layers = 2
     cfg.hidden_dropout = cfg.attention_dropout = 0.0
-    main, startup, loss, _, pg, P = build_bench_bert(fluid, layers, cfg, 2,
-                                                     128, SMALL_LR)
+    main, startup, loss, _, pg, P, _ = build_bench_bert(fluid, layers, cfg,
+                                                        2, 128, SMALL_LR)
     feeds = bench_batches(cfg, 2, 128, P, 2)
     for f in feeds:
         f["mask"][1, 100:] = 0.0  # padded keys in the second sample
     card_vs_cpu(fluid, main, startup, loss, pg, feeds)
 
 
-def card_vs_cpu(fluid, main, startup, loss, pg, feeds):
+def _held(got, want, spec):
+    """(error, within the spec?) of got against want: ("elementwise",
+    atol, rtol) -> max |got - want|, each within atol + rtol |want|;
+    ("l2", bound) -> ||got - want|| / ||want|| within bound."""
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    d = np.abs(got - want)
+    if spec[0] == "elementwise":
+        return float(d.max()), bool((d <= spec[1] + spec[2] * np.abs(want))
+                                    .all())
+    err = float(np.linalg.norm(got - want)
+                / max(np.linalg.norm(want), 1e-30))
+    return err, err <= spec[1]
+
+
+def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL):
     """One Adam step per feed on the card and on the CPU from one state,
-    under the tolerances above: the loss, every @GRAD, the moments, beta
-    powers, lr and counters, and each parameter's update."""
+    under `tol` (FP32_TOL or AMP_TOL): the loss, every @GRAD, the moments,
+    beta powers, lr, loss scale and counters, and each parameter's
+    update. Returns (exempt update elements, elements)."""
     from paddle_tpu_torch import convert
 
     gexe, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
@@ -768,12 +901,12 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds):
         check(np.isfinite(gpu[0]).all(), f"card loss not finite: {gpu[0]}")
         rel = float(np.abs(gpu[0] - cpu[0]).max() / np.abs(cpu[0]).max())
         worst["loss"] = max(worst["loss"], rel)
-        check(rel <= 1e-5, f"step {step}: loss {gpu[0]} vs CPU {cpu[0]}")
+        check(rel <= tol["loss"], f"step {step}: loss {gpu[0]} vs CPU "
+              f"{cpu[0]}")
         for (p, _), g, c in zip(pg, gpu[1:], cpu[1:]):
-            d = np.abs(g - c)
-            worst["grad"] = max(worst["grad"], float(d.max()))
-            check((d <= 1e-5 + 1e-3 * np.abs(c)).all(),
-                  f"step {step}: {p.name}@GRAD differs by {d.max():.3e}")
+            err, ok = _held(g, c, tol["grad"])
+            worst["grad"] = max(worst["grad"], err)
+            check(ok, f"step {step}: {p.name}@GRAD differs by {err:.3e}")
     gend, cend = convert.state_to_numpy(gscope), convert.state_to_numpy(cscope)
     worst_m = worst_s = 0.0
     moved = 0
@@ -783,10 +916,10 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds):
         if name in grads:
             continue  # parameters: their updates, below
         if name.endswith(("_moment1_0", "_moment2_0")):
-            worst_m = max(worst_m, float(d.max()))
-            check((d <= 1e-7 + 1e-3 * np.abs(c)).all(),
-                  f"moment {name} differs by {d.max():.3e}")
-        elif c.dtype.kind == "f":  # beta powers, the lr
+            err, ok = _held(g, c, tol["moment"])
+            worst_m = max(worst_m, err)
+            check(ok, f"moment {name} differs by {err:.3e}")
+        elif c.dtype.kind == "f":  # beta powers, the lr, the loss scale
             worst_s = max(worst_s, float((d / np.abs(c)).max()))
             check((d <= 1e-6 * np.abs(c)).all(),
                   f"{name} differs by {d.max():.3e}")
@@ -794,27 +927,30 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds):
             check(np.array_equal(g, c), f"{name}: {g} vs {c}")
         moved += not np.array_equal(start[name], c)
     worst_u, exempt, total = check_updates(start, gend, cend, grads,
-                                           SMALL_LR)
+                                           SMALL_LR, *tol["update"])
     moved += sum(not np.array_equal(start[n], cend[n]) for n in grads)
     check(moved > 3 * len(pg), f"only {moved} state tensors moved")
     print(f"{len(feeds)} steps, {len(pg)} gradients, {len(cend)} state "
           f"tensors ({moved} moved); max error vs CPU: loss "
-          f"{worst['loss']:.2e} relative, @GRAD {worst['grad']:.2e}, moments "
-          f"{worst_m:.2e}, beta powers and lr {worst_s:.2e} relative, "
+          f"{worst['loss']:.2e} relative, @GRAD {worst['grad']:.2e} "
+          f"({tol['grad'][0]}), moments {worst_m:.2e} ({tol['moment'][0]}), "
+          f"beta powers, lr and loss scale {worst_s:.2e} relative, "
           f"parameter updates {worst_u:.2e} of (|update| + lr) over "
-          f"{total - exempt} elements ({exempt} of {total} exempt, gradients "
-          f"apart by more than {UPDATE_AGREE:g}) (bounds 1e-5, 1e-5 + "
-          f"1e-3|g|, 1e-7 + 1e-3|m|, 1e-6, {UPDATE_RTOL:g}); "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{total - exempt} elements ({exempt} of {total} exempt, "
+          f"{exempt / total:.2%}, gradients apart by more than "
+          f"{tol['update'][1]:g}; cap {tol['update'][2]:.0%}) (bounds "
+          f"{tol['loss']:g}, {tol['grad'][1:]}, {tol['moment'][1:]}, 1e-6, "
+          f"{tol['update'][0]:g}); {time.perf_counter() - t0:.1f}s")
+    return exempt, total
 
 
-def check_updates(start, got, want, grads, lr):
+def check_updates(start, got, want, grads, lr, rtol, agree, cap):
     """Holds each parameter's update over the steps, end - start, against
-    the reference's: |got - want| <= UPDATE_RTOL * (|want| + lr), but for
+    the reference's: |got - want| <= rtol * (|want| + lr), but for
     elements whose two gradients (got's, want's) differ by more than
-    UPDATE_AGREE of want's at some step; those must stay under
-    UPDATE_EXEMPT of the elements. Returns (worst |got - want| / (|want|
-    + lr), exempt elements, elements)."""
+    agree of want's at some step; those must stay under cap of the
+    elements. Returns (worst |got - want| / (|want| + lr), exempt
+    elements, elements)."""
     worst, exempt, total = 0.0, 0, 0
     for name, steps in grads.items():
         du = got[name].astype(np.float64) - start[name]
@@ -822,17 +958,16 @@ def check_updates(start, got, want, grads, lr):
         noisy = np.zeros(dw.shape, bool)
         for g, w in steps:
             w = w.astype(np.float64)
-            noisy |= np.abs(g - w) > UPDATE_AGREE * np.abs(w)
+            noisy |= np.abs(g - w) > agree * np.abs(w)
         rel = (np.abs(du - dw) / (np.abs(dw) + lr))[~noisy]
         if rel.size:
             worst = max(worst, float(rel.max()))
-        check(not (rel > UPDATE_RTOL).any(),
-              f"{name}: {(rel > UPDATE_RTOL).sum()} updates differ, worst "
+        check(not (rel > rtol).any(),
+              f"{name}: {(rel > rtol).sum()} updates differ, worst "
               f"{rel.max():.3e} of (|update| + lr)")
         exempt += int(noisy.sum())
         total += noisy.size
-    check(exempt < UPDATE_EXEMPT * total,
-          f"{exempt} of {total} updates exempt")
+    check(exempt < cap * total, f"{exempt} of {total} updates exempt")
     return worst, exempt, total
 
 
@@ -844,9 +979,12 @@ KINDS = (
     ("tiled attention forward (ours)", ("tiled_fwd_kernel",)),
     ("tiled attention backward (ours)", ("tiled_dq_kernel",
                                          "tiled_dkv_kernel")),
+    ("layer_norm fwd/bwd (ours)", ("ln_row_fwd_kernel",
+                                   "ln_row_bwd_kernel")),
     ("residual fwd/bwd + sum_partials (ours)",
      ("ln_fwd_kernel", "ln_bwd_kernel", "sum_partials_kernel")),
-    ("matmul (cuBLAS)", ("gemm", "sgemm", "cutlass", "xmma", "sm90_")),
+    ("matmul (cuBLAS)", ("gemm", "sgemm", "cutlass", "xmma", "sm90_",
+                         "nvjet")),
     ("index/scatter", ("index", "scatter", "gather", "sort", "radix")),
     ("reductions", ("reduce", "Reduce")),
     ("elementwise and other", ("",)),
@@ -890,14 +1028,50 @@ def profile_step(run):
                 busy_ms_by_kind=kinds, syncs=syncs)
 
 
+def host_by_op(run):
+    """One call of run() with the executor's run_op timed on the host: the
+    ms the host spends in each op type's emitter (building and enqueueing
+    its kernels, or waiting where it synchronises with the card), a
+    `__vjp__` op under its forward op's type, largest first. No profiler
+    runs, so the times are the eager executor's own."""
+    from paddle_tpu_torch.framework import executor
+
+    real, by = executor.run_op, {}
+
+    def timed(ctx, op, env):
+        t0 = time.perf_counter()
+        out = real(ctx, op, env)
+        key = (f"__vjp__({op.attr('fwd_type')})" if op.type == "__vjp__"
+               else op.type)
+        by[key] = by.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    executor.run_op = timed
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        executor.run_op = real
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1])[:10])
+    total = sum(by.values())
+    print(f"host time in the emitters: {total:.1f} ms of a {wall:.1f} ms "
+          "step; by op type: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in top.items()))
+    return dict(host_emit_ms=total, host_ms_by_op=top)
+
+
 def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
               after=None, warm=3, timed=5):
     """warm + timed steps through Executor.run, then one under
-    torch.profiler; each step must launch the kernels of `expect`. after(i,
-    values) checks step i's fetched scalars. Returns (every step's values,
-    stats: step time median [min, max] of the timed steps, tokens/s, the
-    time until Executor.run returned, peak memory, the profile)."""
-    steps = warm + timed + 1  # the last one runs under the profiler
+    torch.profiler and one with the host's time taken by op type; each
+    step must launch the kernels of `expect`. after(i, values) checks step
+    i's fetched scalars. Returns (every step's values, stats: step time
+    median [min, max] of the timed steps, tokens/s, the time until
+    Executor.run returned, peak memory, the profile, the host's time by op
+    type)."""
+    steps = warm + timed + 2  # then one profiled, one timed by op type
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kc)
@@ -911,8 +1085,10 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
                             fetch_list=fetch, scope=scope,
                             return_numpy=False)
 
-        if i == steps - 1:
+        if i == steps - 2:
             prof = profile_step(run)
+        elif i == steps - 1:
+            by_op = host_by_op(run)
         else:
             t0 = time.perf_counter()
             run()
@@ -925,7 +1101,7 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
         values.append([o.item() for o in outs])
         if after is not None:
             after(i, values[-1])
-        if i == steps - 1:
+        if i >= steps - 2:
             continue
         if i >= warm:
             host.append(t1 - t0)
@@ -941,7 +1117,8 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
                  host_ms=statistics.median(host) * 1e3,
                  tokens_per_s=tokens / med,
                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                 final_loss=values[-1][0], steps=steps, profile=prof)
+                 final_loss=values[-1][0], steps=steps, profile=prof,
+                 **by_op)
     print(f"step time (median [min, max] of {timed} after {warm} warm-up "
           f"steps): {stats['step_ms']:.1f} ms [{stats['step_ms_min']:.1f}, "
           f"{stats['step_ms_max']:.1f}], {stats['tokens_per_s']:.0f} "
@@ -950,18 +1127,63 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
     return values, stats
 
 
-def train_full(fluid, layers, kc):
-    """bench_bert's training step at BertConfig.base(), B=32, S=512."""
+def amp_checks(main, opt, scope, steps, kernel_inputs):
+    """Under bench_amp: the program's ops and casts; the kernels' ops read
+    bf16 activations (each (op type, slot) of kernel_inputs declares
+    bfloat16: the CPU tests hold every op's runtime dtype to its
+    declaration); after `steps` steps the static loss scale is still 1.0
+    and good_steps counted every step."""
+    blk = main.global_block
+    casts = sum(op.type == "cast" for op in blk.ops)
+    for op in blk.ops:
+        for slot in kernel_inputs.get(op.type, ()):
+            dt = blk.var(op.inputs[slot][0]).dtype
+            check(dt == "bfloat16", f"{op.type} reads {slot} as {dt}")
+    state = opt.state_dict(scope)
+    check(state == {"loss_scaling": 1.0, "good_steps": steps,
+                    "bad_steps": 0}, f"loss-scale state {state}")
+    print(f"AMP: {len(blk.ops)} ops of which {casts} casts; kernel inputs "
+          f"in bf16: {kernel_inputs}; loss-scale state {state}")
+
+
+def unscale_cost(pg):
+    """Card ms of check_finite_and_unscale on gradients of the parameters'
+    shapes (fp32), and of its unscaled outputs alone, which nothing reads
+    (the decorator keeps the op's semantics; the eager executor computes
+    them)."""
+    from paddle_tpu_torch.framework.registry import OpView, get_op_def
+
+    xs = [torch.randn(tuple(p.shape), device="cuda") for p, _ in pg]
+    scale = torch.ones(1, device="cuda")
+    emit = get_op_def("check_finite_and_unscale").emit
+    op = OpView("check_finite_and_unscale", {})
+    t_op = cuda_ms(lambda: emit(None, op, {"X": xs, "Scale": [scale]}),
+                   iters=5, reps=3)
+    t_out = cuda_ms(lambda: [x / scale for x in xs], iters=5, reps=3)
+    n = sum(x.numel() for x in xs)
+    print(f"check_finite_and_unscale over {n / 1e6:.1f}M fp32 gradient "
+          f"elements: {t_op:.3f} ms, of which the unread unscaled outputs "
+          f"{t_out:.3f} ms")
+    del xs
+    torch.cuda.empty_cache()
+    return dict(unscale_op_ms=t_op, unscale_dead_outputs_ms=t_out,
+                grad_elements=n)
+
+
+def train_full(fluid, layers, kc, amp=False):
+    """bench_bert's training step at BertConfig.base(), B=32, S=512, in
+    fp32 or under bench_amp."""
     from paddle_tpu_torch.models.bert import BertConfig
 
     B, S = 32, 512
+    mode = "AMP (bf16, bench.py's _amp)" if amp else "fp32"
     print(f"== training path: bench_bert at BertConfig.base(), B={B}, "
           f"S={S}, dropout 0.1, Adam under linear warmup over polynomial "
-          "decay, fp32")
+          f"decay, {mode}")
     cfg = BertConfig.base()
     t0 = time.perf_counter()
-    main, startup, loss, lr, pg, P = build_bench_bert(fluid, layers, cfg, B,
-                                                      S, None)
+    main, startup, loss, lr, pg, P, opt = build_bench_bert(
+        fluid, layers, cfg, B, S, None, amp=amp)
     ops = main.global_block.ops
     print(f"P={P}; {len(ops)} ops of {len({op.type for op in ops})} types, "
           f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
@@ -971,10 +1193,10 @@ def train_full(fluid, layers, kc):
                for b in bench_batches(cfg, B, S, P, 4)]
     watch = ("bert_l0_attn_qkv_w", "bert_l11_ffn_out_w", "mlm_out_w")
     snap = {n: scope.find_var(n).clone() for n in watch}
-    expect = {"attention_fwd": 12, "attention_bwd_dq": 12,
-              "attention_bwd_dkv": 12, "residual_fwd": 24,
-              "residual_bwd": 24, "sum_partials": 24, "tiled_fwd": 0,
-              "tiled_bwd_dq": 0, "tiled_bwd_dkv": 0}
+    expect = dict.fromkeys(kc, 0)
+    expect.update(attention_fwd=12, attention_bwd_dq=12,
+                  attention_bwd_dkv=12, residual_fwd=24, residual_bwd=24,
+                  sum_partials=24)
 
     def after(i, values):
         lr_i = values[1]
@@ -994,7 +1216,15 @@ def train_full(fluid, layers, kc):
     check(counter == stats["steps"] - 1, f"step counter {counter}")
     print(f"step counter {counter}; launches on the training path "
           f"({stats['steps']} steps): {counts}")
-    print("training: " + json.dumps(stats))
+    if amp:
+        amp_checks(main, opt, scope, stats["steps"], {
+            "fused_qkv_attention": ("QKV",),
+            "fused_qkv_attention_grad": ("QKV", "OutGrad"),
+            "fused_dropout_add_ln": ("X", "Y"),
+            "fused_dropout_add_ln_grad": ("X", "Y", "OutGrad")})
+        stats.update(ops=len(ops), **unscale_cost(pg))
+    print(("bert amp training: " if amp else "training: ")
+          + json.dumps(stats))
     del exe, scope, batches, snap
     torch.cuda.empty_cache()
     return counts
@@ -1013,9 +1243,11 @@ def gpt_longctx_config(num_layers=12):
                      intermediate_size=3072, max_position=GPT_S)
 
 
-def build_bench_gpt(fluid, cfg, B, S, lr):
-    """bench.py's bench_gpt_longctx program (without its AMP): gpt_lm_loss
-    with Adam at a constant lr. Returns (main, startup, loss, params_grads)."""
+def build_bench_gpt(fluid, cfg, B, S, lr, amp=False):
+    """bench.py's bench_gpt_longctx program: gpt_lm_loss with Adam at a
+    constant lr (under bench_amp with amp=True). The layer_norm grad ops
+    follow FLAGS_paddle_tpu_pallas_layer_norm as it stands now. Returns
+    (main, startup, loss, params_grads, optimizer)."""
     from paddle_tpu_torch.models.gpt import gpt_lm_loss
     from paddle_tpu_torch.optimizer import Adam
 
@@ -1024,8 +1256,9 @@ def build_bench_gpt(fluid, cfg, B, S, lr):
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         ids = fluid.data("ids", [B, S], "int64")
         loss = gpt_lm_loss(ids, cfg)
-        _, pg = Adam(lr).minimize(loss, startup)
-    return main, startup, loss, pg
+        opt = bench_amp(Adam(lr)) if amp else Adam(lr)
+        _, pg = opt.minimize(loss, startup)
+    return main, startup, loss, pg, opt
 
 
 def gpt_batches(cfg, B, S):
@@ -1035,61 +1268,108 @@ def gpt_batches(cfg, B, S):
             for _ in range(2)]
 
 
-def gpt_train_small(fluid):
+def gpt_train_small(fluid, amp=False):
     """Two Adam steps of the bench_gpt_longctx program at GPT-small width
     with 2 layers, B=1, S=2048 (the tiled path), dropout 0, on the card
-    and on the CPU from one state, under phase 5's tolerances."""
+    and on the CPU from one state: in fp32 under phase 5's tolerances, or
+    under bench_amp with FLAGS_paddle_tpu_pallas_layer_norm on (#10/#11
+    on the card, their plain versions on the CPU) under AMP_TOL."""
+    mode = ("AMP, FLAGS_paddle_tpu_pallas_layer_norm on" if amp
+            else "fp32")
     print("== GPT training, reduced depth: GPT-small width, 2 layers, B=1, "
-          f"S={GPT_S}, no dropout, lr {SMALL_LR:g}; card vs CPUPlace()")
+          f"S={GPT_S}, no dropout, lr {SMALL_LR:g}, {mode}; card vs "
+          "CPUPlace()")
     cfg = gpt_longctx_config(num_layers=2)
     cfg.hidden_dropout = cfg.attention_dropout = 0.0
-    main, startup, loss, pg = build_bench_gpt(fluid, cfg, 1, GPT_S, SMALL_LR)
-    check(sum(op.type == "fused_qkv_attention_grad" and "Lse" in op.inputs
-              for op in main.global_block.ops) == 2,
-          "the grad ops do not read the saved Lse")
-    card_vs_cpu(fluid, main, startup, loss, pg, gpt_batches(cfg, 1, GPT_S))
+    fluid.set_flags({LN_FLAG: amp})
+    try:
+        main, startup, loss, pg, _ = build_bench_gpt(fluid, cfg, 1, GPT_S,
+                                                     SMALL_LR, amp=amp)
+        check(sum(op.type == "fused_qkv_attention_grad"
+                  and "Lse" in op.inputs
+                  for op in main.global_block.ops) == 2,
+              "the grad ops do not read the saved Lse")
+        check(sum(op.type == "layer_norm_grad"
+                  for op in main.global_block.ops) == (5 if amp else 0),
+              "layer_norm_grad ops do not follow the flag")
+        exempt, total = card_vs_cpu(fluid, main, startup, loss, pg,
+                                    gpt_batches(cfg, 1, GPT_S),
+                                    AMP_TOL if amp else FP32_TOL)
+    finally:
+        fluid.set_flags({LN_FLAG: False})
+    return exempt / total
 
 
-def gpt_train_full(fluid, kc):
+def gpt_train_full(fluid, kc, amp=False, ln_kernels=False):
     """bench_gpt_longctx's training step at GPT-small, B=4, S=2048,
-    dropout 0.1, Adam(1e-4), fp32 (the JAX package adds AMP bf16 on an
-    accelerator; AMP is not ported yet)."""
+    dropout 0.1, Adam(1e-4): fp32, or under bench_amp as the JAX package
+    trains it on an accelerator, with FLAGS_paddle_tpu_pallas_layer_norm
+    off (bench.py's default) or on (#10/#11, 25 each a step: 12 layers x
+    (ln1, ln2) and gpt_lnf). The flag is set before the program is built
+    and stays on while it runs. Returns (launch counts, step stats)."""
     B, S = GPT_B, GPT_S
+    mode = "fp32"
+    if amp:
+        mode = ("AMP (bf16, bench.py's _amp), FLAGS_paddle_tpu_pallas_"
+                f"layer_norm {'on' if ln_kernels else 'off'}")
     print(f"== GPT training path: bench_gpt_longctx at GPT-small (V=32000, "
           f"hidden 768, 12 layers, 12 heads), B={B}, S={S}, dropout 0.1, "
-          "Adam(1e-4), fp32")
+          f"Adam(1e-4), {mode}")
     cfg = gpt_longctx_config()
-    t0 = time.perf_counter()
-    main, startup, loss, pg = build_bench_gpt(fluid, cfg, B, S, 1e-4)
-    ops = main.global_block.ops
-    print(f"{len(ops)} ops of {len({op.type for op in ops})} types, "
-          f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
-    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
-    exe.run(startup, scope=scope)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-               for b in gpt_batches(cfg, B, S)]
-    watch = ("gpt_l0_attn_qkv_w", "gpt_l11_mlp_out_w", "lm_head_w")
-    snap = {n: scope.find_var(n).clone() for n in watch}
-    # the tiled kernels once per layer each, the forward never again in
-    # the backward; no whole-row attention, no residual kernel, no dbias
-    expect = dict.fromkeys(kc, 0)
-    expect.update(tiled_fwd=12, tiled_bwd_dq=12, tiled_bwd_dkv=12)
+    fluid.set_flags({LN_FLAG: ln_kernels})
+    try:
+        t0 = time.perf_counter()
+        main, startup, loss, pg, opt = build_bench_gpt(fluid, cfg, B, S,
+                                                       1e-4, amp=amp)
+        ops = main.global_block.ops
+        print(f"{len(ops)} ops of {len({op.type for op in ops})} types, "
+              f"{len(pg)} parameters; built in "
+              f"{time.perf_counter() - t0:.1f}s")
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                   for b in gpt_batches(cfg, B, S)]
+        watch = ("gpt_l0_attn_qkv_w", "gpt_l11_mlp_out_w", "lm_head_w",
+                 "gpt_l0_ln1_scale", "gpt_lnf_bias")
+        snap = {n: scope.find_var(n).clone() for n in watch}
+        # the tiled kernels once per layer each, the forward never again
+        # in the backward; no whole-row attention, no residual kernel, no
+        # dbias; with the flag, #10/#11 (and #11's sum_partials) once per LN
+        expect = dict.fromkeys(kc, 0)
+        expect.update(tiled_fwd=12, tiled_bwd_dq=12, tiled_bwd_dkv=12)
+        if ln_kernels:
+            expect.update(layer_norm_fwd=25, layer_norm_bwd=25,
+                          sum_partials=25)
 
-    def after(i, values):
-        if i == 0:
-            moved = [n for n in watch
-                     if not torch.equal(scope.find_var(n), snap[n])]
-            check(len(moved) == len(watch), f"step 0 moved only {moved}")
+        def after(i, values):
+            if i == 0:
+                moved = [n for n in watch
+                         if not torch.equal(scope.find_var(n), snap[n])]
+                check(len(moved) == len(watch), f"step 0 moved only {moved}")
 
-    _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",), kc,
-                         expect, B * S, after)
+        _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",),
+                             kc, expect, B * S, after)
+    finally:
+        fluid.set_flags({LN_FLAG: False})
     counts = read_counts(kc)
     print(f"launches on the GPT training path ({stats['steps']} steps): "
           f"{counts}")
-    print("gpt training: " + json.dumps(stats))
+    tag = "gpt training: "
+    if amp:
+        inputs = {"fused_qkv_attention": ("QKV",),
+                  "fused_qkv_attention_grad": ("QKV", "OutGrad")}
+        inputs["layer_norm"] = ("X", "Scale", "Bias")
+        if ln_kernels:
+            inputs["layer_norm_grad"] = ("X", "Scale", "Bias", "YGrad")
+        amp_checks(main, opt, scope, stats["steps"], inputs)
+        stats["ops"] = len(ops)
+        if not ln_kernels:
+            stats.update(unscale_cost(pg))
+        tag = f"gpt amp training (layer_norm kernels {ln_kernels}): "
+    print(tag + json.dumps(stats))
     del exe, scope, batches, snap
     torch.cuda.empty_cache()
-    return counts
+    return counts, stats
 
 
 def near_ties(gen, ctx, cached, full):
@@ -1512,6 +1792,61 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n):
     return rows
 
 
+def ln_kernel_times(lnk, err, launches):
+    """#10 and #11 at the GPT AMP path's shape, R = B*S = 8192 rows of
+    N = 768, with bf16 x, scale and bias (the path's dtypes), then an fp32
+    line. Bounds: #10 reads x and writes y and the fp32 mean and var, #11
+    reads x and dy and writes dx and the fp32 dscale and dbias (scale and
+    bias read once), over 3.35 TB/s; ~8 (#10) and ~16 (#11) operations an
+    element at the inputs' dtype's peak. #11's time is the wrapper's (the
+    row kernel and its sum_partials), the split from a torch.profiler
+    trace. Library: F.layer_norm and its autograd backward at the same
+    shape and dtypes."""
+    import torch.nn.functional as F
+
+    R, N = GPT_B * GPT_S, 768
+    print(f"== kernel times, GPT AMP path's layer_norm (R={R}, N={N})")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name, es = str(dtype)[6:], dtype.itemsize
+        x, dy, s, b = ln_inputs(R, N, dtype, dtype, SEED)
+        t_k = cuda_ms(lambda: lnk.layer_norm_fwd(x, s, b, 1e-5))
+        t_p = cuda_ms(lambda: lnk.reference_fwd(x, s, b, 1e-5))
+        t_l = cuda_ms(lambda: F.layer_norm(x, (N,), s, b, 1e-5))
+        b_f = bound(2 * R * N * es + 2 * N * es + 2 * R * 4, 8 * R * N,
+                    dtype)
+        print(f"layer_norm fwd (#10) {name}: kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, F.layer_norm {t_l:.4f} ms, bound "
+              f"{b_f[0]:.4f} ms ({b_f[1]})")
+        t = traced_ms(lambda: lnk.layer_norm_bwd(x, s, dy, 1e-5),
+                      ("ln_row_bwd_kernel", "sum_partials_kernel"), iters=20)
+        t_b = cuda_ms(lambda: lnk.layer_norm_bwd(x, s, dy, 1e-5))
+        t_pb = cuda_ms(lambda: lnk.reference_bwd(x, s, dy, 1e-5))
+        xg, sg, bg = (v.detach().requires_grad_() for v in (x, s, b))
+        out = F.layer_norm(xg, (N,), sg, bg, 1e-5)
+        t_lb = cuda_ms(lambda: torch.autograd.grad(out, (xg, sg, bg), dy,
+                                                   retain_graph=True))
+        b_b = bound(3 * R * N * es + N * es + 2 * N * 4, 16 * R * N, dtype)
+        print(f"layer_norm bwd (#11) {name}: {t_b:.4f} ms through the "
+              f"wrapper (traced: row kernel {t['ln_row_bwd_kernel']:.4f} "
+              f"ms, sum_partials {t['sum_partials_kernel']:.4f} ms), plain "
+              f"{t_pb:.4f} ms, F.layer_norm backward {t_lb:.4f} ms, bound "
+              f"{b_b[0]:.4f} ms ({b_b[1]})")
+        if dtype == torch.bfloat16:
+            rows.append(row("layer_norm_fwd", "gpt_amp_training",
+                            "layer_norm.cu",
+                            "paddle_tpu/kernels/layer_norm.py:50",
+                            launches["layer_norm_fwd"],
+                            err["layer_norm_fwd"], t_k, t_p, b_f, t_l))
+            rows.append(row("layer_norm_bwd", "gpt_amp_training",
+                            "layer_norm.cu",
+                            "paddle_tpu/kernels/layer_norm.py:65",
+                            launches["layer_norm_bwd"],
+                            err["layer_norm_bwd"], t_b, t_pb, b_b, t_lb))
+        del x, dy, s, b, xg, sg, bg, out
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1522,6 +1857,7 @@ def main():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import flash_tiled as ft
     from paddle_tpu_torch.kernels import fused_residual as fr
+    from paddle_tpu_torch.kernels import layer_norm as lnk
     from paddle_tpu_torch.kernels import prng_mask as pm
     from paddle_tpu_torch.kernels import sum_partials as sp
 
@@ -1539,10 +1875,11 @@ def main():
         for kernel, regs, spill in ptxas_usage(ptxas):
             print(f"  {name}: {kernel} {regs} registers, {spill}")
 
-    kc = counters(fa, fr, sp, ft)
+    kc = counters(fa, fr, sp, ft, lnk)
     main_err = parity(fa, fr)
     train_err = train_parity(fa, fr, pm)
     tiled_err = tiled_parity(ft)
+    ln_err = ln_parity(lnk)
     frozen, exe, scope, samples, serve_n = main_path(fluid, layers, kc)
     serve_times(frozen, exe, scope, samples)
     del frozen, exe, scope
@@ -1550,11 +1887,16 @@ def main():
     train_small(fluid, layers)
     train_n = train_full(fluid, layers, kc)
     gpt_train_small(fluid)
-    gpt_train_n = gpt_train_full(fluid, kc)
+    gpt_train_n, _ = gpt_train_full(fluid, kc)
     gpt_serve_n = gpt_serving(fluid, kc)
+    gpt_train_small(fluid, amp=True)
+    train_full(fluid, layers, kc, amp=True)
+    gpt_train_full(fluid, kc, amp=True)
+    gpt_ln_n, _ = gpt_train_full(fluid, kc, amp=True, ln_kernels=True)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n)
+    rows += ln_kernel_times(lnk, ln_err, gpt_ln_n)
 
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -10,7 +10,7 @@ Entry points run on the card (`CUDAPlace(0)`) unless the caller passes
 """
 
 from . import ops  # noqa: F401  (registers every op emitter)
-from . import initializer, layers, optimizer  # noqa: F401
+from . import contrib, initializer, layers, optimizer  # noqa: F401
 from .core import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework import (  # noqa: F401
     Executor,
@@ -25,5 +25,6 @@ from .framework import (  # noqa: F401
     scope_guard,
     unique_name,
 )
+from .flags import get_flags, set_flags  # noqa: F401
 from .layers import data  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401

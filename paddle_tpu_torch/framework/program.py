@@ -171,9 +171,15 @@ class Block:
         self.program._bump()
         return p
 
-    def append_op(self, type, inputs=None, outputs=None, attrs=None):
+    def append_op(self, type, inputs=None, outputs=None, attrs=None,
+                  index=None):
+        """Append an op, or insert it before position `index` (the AMP
+        rewrite inserts its casts in front of the op that reads them)."""
         op = Operator(self, type, inputs, outputs, attrs)
-        self.ops.append(op)
+        if index is None:
+            self.ops.append(op)
+        else:
+            self.ops.insert(index, op)
         self.program._bump()
         return op
 

@@ -9,11 +9,13 @@ from . import unique_name
 from .program import default_main_program, default_startup_program
 
 
-def create_persistable_var(name_hint, shape, dtype, init=0.0, unique=True):
-    """A non-trainable persistable var in main and startup, with a
-    fill_constant init op in startup. Returns the main-program Variable."""
-    blk = default_main_program().global_block
-    startup = default_startup_program().global_block
+def create_persistable_var(name_hint, shape, dtype, init=0.0, unique=True,
+                           main=None, startup=None):
+    """A non-trainable persistable var in main and startup (the default
+    programs unless given), with a fill_constant init op in startup.
+    Returns the main-program Variable."""
+    blk = (main or default_main_program()).global_block
+    startup = (startup or default_startup_program()).global_block
     name = unique_name.generate(name_hint) if unique else name_hint
     v = blk.create_parameter(name, list(shape), dtype, trainable=False)
     v.stop_gradient = True

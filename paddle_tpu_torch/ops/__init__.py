@@ -2,6 +2,7 @@
 
 from . import (  # noqa: F401
     activation,
+    amp_ops,
     fused,
     kv_cache,
     math,

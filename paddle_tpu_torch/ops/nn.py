@@ -1,25 +1,63 @@
-"""NN ops of the serving and training slices (counterpart of
-paddle_tpu/ops/nn.py; reference layer_norm_op.cc, lookup_table_op.cc,
-lookup_table_v2_op.cc, dropout_op.cc, softmax_with_cross_entropy_op.cc)."""
+"""NN ops of the port's slices (counterpart of paddle_tpu/ops/nn.py;
+reference layer_norm_op.cc, lookup_table_op.cc, lookup_table_v2_op.cc,
+dropout_op.cc, softmax_with_cross_entropy_op.cc)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..errors import UnimplementedError
-from ..framework.registry import register_op
+from ..flags import flag
+from ..framework import unique_name
+from ..framework.backward import _ensure_var
+from ..framework.program import grad_var_name
+from ..framework.registry import get_op_def, register_op
+from ..kernels import layer_norm as lnk
+
+
+def _ln_use_kernel(x, begin):
+    """(take the standalone LayerNorm kernels?, rows, n): the flag and the
+    kernels' shape and dtype predicate, as the JAX package's
+    `_ln_use_pallas` (paddle_tpu/ops/nn.py:206). Its TPU-backend clause is
+    the JAX package's way of saying that the kernel exists there; in the
+    port the wrapper decides kernel or plain version by the tensor's
+    device, so the CPU's plain versions take the same branch as the card's
+    kernels and one program runs anywhere."""
+    rows = math.prod(x.shape[:begin])
+    n = math.prod(x.shape[begin:])
+    return (bool(flag("paddle_tpu_pallas_layer_norm"))
+            and lnk.supports(rows, n, x.dtype)), rows, n
+
+
+def _opt(ins, slot):
+    return ins[slot][0] if ins.get(slot) and ins[slot][0] is not None \
+        else None
 
 
 @register_op("layer_norm", inputs=["X", "Scale", "Bias"],
              outputs=["Y", "Mean", "Variance"])
 def _layer_norm(ctx, op, ins):
-    # the plain path: the JAX package's Pallas LayerNorm kernel is off by
-    # default (paddle_tpu/flags.py:57) and off this slice's path
     x = ins["X"][0]
-    scale = ins["Scale"][0] if ins.get("Scale") else None
-    bias = ins["Bias"][0] if ins.get("Bias") else None
+    scale, bias = _opt(ins, "Scale"), _opt(ins, "Bias")
     eps = op.attr("epsilon", 1e-5)
     begin = op.attr("begin_norm_axis", 1)
+    lead = tuple(x.shape[:begin])
+    use_kernel, rows, n = _ln_use_kernel(x, begin)
+    if use_kernel:
+        # the standalone kernels (#10): fp32 statistics in registers, one
+        # read and one write of the row. The autograd-aware entry lets the
+        # generic __vjp__ replay differentiate through the kernel when the
+        # dedicated grad op declines (a loss reading Mean or Variance)
+        y2, mean, var = lnk.layer_norm_fwd_diff(
+            x.reshape(rows, n),
+            None if scale is None else scale.reshape(n),
+            None if bias is None else bias.reshape(n),
+            eps,
+        )
+        return {"Y": [y2.reshape(x.shape)], "Mean": [mean.reshape(lead)],
+                "Variance": [var.reshape(lead)]}
     axes = tuple(range(begin, x.dim()))
     norm_shape = tuple(x.shape[begin:])
     xf = x.float()
@@ -30,12 +68,98 @@ def _layer_norm(ctx, op, ins):
         y = y * scale.reshape(norm_shape).to(x.dtype)
     if bias is not None:
         y = y + bias.reshape(norm_shape).to(x.dtype)
-    lead = tuple(x.shape[:begin])
     return {
         "Y": [y],
         "Mean": [mean.reshape(lead)],
         "Variance": [var.reshape(lead)],
     }
+
+
+def _layer_norm_grad_maker(op, block, contribs, finalize, needs_grad=None):
+    """The dedicated grad op, emitted only when the flag is on as the
+    program is built (the JAX package's rule: with the plain formulation
+    the generic __vjp__ replay serves). Declines, for the generic
+    __vjp__, when the Mean or Variance outputs carry gradients."""
+    if not flag("paddle_tpu_pallas_layer_norm"):
+        return False
+    for aux in ("Mean", "Variance"):
+        names = op.outputs.get(aux) or []
+        if names and names[0] in contribs:
+            return False
+    g_out = finalize(op.outputs["Y"][0])
+    if g_out is None:
+        return
+    inputs = {"X": op.inputs["X"], "YGrad": [g_out]}
+    for slot in ("Scale", "Bias"):
+        if op.inputs.get(slot):
+            inputs[slot] = op.inputs[slot]
+    outs = {}
+    for slot in ("X", "Scale", "Bias"):
+        names = op.inputs.get(slot) or []
+        if not names or not names[0]:
+            continue
+        n = names[0]
+        if needs_grad is not None and n not in needs_grad:
+            continue
+        gname = unique_name.generate(grad_var_name(n) + "@RENAME")
+        _ensure_var(block, gname, n)
+        outs[slot + "Grad"] = [gname]
+        contribs.setdefault(n, []).append(gname)
+    if not outs:
+        return
+    attrs = {k: v for k, v in op.attrs.items()
+             if k not in ("__uid__", "__loc__")}
+    block.append_op("layer_norm_grad", inputs, outs, attrs)
+
+
+get_op_def("layer_norm").grad_maker = _layer_norm_grad_maker
+
+
+@register_op("layer_norm_grad", inputs=["X", "Scale", "Bias", "YGrad"],
+             outputs=["XGrad", "ScaleGrad", "BiasGrad"], differentiable=False)
+def _layer_norm_grad(ctx, op, ins):
+    """Backward of layer_norm: the kernel (#11) where the forward takes
+    the kernel (the flag read as the op runs, as the JAX package reads it
+    as the step is traced), else the two-pass formulas of the JAX
+    package's jnp branch. ScaleGrad and BiasGrad come back in the scale's
+    and bias's dtypes."""
+    x, dy = ins["X"][0], ins["YGrad"][0]
+    scale = _opt(ins, "Scale")
+    eps = op.attr("epsilon", 1e-5)
+    begin = op.attr("begin_norm_axis", 1)
+    use_kernel, rows, n = _ln_use_kernel(x, begin)
+    if use_kernel:
+        dx2, ds, db = lnk.layer_norm_bwd(
+            x.reshape(rows, n),
+            None if scale is None else scale.reshape(n),
+            dy.reshape(rows, n).contiguous(), eps,
+        )
+        dx = dx2.reshape(x.shape)
+    else:
+        axes = tuple(range(begin, x.dim()))
+        xf, dyf = x.float(), dy.float()
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = xf.var(dim=axes, unbiased=False, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean) * rstd
+        sf = (scale.reshape(x.shape[begin:]).float() if scale is not None
+              else 1.0)
+        dyw = dyf * sf
+        m1 = dyw.mean(dim=axes, keepdim=True)
+        m2 = (dyw * xhat).mean(dim=axes, keepdim=True)
+        dx = (rstd * (dyw - m1 - xhat * m2)).to(x.dtype)
+        lead_axes = tuple(range(begin))
+        ds = (dyf * xhat).sum(dim=lead_axes).reshape(-1)
+        db = dyf.sum(dim=lead_axes).reshape(-1)
+    outs = {}
+    if op.outputs.get("XGrad"):
+        outs["XGrad"] = [dx]
+    if op.outputs.get("ScaleGrad"):
+        outs["ScaleGrad"] = [ds.reshape(scale.shape).to(scale.dtype)]
+    if op.outputs.get("BiasGrad"):
+        b = ins["Bias"][0]
+        outs["BiasGrad"] = [db.reshape(b.shape).to(b.dtype)]
+    return outs
 
 
 @register_op("lookup_table_v2", inputs=["W", "Ids"], outputs=["Out"])

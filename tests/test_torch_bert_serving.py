@@ -217,6 +217,9 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.models.gpt
         import paddle_tpu_torch.ops.kv_cache
         import paddle_tpu_torch.serving.generate
+        import paddle_tpu_torch.flags
+        import paddle_tpu_torch.contrib.mixed_precision
+        import paddle_tpu_torch.kernels.layer_norm
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "paddle_tpu" or m.startswith("paddle_tpu.")]

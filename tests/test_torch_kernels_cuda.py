@@ -14,6 +14,11 @@ of jax or paddle_tpu, so it runs where jax is not installed.) Tolerances,
 per kernel: forward fp32 atol 5e-6 (sums in another order); backward fp32
 atol 5e-5 (sums over up to S=512 rows of terms of magnitude ~1); bf16 the
 same plus one bf16 unit (2^-7 relative), for the output's one rounding.
+The standalone LayerNorm's column sums (dscale, dbias over up to 8192
+rows) atol 1e-3 + rtol 1e-5, and its statistics atol 5e-6 + rtol 1e-5.
+AMP programs on the card against the CPU, both in bf16 (cuBLAS and the
+CPU's matmul round at other places): loss rtol 2^-8, each gradient's
+relative L2 error 2^-4.
 """
 
 import ctypes
@@ -26,11 +31,13 @@ import torch
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import convert, layers
+from paddle_tpu_torch.contrib import mixed_precision as mp
 from paddle_tpu_torch.errors import InvalidArgumentError
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import flash_tiled as ft
 from paddle_tpu_torch.kernels import fused_residual as fr
+from paddle_tpu_torch.kernels import layer_norm as lnk
 from paddle_tpu_torch.kernels import prng_mask as pm
 from paddle_tpu_torch.kernels import sum_partials as sp
 from paddle_tpu_torch.models.bert import (
@@ -612,3 +619,144 @@ def test_gpt_tiny_generation_on_the_card_matches_the_cpu(dev):
     a0 = fa.fused_attention_qkv.launches
     np.testing.assert_array_equal(got, gen.generate_full_recompute(ctx, 8))
     assert fa.fused_attention_qkv.launches - a0 == 8 * cfg.num_layers
+
+
+LN_SHAPES = [(8192, 768), (1001, 256), (1001, 1024), (1001, 4096),
+             (77, 2048), (77, 8192), (37, 100)]
+
+
+def _ln_inputs(dev, R, N, dtype, affine, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(R, N, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    dy = torch.randn(R, N, generator=g, device=dev).to(dtype)
+    s = 1 + 0.1 * torch.randn(N, generator=g, device=dev)
+    b = 0.1 * torch.randn(N, generator=g, device=dev)
+    if affine is None:
+        return x, dy, None, None
+    return x, dy, s.to(affine), b.to(affine)
+
+
+@pytest.mark.parametrize("affine", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", LN_SHAPES)
+def test_layer_norm_kernels_match_their_plain_versions(dev, R, N, dtype,
+                                                       affine):
+    """#10 and #11 at GPT's [8192, 768], at R = 1001 (a multiple of no
+    block size) for N in {256, 1024, 4096}, and at the other row layouts
+    (two and eight warps a row, N not a multiple of 32)."""
+    x, dy, s, b = _ln_inputs(dev, R, N, dtype, affine)
+    before = (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches,
+              sp.sum_partials.launches)
+    y, mean, var = lnk.layer_norm_fwd(x, s, b, 1e-5)
+    dx, ds, db = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+    assert (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches,
+            sp.sum_partials.launches) == tuple(n + 1 for n in before)
+    want = lnk.reference_fwd(x, s, b, 1e-5)
+    assert y.dtype == dtype and mean.dtype == var.dtype == torch.float32
+    _close(y, want[0], "residual", dtype)
+    for got_t, want_t in zip((mean, var), want[1:]):
+        torch.testing.assert_close(got_t, want_t, atol=5e-6, rtol=1e-5)
+    want = lnk.reference_bwd(x, s, dy, 1e-5)
+    assert dx.dtype == dtype and ds.dtype == db.dtype == torch.float32
+    _close(dx, want[0], "residual_bwd", dtype)
+    for got_t, want_t in zip((ds, db), want[1:]):
+        torch.testing.assert_close(got_t, want_t, atol=1e-3, rtol=1e-5)
+
+
+def test_layer_norm_backward_is_deterministic(dev):
+    """#11's column sums go through per-block partials and sum_partials in
+    a fixed order: two runs give the same bits."""
+    x, dy, s, _ = _ln_inputs(dev, 8192, 768, torch.bfloat16, torch.bfloat16)
+    first = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+    second = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_layer_norm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    counts = (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches)
+    x = torch.randn(16, 256, device=dev)
+    with pytest.raises(InvalidArgumentError):  # fp16
+        lnk.layer_norm_fwd(x.half(), None, None)
+    with pytest.raises(InvalidArgumentError):  # fp16
+        lnk.layer_norm_bwd(x.half(), None, x.half())
+    with pytest.raises(InvalidArgumentError):  # wider than 8192
+        lnk.layer_norm_fwd(torch.randn(8, 8320, device=dev))
+    with pytest.raises(InvalidArgumentError):  # scale on the CPU
+        lnk.layer_norm_fwd(x, torch.ones(256), None)
+    with pytest.raises(InvalidArgumentError):  # fp16 bias
+        lnk.layer_norm_fwd(x, None, torch.zeros(256, device=dev).half())
+    with pytest.raises(InvalidArgumentError):  # dy of another dtype
+        lnk.layer_norm_bwd(x, None, x.bfloat16())
+    with pytest.raises(InvalidArgumentError):  # strided rows
+        lnk.layer_norm_fwd(torch.randn(256, 16, device=dev).t())
+    assert counts == (lnk.layer_norm_fwd.launches,
+                      lnk.layer_norm_bwd.launches)
+
+
+def _amp_program(which, flag):
+    """bench.py's AMP-decorated program at tiny size, dropout 0."""
+    fluid.set_flags({"FLAGS_paddle_tpu_pallas_layer_norm": flag})
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if which == "gpt":
+            cfg = GPTConfig.tiny()
+            cfg.hidden_dropout = cfg.attention_dropout = 0.0
+            ids = fluid.data("ids", [2, 64], "int64")
+            loss = gpt_lm_loss(ids, cfg)
+            feed = {"ids": np.random.RandomState(1).randint(0, 512, (2, 64))}
+        else:
+            cfg = BertConfig.tiny()
+            cfg.hidden_dropout = cfg.attention_dropout = 0.0
+            B, S, P = 4, 64, 38
+            rng = np.random.RandomState(1)
+            names = ("ids", "types", "mask", "mask_pos", "labels")
+            shapes = ([B, S], [B, S], [B, S], [P], [P])
+            v = [fluid.data(n, s, "float32" if n == "mask" else "int64")
+                 for n, s in zip(names, shapes)]
+            loss = bert_pretrain(*v[:3], v[4], cfg, mask_pos=v[3])
+            feed = {"ids": rng.randint(0, cfg.vocab_size, (B, S)),
+                    "types": rng.randint(0, 2, (B, S)),
+                    "mask": np.ones((B, S), np.float32),
+                    "mask_pos": rng.choice(B * S, P, replace=False),
+                    "labels": rng.randint(0, cfg.vocab_size, P)}
+        opt = mp.decorate(
+            Adam(1e-3), amp_lists=mp.AutoMixedPrecisionLists(
+                custom_white_list={"softmax", "layer_norm"}),
+            use_dynamic_loss_scaling=False, init_loss_scaling=1.0)
+        _, pg = opt.minimize(loss, startup)
+    return main, startup, loss, pg, feed
+
+
+@pytest.mark.parametrize("which,flag", [("bert", False), ("gpt", True)])
+def test_amp_programs_run_the_kernels_in_bf16_like_the_cpu(dev, which, flag):
+    """One AMP step of BERT-tiny (#1-#4 on bf16 activations, #2/#4 with
+    fp32 LN scale and bias as the rewrite keeps them) and of GPT-tiny
+    with FLAGS_paddle_tpu_pallas_layer_norm on (#10/#11 on bf16 x, scale
+    and bias) on the card and on the CPU from one state."""
+    try:
+        main, startup, loss, pg, feed = _amp_program(which, flag)
+        fetch = [loss] + [g for _, g in pg]
+        gscope, exe = fluid.Scope(), fluid.Executor()
+        exe.run(startup, scope=gscope)
+        cscope, cexe = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
+        convert.state_from_numpy(convert.state_to_numpy(gscope), cscope,
+                                 fluid.CPUPlace(), program=main)
+        counters = [fr.fused_dropout_add_ln_fwd, fr.fused_dropout_add_ln_bwd,
+                    lnk.layer_norm_fwd, lnk.layer_norm_bwd]
+        before = [c.launches for c in counters]
+        gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+        cpu = cexe.run(main, feed=feed, fetch_list=fetch, scope=cscope)
+    finally:
+        fluid.set_flags({"FLAGS_paddle_tpu_pallas_layer_norm": False})
+    step = [c.launches - b for c, b in zip(counters, before)]
+    n_ln = sum(op.type == "layer_norm" for op in main.global_block.ops)
+    if which == "bert":
+        assert step == [4, 4, 0, 0]  # 2 layers x 2 residual LNs
+    else:
+        assert step == [0, 0, n_ln, n_ln] and n_ln == 5
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=2 ** -8)
+    for g, c, (p, _) in zip(gpu[1:], cpu[1:], pg):
+        err = np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-30)
+        assert err <= 2 ** -4, (p.name, err)
