@@ -16,7 +16,10 @@ Phases, each fatal on failure:
    KV-tiled kernels at S = 1152 and 2048, training dropout on and off; the
    standalone LayerNorm kernels (#10, #11) at [8192, 768] and R = 1001,
    fp32 and bf16, scale and bias fp32, bf16 or absent, and #11's bits
-   equal over two runs;
+   equal over two runs; the 4-D kernels (#5, #6) at B=32, S=512 and small
+   shapes, fp32 and bf16, with and without the key bias, causal, test
+   mode and training dropout, and on the heads of a packed projection
+   against #1/#3 on the projection (the same bits);
 4. serving path: build the BERT-base classifier of bench_serving.py's
    bert_classify mix (full width, random weights from a seed), freeze it,
    serve requests through paddle_tpu_torch.serving.Server, check every
@@ -69,10 +72,29 @@ Phases, each fatal on failure:
    (bench.py's default; #10/#11 never launch) and on (#10 and #11 25
    times each a step, and #11's sum_partials as often); #7-#9 12 times
    each a step in both; the same figures as phase 8;
-13. kernel times: each kernel beside its plain version, its bound and one
-   PyTorch call, at the serving, the BERT training and the GPT shapes, and
+13. ERNIE-layout training, reduced depth: the classifier of phase 14 at 2
+   layers, B=2, S=128, no dropout, two Adam steps on the card and on the
+   CPU from one state, under phase 5's tolerances;
+14. ERNIE-layout path: a classifier at BertConfig.base() widths whose
+   layers project query, key and value with three fc's, split heads with
+   reshape + transpose and attend through layers.fused_multihead_attention
+   (#5, #6), B=32, S=512, dropout 0.1, Adam(1e-4), fp32: 3 warm-up and 5
+   timed steps, one profiled, one timed by op type, #5 and #6 12 times
+   each a step and #1/#3 never; then io.save -> io.load into a fresh scope
+   (every persistable bit-equal), one step from the saved scope and one
+   from the loaded scope on the program read back from the .pdmodel (loss
+   and persistables bit-equal), save_persistables/load_persistables the
+   same, the files in a temporary directory that is deleted; then
+   io.save_inference_model and inference.create_paddle_predictor with
+   batch buckets (1, 2, 4, 8), fp32 and enable_bf16(): batches 1, 2, 3, 4,
+   6 and 8 at S=512 against a direct Executor.run of the predictor's
+   program, #5 12 times a predicted batch, the bf16 program's attention on
+   bf16 q, k, v, run_zero_copy, latency by bucket;
+15. kernel times: each kernel beside its plain version, its bound and one
+   PyTorch call, at the serving, the BERT training and the GPT shapes,
    #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32 line
-   printed beside).
+   printed beside), and #5/#6 at the ERNIE-layout path's shapes (#5 also
+   at the predictor's bucket 8, test mode).
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -201,6 +223,9 @@ def counters(fa, fr, sp, ft, lnk):
         "tiled_fwd": (ft.flash_tiled_fwd, "launches"),
         "tiled_bwd_dq": (ft.flash_tiled_bwd, "launches_dq"),
         "tiled_bwd_dkv": (ft.flash_tiled_bwd, "launches_dkv"),
+        "mha_fwd": (fa.fused_attention, "launches"),
+        "mha_bwd_dq": (fa.attention_grads, "launches_dq"),
+        "mha_bwd_dkv": (fa.attention_grads, "launches_dkv"),
     }
 
 
@@ -267,32 +292,57 @@ def cuda_ms(fn, iters=40, reps=7):
     return statistics.median(times)
 
 
-def traced_ms(fn, frags, iters=10):
-    """{fragment: median device time in ms of the kernel whose name holds
-    it} over iters + 2 calls of fn traced by torch.profiler (after 3
-    untraced calls). Each call launches each such kernel once; the trace
-    may lose launches (seen on the H100: up to 3 of 12; the launch
-    counters, not the trace, show that each call launched), so it must
-    hold at least half of the calls' launches of each."""
+def launch_ms(fn, entries, iters=10, reps=3):
+    """{entry: median device time in ms of one launch} of each kernel
+    library entry point in `entries` ((library, function) names) that fn
+    calls once a call. Each ctypes call of such an entry is bracketed by
+    CUDA events recorded on the launching stream, and a sleep kernel holds
+    the stream while the host queues the calls, so each pair of events
+    spans its kernel's device time and not the host's launch gap. Unlike a
+    torch.profiler trace, which lost up to two thirds of a kernel's launches
+    on the H100, every launch is timed: each entry must be called exactly
+    once a call."""
+    from paddle_tpu_torch.kernels import _build
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters + 2):
-            fn()
-        torch.cuda.synchronize()
-    times = {f: [] for f in frags}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            for f in frags:
-                if f in ev.name:
-                    times[f].append(ev.device_time / 1e3)
-    for f, ts in times.items():
-        check(iters // 2 <= len(ts) <= iters + 2,
-              f"traced {len(ts)} launches of {f} in {iters + 2} calls")
-    return {f: statistics.median(ts) for f, ts in times.items()}
+    spans = {e: [] for e in entries}
+    patched = []
+
+    def bracket(key, launch):
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = launch(*args)
+            end.record()
+            spans[key].append((start, end))
+            return err
+        timed.argtypes, timed.restype = launch.argtypes, launch.restype
+        return timed
+
+    try:
+        for key in entries:
+            lib = _build.load(key[0])
+            launch = getattr(lib, key[1])
+            setattr(lib, key[1], bracket(key, launch))
+            patched.append((lib, key[1], launch))
+        for _ in range(reps):
+            torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for lib, name, launch in patched:
+            setattr(lib, name, launch)
+    out = {}
+    for (lib_name, name), ev in spans.items():
+        check(len(ev) == iters * reps,
+              f"{lib_name}.{name} launched {len(ev)} times in "
+              f"{iters * reps} calls")
+        out[name] = statistics.median(a.elapsed_time(b) for a, b in ev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -960,11 +1010,11 @@ def check_updates(start, got, want, grads, lr, rtol, agree, cap):
             w = w.astype(np.float64)
             noisy |= np.abs(g - w) > agree * np.abs(w)
         rel = (np.abs(du - dw) / (np.abs(dw) + lr))[~noisy]
-        if rel.size:
+        if rel.size:  # empty where every element is exempt
             worst = max(worst, float(rel.max()))
-        check(not (rel > rtol).any(),
-              f"{name}: {(rel > rtol).sum()} updates differ, worst "
-              f"{rel.max():.3e} of (|update| + lr)")
+            check(not (rel > rtol).any(),
+                  f"{name}: {(rel > rtol).sum()} updates differ, worst "
+                  f"{rel.max():.3e} of (|update| + lr)")
         exempt += int(noisy.sum())
         total += noisy.size
     check(exempt < cap * total, f"{exempt} of {total} updates exempt")
@@ -1539,7 +1589,7 @@ def kernel_times(fa, fr, main_err, launches):
               f"sdpa {t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
         if dtype == torch.float32:
             rows.append(row("flash_attention_qkv_fwd", "serving",
-                            "flash_attention_qkv.cu",
+                            "flash_attention.cu",
                             "paddle_tpu/kernels/flash_attention.py:329",
                             launches["attention_fwd"],
                             main_err["attention"], t_k, t_p, b, t_l))
@@ -1575,9 +1625,9 @@ def train_kernel_times(fa, fr, sp, err, launches):
     split that bound by the products each owns, dP and dQ to dq, dV and
     dK to dkv (dkv's own dP is recomputation), and the reads in halves, so
     the two bounds sum to the function's. The backward kernels' times come
-    from torch.profiler's trace of the wrappers' own calls, so the pair's
-    kernels, and the residual row kernel and its sum_partials, are timed
-    apart."""
+    from CUDA events around each launch in the wrappers' own calls
+    (launch_ms), so the pair's kernels, and the residual row kernel and its
+    sum_partials, are timed apart."""
     import torch.nn.functional as F
 
     B, S, H, D, R, N = 32, 512, 12, 64, 32 * 512, 768
@@ -1603,14 +1653,15 @@ def train_kernel_times(fa, fr, sp, err, launches):
     print(f"attention fwd: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
           f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
     rows.append(row("flash_attention_qkv_fwd", "training",
-                    "flash_attention_qkv.cu",
+                    "flash_attention.cu",
                     "paddle_tpu/kernels/flash_attention.py:329",
                     launches["attention_fwd"], err["attention_fwd"], t_k,
                     t_p, b, t_l))
 
-    t = traced_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do, **kw),
-                  ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"))
-    t_dq, t_dkv = t["attn_bwd_dq_kernel"], t["attn_bwd_dkv_kernel"]
+    t = launch_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do, **kw),
+                  (("flash_attention", "flash_attention_bwd_dq"),
+                   ("flash_attention", "flash_attention_bwd_dkv")))
+    t_dq, t_dkv = t["flash_attention_bwd_dq"], t["flash_attention_bwd_dkv"]
     t_pair = cuda_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do,
                                                         **kw),
                      iters=10, reps=5)
@@ -1630,12 +1681,13 @@ def train_kernel_times(fa, fr, sp, err, launches):
     b_dkv = bound(reads / 2 + 2 * head, 4 * B * H * S * S * D, f32)
     print(f"attention bwd: dq kernel {t_dq:.3f} ms (bound {b_dq[0]:.3f}, "
           f"{b_dq[1]}), dkv kernel {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}, "
-          f"{b_dkv[1]}) (traced); both through the wrapper {t_pair:.3f} ms "
+          f"{b_dkv[1]}) (own launches); both through the wrapper "
+          f"{t_pair:.3f} ms "
           f"(bound {b_pair[0]:.3f}, {b_pair[1]}); plain {t_p:.3f} ms; sdpa "
           f"backward {t_l:.3f} ms")
     for which, t, b in (("dq", t_dq, b_dq), ("dkv", t_dkv, b_dkv)):
         rows.append(row(f"flash_attention_qkv_bwd_{which}", "training",
-                        "flash_attention_qkv.cu",
+                        "flash_attention.cu",
                         "paddle_tpu/kernels/flash_attention.py:342",
                         launches[f"attention_bwd_{which}"],
                         err["attention_bwd"], t, t_p, b, t_l))
@@ -1659,9 +1711,10 @@ def train_kernel_times(fa, fr, sp, err, launches):
                     b, t_l))
     blocks = (R + fr.BWD_ROWS - 1) // fr.BWD_ROWS
     part_bytes = 2 * blocks * N * 4
-    t = traced_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw),
-                  ("ln_bwd_kernel", "sum_partials_kernel"), iters=20)
-    t_k, t_s = t["ln_bwd_kernel"], t["sum_partials_kernel"]
+    t = launch_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw),
+                  (("fused_dropout_add_ln", "fused_dropout_add_ln_bwd"),
+                   ("sum_partials", "sum_partials")), iters=20)
+    t_k, t_s = t["fused_dropout_add_ln_bwd"], t["sum_partials"]
     t_both = cuda_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw))
     t_p = cuda_ms(lambda: fr.reference_bwd(x, y, g, do, **rkw), iters=10,
                   reps=5)
@@ -1670,7 +1723,7 @@ def train_kernel_times(fa, fr, sp, err, launches):
     t_l = cuda_ms(lambda: torch.autograd.grad(ln, (xg, yg, gg, cg), do,
                                               retain_graph=True))
     b = bound(5 * R * N * es + N * 4 + part_bytes, 20 * R * N, f32)
-    print(f"residual bwd: row kernel {t_k:.4f} ms (traced), bound "
+    print(f"residual bwd: row kernel {t_k:.4f} ms (own launches), bound "
           f"{b[0]:.4f} ms ({b[1]}); with sum_partials through the wrapper "
           f"{t_both:.4f} ms; plain {t_p:.4f} ms, F.layer_norm backward "
           f"{t_l:.4f} ms")
@@ -1683,8 +1736,8 @@ def train_kernel_times(fa, fr, sp, err, launches):
     t_sp = cuda_ms(lambda: sp.reference(part))
     b = bound(part.numel() * 4 + 2 * N * 4, part.numel(), f32)
     s_err = (sp.sum_partials(part) - sp.reference(part)).abs().max().item()
-    print(f"sum_partials [2, {blocks}, {N}]: kernel {t_s:.4f} ms (traced "
-          f"in the residual backward's calls), plain "
+    print(f"sum_partials [2, {blocks}, {N}]: kernel {t_s:.4f} ms (own "
+          f"launches in the residual backward's calls), plain "
           f"(= library, part.sum(1)) {t_sp:.4f} ms, bound {b[0]:.4f} ms "
           f"({b[1]}), max_abs_err {s_err:.2e}")
     check(s_err <= 1e-4, f"sum_partials disagrees: {s_err}")
@@ -1703,7 +1756,7 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n):
     the backward as a function does 8*B*H*D*pairs flops (dP, dQ to #9; dV,
     dK to #8) and reads qkv, dO, out and lse once, split in halves between
     the two kernels, #9 writing dq and #8 dk and dv. #8 and #9 are timed
-    from a torch.profiler trace of the wrapper's calls."""
+    by CUDA events around each launch in the wrapper's calls (launch_ms)."""
     import torch.nn.functional as F
 
     B, S, H, D = GPT_B, GPT_S, 12, 64
@@ -1735,10 +1788,11 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n):
                     train_n["tiled_fwd"], err["tiled_fwd"], t_k, t_p, b, t_l))
 
     out, lse = ft.flash_tiled_fwd(qkv, None, MASK_SEED, H, D, **kw)
-    t = traced_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
+    t = launch_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
                                              lse, H, D, **kw),
-                  ("tiled_dq_kernel", "tiled_dkv_kernel"))
-    t_dq, t_dkv = t["tiled_dq_kernel"], t["tiled_dkv_kernel"]
+                  (("flash_tiled", "flash_tiled_bwd_dq"),
+                   ("flash_tiled", "flash_tiled_bwd_dkv")))
+    t_dq, t_dkv = t["flash_tiled_bwd_dq"], t["flash_tiled_bwd_dkv"]
     t_pair = cuda_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
                                                 lse, H, D, **kw),
                      iters=10, reps=5)
@@ -1756,7 +1810,8 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n):
     b_dkv = bound(reads / 2 + 2 * head, 4 * B * H * D * pairs, f32)
     print(f"tiled bwd: dq (#9) {t_dq:.3f} ms (bound {b_dq[0]:.3f}, "
           f"{b_dq[1]}), dkv (#8) {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}, "
-          f"{b_dkv[1]}) (traced); both through the wrapper {t_pair:.3f} ms; "
+          f"{b_dkv[1]}) (own launches); both through the wrapper "
+          f"{t_pair:.3f} ms; "
           f"plain {t_p:.3f} ms; sdpa backward {t_l:.3f} ms")
     for which, src, t_w, b_w in (("dq", 342, t_dq, b_dq),
                                  ("dkv", 269, t_dkv, b_dkv)):
@@ -1786,7 +1841,7 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n):
     print(f"attention (#1): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
           f"{t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
     rows.append(row("flash_attention_qkv", "gpt_serving",
-                    "flash_attention_qkv.cu",
+                    "flash_attention.cu",
                     "paddle_tpu/kernels/flash_attention.py:329",
                     serve_n["attention_fwd"], e, t_k, t_p, b, t_l))
     return rows
@@ -1799,9 +1854,9 @@ def ln_kernel_times(lnk, err, launches):
     reads x and dy and writes dx and the fp32 dscale and dbias (scale and
     bias read once), over 3.35 TB/s; ~8 (#10) and ~16 (#11) operations an
     element at the inputs' dtype's peak. #11's time is the wrapper's (the
-    row kernel and its sum_partials), the split from a torch.profiler
-    trace. Library: F.layer_norm and its autograd backward at the same
-    shape and dtypes."""
+    row kernel and its sum_partials), the split from CUDA events around
+    each launch (launch_ms). Library: F.layer_norm and its autograd
+    backward at the same shape and dtypes."""
     import torch.nn.functional as F
 
     R, N = GPT_B * GPT_S, 768
@@ -1818,8 +1873,9 @@ def ln_kernel_times(lnk, err, launches):
         print(f"layer_norm fwd (#10) {name}: kernel {t_k:.4f} ms, plain "
               f"{t_p:.4f} ms, F.layer_norm {t_l:.4f} ms, bound "
               f"{b_f[0]:.4f} ms ({b_f[1]})")
-        t = traced_ms(lambda: lnk.layer_norm_bwd(x, s, dy, 1e-5),
-                      ("ln_row_bwd_kernel", "sum_partials_kernel"), iters=20)
+        t = launch_ms(lambda: lnk.layer_norm_bwd(x, s, dy, 1e-5),
+                      (("layer_norm", "layer_norm_bwd"),
+                       ("sum_partials", "sum_partials")), iters=20)
         t_b = cuda_ms(lambda: lnk.layer_norm_bwd(x, s, dy, 1e-5))
         t_pb = cuda_ms(lambda: lnk.reference_bwd(x, s, dy, 1e-5))
         xg, sg, bg = (v.detach().requires_grad_() for v in (x, s, b))
@@ -1828,8 +1884,8 @@ def ln_kernel_times(lnk, err, launches):
                                                    retain_graph=True))
         b_b = bound(3 * R * N * es + N * es + 2 * N * 4, 16 * R * N, dtype)
         print(f"layer_norm bwd (#11) {name}: {t_b:.4f} ms through the "
-              f"wrapper (traced: row kernel {t['ln_row_bwd_kernel']:.4f} "
-              f"ms, sum_partials {t['sum_partials_kernel']:.4f} ms), plain "
+              f"wrapper (row kernel {t['layer_norm_bwd']:.4f} ms, "
+              f"sum_partials {t['sum_partials']:.4f} ms), plain "
               f"{t_pb:.4f} ms, F.layer_norm backward {t_lb:.4f} ms, bound "
               f"{b_b[0]:.4f} ms ({b_b[1]})")
         if dtype == torch.bfloat16:
@@ -1844,6 +1900,573 @@ def ln_kernel_times(lnk, err, launches):
                             launches["layer_norm_bwd"],
                             err["layer_norm_bwd"], t_b, t_pb, b_b, t_lb))
         del x, dy, s, b, xg, sg, bg, out
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# ERNIE-layout encoder: layers.fused_multihead_attention (#5, #6), io
+# checkpoints and the inference predictor
+# ---------------------------------------------------------------------------
+
+# the slice's attention shapes: BertConfig.base() heads at B=32, S=512
+MHA_B, MHA_S, MHA_H, MHA_D = 32, 512, 12, 64
+MHA_BUCKETS = (1, 2, 4, 8)
+# predictor answers vs a direct run of the frozen program (12 fp32 layers,
+# probabilities; the padded batch may take other cuBLAS kernels)
+PRED_ATOL = 1e-5
+# bf16 predictor vs fp32 predictor: probabilities of a 2-way softmax
+# after 12 layers on bf16 activations, batches of 8 from BF16_PROBES seeds.
+# On the H100 the five seeds' readings ran 1.7e-4 to 8.7e-4 (PERF.md); the
+# limit is about 3.5 times the largest
+PRED_BF16_ATOL = 3e-3
+BF16_PROBES = 5
+
+
+def mha_inputs(B, S, H, D, dtype, seed):
+    """q, k, v as the program hands them to #5: [B, H, S, D] head-split
+    views (reshape + transpose) of one [B, S, 3*H*D] projection, which
+    share their strides; the projection; a key bias with padded tails."""
+    qkv, bias = attn_inputs(B, H, D, dtype, seed, S=S)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    return q, k, v, qkv, bias
+
+
+def mha_parity(fa):
+    """#5 and #6 against their plain versions on the card: fp32 and bf16,
+    with and without the key bias, causal, test-mode scaling and training
+    dropout, at the slice's shapes (B=32, S=512) and small ones, other head
+    dims and an S that is no multiple of the tile; and #5/#6 on the heads
+    of a packed projection against #1/#3 on the projection itself, dropout
+    on (one mask, one set of kernels, two addressings). Returns the fp32
+    errors at the training path's case."""
+    print("== parity, 4-D attention: #5/#6 vs plain version on the card")
+    err = {}
+    cases = []
+    for B, S in ((2, 128), (MHA_B, MHA_S)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for training in (True, False):
+                cases.append((B, S, 12, 64, dtype, training, True, False))
+    cases += [(2, 128, 12, 64, torch.float32, True, False, False),
+              (2, 128, 12, 64, torch.float32, True, True, True),
+              (2, 128, 12, 64, torch.bfloat16, False, False, True),
+              (2, 77, 4, 32, torch.float32, True, True, True),
+              (2, 200, 2, 128, torch.bfloat16, True, True, False)]
+    for i, (B, S, H, D, dtype, training, with_bias, causal) in \
+            enumerate(cases):
+        q, k, v, _, bias = mha_inputs(B, S, H, D, dtype, SEED + 31 * i)
+        bias = bias if with_bias else None
+        g = torch.Generator(device="cuda").manual_seed(SEED + i)
+        do = torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
+        kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=TRAIN_RATE,
+                  is_test=not training, causal=causal,
+                  seed=MASK_SEED if training else None)
+        tag = (f"B={B} S={S} H={H} D={D} {str(dtype)[6:]} "
+               f"{'training' if training else 'test mode'} "
+               f"bias={with_bias} causal={causal}")
+        e_f = compare(fa.fused_attention(q, k, v, bias, **kw),
+                      fa.reference(q, k, v, bias, **kw), "attention", dtype,
+                      f"mha fwd {tag}")
+        got = fa.attention_grads(q, k, v, bias, do, want_dbias=True, **kw)
+        want = fa.reference_bwd(q, k, v, bias, do, **kw)
+        e_b = max(compare(a, w, "attention_bwd", dtype, f"mha bwd {n} {tag}")
+                  for n, a, w in zip(("dq", "dk", "dv"), got[:3], want[:3]))
+        compare(got[3], want[3], "attention_bwd", torch.float32,
+                f"mha bwd dbias {tag}")
+        if (B, S, dtype, training, with_bias) == (MHA_B, MHA_S,
+                                                  torch.float32, True, True):
+            err["mha_fwd"], err["mha_bwd"] = e_f, e_b
+    # #5 on the heads of a packed projection is #1 on the projection, and
+    # #6 is #3: the same kernels, launched by the 4-D wrappers on the
+    # head-split views and by the packed ones on the projection's strides
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qkv, bias = mha_inputs(MHA_B, MHA_S, MHA_H, MHA_D, dtype,
+                                        SEED)
+        kw = dict(scale=0.125, dropout_rate=TRAIN_RATE, is_test=False,
+                  seed=MASK_SEED)
+        B, S, HD = MHA_B, MHA_S, MHA_H * MHA_D
+        out4 = fa.fused_attention(q, k, v, bias, **kw)
+        out1 = fa.fused_attention_qkv(qkv, MHA_H, bias, **kw)
+        packed = out4.transpose(1, 2).reshape(B, S, HD)
+        do = torch.randn(B, S, HD, device="cuda").to(dtype)
+        do4 = do.view(B, S, MHA_H, MHA_D).transpose(1, 2)
+        dq, dk, dv, db4 = fa.attention_grads(q, k, v, bias, do4, **kw)
+        dqkv, db1 = fa.fused_attention_qkv_bwd(qkv, MHA_H, bias, do,
+                                               want_dbias=True, **kw)
+        grads = torch.cat([t.transpose(1, 2).reshape(B, S, HD)
+                           for t in (dq, dk, dv)], -1)
+        torch.cuda.synchronize()
+        same = [torch.equal(packed, out1), torch.equal(grads, dqkv),
+                torch.equal(db4, db1)]
+        diffs = [(a.float() - b.float()).abs().max().item()
+                 for a, b in ((packed, out1), (grads, dqkv), (db4, db1))]
+        print(f"#5/#6 on unpack(qkv) vs #1/#3 on qkv, {str(dtype)[6:]}, "
+              f"dropout {TRAIN_RATE} in training: out, dqkv, dbias bit-equal "
+              f"{same}, max_abs_diff {[f'{d:.2e}' for d in diffs]}")
+        check(diffs[0] <= TOL["attention"][dtype][0] and
+              max(diffs[1:]) <= TOL["attention_bwd"][dtype][0],
+              "#5/#6 on the heads of a projection differ from #1/#3")
+    return err
+
+
+def build_mha_classifier(fluid, layers, cfg, B, S, is_test):
+    """(main, startup, loss, prob) of the ERNIE-layout classifier at batch
+    B (-1: set at run time) and sequence S: bert_encoder's embeddings and
+    LayerNorm; per layer fc query/key/value projections (768 -> 768),
+    reshape to [B, S, 12, 64] and transpose [0, 2, 1, 3],
+    layers.fused_multihead_attention with the key bias of the input mask,
+    transpose and reshape back, the output fc, fused_dropout_add_ln, the
+    gelu FFN and fused_dropout_add_ln again; the [CLS] row -> fc(2) ->
+    softmax_with_cross_entropy -> mean, and softmax for predictions.
+    tests/torch_mha_classifier.py builds the same program."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    init = fluid.initializer.Normal(0.0, cfg.initializer_range)
+    nh, h = cfg.num_heads, cfg.hidden_size
+    dh = h // nh
+
+    def dense(t, size, name, act=None):
+        return layers.fc(
+            t, size=size, num_flatten_dims=2, act=act,
+            param_attr=fluid.ParamAttr(name=f"{name}_w", initializer=init),
+            bias_attr=fluid.ParamAttr(name=f"{name}_b"))
+
+    def heads(t):
+        return layers.transpose(layers.reshape(t, [-1, S, nh, dh]),
+                                [0, 2, 1, 3])
+
+    def residual_ln(a, branch, name):
+        return layers.fused_dropout_add_ln(
+            a, branch, cfg.hidden_dropout, is_test=is_test,
+            param_attr=fluid.ParamAttr(name=f"{name}_scale"),
+            bias_attr=fluid.ParamAttr(name=f"{name}_bias"))
+
+    with fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [B, S], "int64")
+        types = fluid.data("types", [B, S], "int64")
+        mask = fluid.data("mask", [B, S], "float32")
+        label = fluid.data("label", [B, 1], "int64")
+        emb = layers.embedding(
+            ids, size=[cfg.vocab_size, h],
+            param_attr=fluid.ParamAttr(name="word_embedding",
+                                       initializer=init))
+        pos = layers.reshape(layers.range(0, S, 1, "int64"), [1, S])
+        emb = emb + layers.embedding(
+            pos, size=[cfg.max_position, h],
+            param_attr=fluid.ParamAttr(name="pos_embedding",
+                                       initializer=init))
+        emb = emb + layers.embedding(
+            types, size=[cfg.type_vocab_size, h],
+            param_attr=fluid.ParamAttr(name="sent_embedding",
+                                       initializer=init))
+        x = layers.layer_norm(
+            emb, begin_norm_axis=2,
+            param_attr=fluid.ParamAttr(name="pre_encoder_layer_norm_scale"),
+            bias_attr=fluid.ParamAttr(name="pre_encoder_layer_norm_bias"))
+        x = layers.dropout(x, cfg.hidden_dropout, is_test=is_test)
+        key_bias = layers.scale(mask, scale=1e4, bias=-1e4)
+        for i in range(cfg.num_layers):
+            p = f"encoder_layer_{i}"
+            q, k, v = (heads(dense(x, h, f"{p}_{n}"))
+                       for n in ("query", "key", "value"))
+            ctx = layers.fused_multihead_attention(
+                q, k, v, key_bias, scale=1.0 / math.sqrt(dh),
+                dropout_prob=cfg.attention_dropout, is_test=is_test)
+            ctx = layers.reshape(layers.transpose(ctx, [0, 2, 1, 3]),
+                                 [-1, S, h])
+            x = residual_ln(x, dense(ctx, h, f"{p}_output"),
+                            f"{p}_post_att")
+            ffn = layers.gelu(dense(x, cfg.intermediate_size, f"{p}_ffn_0"),
+                              approximate=True)
+            x = residual_ln(x, dense(ffn, h, f"{p}_ffn_1"), f"{p}_post_ffn")
+        cls = layers.slice(x, [1], [0], [1])
+        logits = layers.fc(
+            cls, size=2,
+            param_attr=fluid.ParamAttr(name="cls_out_w", initializer=init),
+            bias_attr=fluid.ParamAttr(name="cls_out_b"))
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        prob = layers.softmax(logits)
+    return main, startup, loss, prob
+
+
+def build_mha_training(fluid, layers, cfg, B, S, lr):
+    """The classifier with Adam(lr): (main, startup, loss, prob, pg)."""
+    from paddle_tpu_torch.optimizer import Adam
+
+    with fluid.unique_name.guard():
+        main, startup, loss, prob = build_mha_classifier(fluid, layers, cfg,
+                                                         B, S, False)
+        with fluid.program_guard(main, startup):
+            _, pg = Adam(lr).minimize(loss, startup)
+    return main, startup, loss, prob, pg
+
+
+def mha_feeds(cfg, B, S, n, seed=0):
+    """n batches from RandomState(seed): random ids and types, a padded
+    tail of keys in every other sample, random labels."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        mask = np.ones((B, S), np.float32)
+        for b in range(1, B, 2):
+            mask[b, S - 1 - (b * 7) % (S // 2):] = 0.0
+        out.append({
+            "ids": rng.randint(0, cfg.vocab_size, (B, S)).astype("int64"),
+            "types": rng.randint(0, cfg.type_vocab_size,
+                                 (B, S)).astype("int64"),
+            "mask": mask,
+            "label": rng.randint(0, 2, (B, 1)).astype("int64"),
+        })
+    return out
+
+
+def mha_train_small(fluid, layers):
+    """Two Adam steps of the ERNIE-layout classifier at BERT-base width, 2
+    layers, B=2, S=128, dropout 0, on the card and on the CPU from one
+    state, under phase 5's tolerances."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    print("== ERNIE-layout training, reduced depth: BERT-base width, 2 "
+          f"layers, B=2, S=128, no dropout, lr {SMALL_LR:g}; card vs "
+          "CPUPlace()")
+    cfg = BertConfig.base()
+    cfg.num_layers = 2
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    main, startup, loss, _, pg = build_mha_training(fluid, layers, cfg, -1,
+                                                    128, SMALL_LR)
+    check(sum(op.type == "fused_multihead_attention_grad"
+              for op in main.global_block.ops) == 2,
+          "the program lacks its fused_multihead_attention_grad ops")
+    card_vs_cpu(fluid, main, startup, loss, pg, mha_feeds(cfg, 2, 128, 2))
+
+
+def _bits_equal(scope_a, scope_b, names):
+    """Names whose tensors differ between two scopes (bit for bit)."""
+    return [n for n in names
+            if not torch.equal(scope_a.find_var(n), scope_b.find_var(n))]
+
+
+def mha_checkpoint(fluid, main, exe, scope, feed, loss):
+    """io.save -> io.load into a fresh scope (every persistable bit-equal);
+    then one step from the saved scope on `main` and one from the loaded
+    scope on the program read back from the .pdmodel (the same seed state)
+    give the same loss and persistables bit for bit;
+    save_persistables/load_persistables the same. The files go to a
+    temporary directory that is deleted. Returns the phase's figures."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import io
+
+    print("== checkpoint: io.save / io.load, resume, save_persistables / "
+          "load_persistables")
+    names = [v.name for v in main.list_vars()
+             if v.persistable and not v.is_data
+             and scope.find_var(v.name) is not None]
+    tmp = tempfile.mkdtemp(prefix="mha_ckpt_")
+    stats = {}
+    try:
+        path = os.path.join(tmp, "ernie")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            io.save(main, path)
+        stats["save_s"] = time.perf_counter() - t0
+        stats["bytes"] = {ext: os.path.getsize(path + ext) for ext in
+                          (".pdparams", ".pdmodel", ".manifest.json")}
+        loaded = fluid.Scope()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(loaded):
+            io.load(main, path, executor=exe)
+        torch.cuda.synchronize()
+        stats["load_s"] = time.perf_counter() - t0
+        check(sorted(loaded.local_var_names()) == sorted(names),
+              "io.load restored another set of persistables")
+        bad = _bits_equal(scope, loaded, names)
+        check(not bad, f"loaded persistables differ: {bad[:5]}")
+        resumed = io.load_program(path)
+        check(resumed._rng_step == main._rng_step
+              and resumed.random_seed == main.random_seed,
+              "the saved program's seed state differs from the program's")
+        a = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        b = exe.run(resumed, feed=feed, fetch_list=[loss.name],
+                    scope=loaded)[0]
+        bad = _bits_equal(scope, loaded, names)
+        print(f"resumed step: loss {a.item():.6f} (saved scope) vs "
+              f"{b.item():.6f} (loaded scope, program from the .pdmodel); "
+              f"{len(names) - len(bad)} of {len(names)} persistables "
+              "bit-equal after the step")
+        check(np.array_equal(a, b) and not bad,
+              f"the resumed step differs: loss {a} vs {b}, {bad[:5]}")
+        del loaded
+
+        pdir = os.path.join(tmp, "persistables")
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            io.save_persistables(exe, pdir, main)
+        stats["save_persistables_s"] = time.perf_counter() - t0
+        again = fluid.Scope()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(again):
+            io.load_persistables(exe, pdir, main)
+        torch.cuda.synchronize()
+        stats["load_persistables_s"] = time.perf_counter() - t0
+        stats["persistables_bytes"] = os.path.getsize(
+            os.path.join(pdir, "__params__.npz"))
+        bad = _bits_equal(scope, again, names)
+        check(not bad and len(again.local_var_names()) == len(names),
+              f"load_persistables differs: {bad[:5]}")
+        del again
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["persistables"] = len(names)
+    print("checkpoint: " + json.dumps(stats))
+    return stats
+
+
+def mha_predictor(fluid, main, prob, scope, cfg, kc):
+    """io.save_inference_model of the trained program, then
+    inference.create_paddle_predictor with batch buckets (1, 2, 4, 8),
+    fp32 and enable_bf16(): batches of 1-8 at S=512, each answer against
+    a direct Executor.run of the predictor's frozen program, #5 12 times a
+    predicted batch; the bf16 predictor runs #5 on bf16 q, k, v. Returns
+    (launch counts, figures)."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import inference, io
+
+    print("== export and serve: io.save_inference_model, "
+          "create_paddle_predictor, batch buckets (1, 2, 4, 8), fp32 and "
+          "bf16")
+    tmp = tempfile.mkdtemp(prefix="mha_model_")
+    feeds = ("ids", "types", "mask")
+    pool = mha_feeds(cfg, 8, MHA_S, 1, seed=SEED)[0]
+    # batches of 8 from further seeds, for the bf16-vs-fp32 readings
+    probes = [[b[k] for k in feeds] for b in (
+        mha_feeds(cfg, 8, MHA_S, 1, seed=SEED + i)[0]
+        for i in range(1, BF16_PROBES))]
+    stats, counts, probed = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            io.save_inference_model(tmp, list(feeds), [prob],
+                                    main_program=main)
+        stats["export_s"] = time.perf_counter() - t0
+        stats["params_bytes"] = os.path.getsize(
+            os.path.join(tmp, "__params__.npz"))
+        for mode in ("fp32", "bf16"):
+            config = inference.AnalysisConfig(tmp)
+            config.set_batch_buckets(MHA_BUCKETS)
+            if mode == "bf16":
+                config.enable_bf16()
+            pred = inference.create_paddle_predictor(config)
+            blk = pred.program.global_block
+            attn = [op for op in blk.ops
+                    if op.type == "fused_multihead_attention"]
+            dts = {blk.var(op.inputs[s][0]).dtype
+                   for op in attn for s in ("Q", "K", "V")}
+            check(len(attn) == cfg.num_layers and dts == (
+                {"bfloat16"} if mode == "bf16" else {"float32"}),
+                f"{mode} predictor: {len(attn)} attention ops on {dts}")
+            answers, lat = {}, {}
+            # each predicted batch: #5 once and #2 twice a layer, no other
+            want = dict.fromkeys(kc, 0)
+            want.update(mha_fwd=cfg.num_layers,
+                        residual_fwd=2 * cfg.num_layers)
+            total = dict.fromkeys(kc, 0)
+            for n in (1, 2, 3, 4, 6, 8):
+                inp = [pool[k][:n] for k in feeds]
+                reset_counts(kc)
+                out = pred.run(inp)[0].as_ndarray()
+                step = read_counts(kc)
+                check(step == want,
+                      f"{mode} batch {n} launched {step}, want {want}")
+                total = {k: total[k] + step[k] for k in total}
+                direct = pred.executor.run(
+                    pred.program, feed=dict(zip(feeds, inp)),
+                    fetch_list=pred.get_output_names(), scope=pred.scope)[0]
+                err = float(np.abs(out - direct).max())
+                check(out.shape == (n, 2) and np.isfinite(out).all()
+                      and err <= PRED_ATOL,
+                      f"{mode} batch {n}: shape {out.shape}, error {err}")
+                answers[n] = out
+            counts[mode] = total
+            for n in MHA_BUCKETS:
+                inp = [pool[k][:n] for k in feeds]
+                times = []
+                for _ in range(7):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pred.run(inp)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                lat[n] = statistics.median(times)
+            probed[mode] = [answers[8]] + [pred.run(inp)[0].as_ndarray()
+                                           for inp in probes]
+            names, arrays = pred.run_zero_copy([pool[k][:4] for k in feeds])
+            check(names == pred.get_output_names()
+                  and arrays[0].flags["C_CONTIGUOUS"]
+                  and np.abs(arrays[0] - answers[4]).max() <= PRED_ATOL,
+                  "run_zero_copy disagrees with run")
+            if mode == "bf16":
+                # one reading per seed: the largest difference of its 8
+                # answers from the fp32 predictor's
+                errs = [float(np.abs(a - b).max())
+                        for a, b in zip(probed["bf16"], probed["fp32"])]
+                stats["bf16_vs_fp32_max_abs_by_seed"] = errs
+                check(max(errs) <= PRED_BF16_ATOL,
+                      f"bf16 answers off by {errs} (seeds {SEED}.."
+                      f"{SEED + BF16_PROBES - 1}), limit {PRED_BF16_ATOL}")
+            stats[f"{mode}_batch_ms"] = lat
+            print(f"{mode} predictor: answers within {PRED_ATOL:g} of a "
+                  "direct run at batches 1, 2, 3, 4, 6, 8 (3 and 6 padded "
+                  f"to buckets 4 and 8); ms a batch by bucket {lat}; "
+                  f"launches {counts[mode]}")
+            del pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("predictor: " + json.dumps(stats))
+    return counts, stats
+
+
+def mha_path(fluid, layers, kc):
+    """The slice's path at full width: train the ERNIE-layout classifier
+    at BertConfig.base(), B=32, S=512, dropout 0.1, Adam(1e-4), fp32 (3
+    warm-up and 5 timed steps, one profiled, one timed by op type; #5 and
+    #6 12 times each a step, #1/#3 never), checkpoint and resume it, then
+    export it and answer through the predictor. Returns (the training
+    launch counts, the predictor's)."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    B, S = MHA_B, MHA_S
+    print(f"== ERNIE-layout training path: BertConfig.base() widths, B={B}, "
+          f"S={S}, dropout 0.1, Adam(1e-4), fp32, through "
+          "layers.fused_multihead_attention")
+    cfg = BertConfig.base()
+    t0 = time.perf_counter()
+    main, startup, loss, prob, pg = build_mha_training(fluid, layers, cfg, -1,
+                                                       S, 1e-4)
+    ops = main.global_block.ops
+    print(f"{len(ops)} ops of {len({op.type for op in ops})} types, "
+          f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    host_feeds = mha_feeds(cfg, B, S, 3)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in host_feeds[:2]]
+    watch = ("encoder_layer_0_query_w", "encoder_layer_11_ffn_1_w",
+             "cls_out_w")
+    snap = {n: scope.find_var(n).clone() for n in watch}
+    expect = dict.fromkeys(kc, 0)
+    expect.update(mha_fwd=12, mha_bwd_dq=12, mha_bwd_dkv=12,
+                  residual_fwd=24, residual_bwd=24, sum_partials=24)
+
+    def after(i, values):
+        if i == 0:
+            moved = [n for n in watch
+                     if not torch.equal(scope.find_var(n), snap[n])]
+            check(len(moved) == len(watch), f"step 0 moved only {moved}")
+
+    _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",), kc,
+                         expect, B * S, after)
+    train_counts = read_counts(kc)
+    print("mha training: " + json.dumps(dict(stats, ops=len(ops))))
+    del batches, snap
+    ckpt = mha_checkpoint(fluid, main, exe, scope, host_feeds[2], loss)
+    pred_counts, pred = mha_predictor(fluid, main, prob, scope, cfg, kc)
+    del exe, scope
+    torch.cuda.empty_cache()
+    return train_counts, pred_counts["fp32"], dict(train=stats,
+                                                   checkpoint=ckpt,
+                                                   predictor=pred)
+
+
+def mha_kernel_times(fa, err, train_n, pred_n):
+    """#5 and #6 at the training path's shape (B=32, S=512, H=12, D=64,
+    fp32, key bias, dropout 0.1 in training), on the head-split views the
+    program hands them; #5 at the predictor's largest bucket (B=8, test
+    mode). Bounds: q, k, v (and dO) read once, out (dq, dk, dv) written
+    once, the key bias read once, over 3.35 TB/s; 4*B*H*S^2*D operations
+    forward and 8*B*H*S^2*D backward at 67 TFLOP/s fp32. #6's time is the
+    wrapper's (both kernels), the split from CUDA events around each
+    launch (launch_ms).
+    Library: scaled_dot_product_attention (and its autograd backward) on
+    the same tensors."""
+    import torch.nn.functional as F
+
+    B, S, H, D = MHA_B, MHA_S, MHA_H, MHA_D
+    print(f"== kernel times, 4-D attention (B={B}, S={S}, H={H}, D={D}; "
+          f"fp32, dropout {TRAIN_RATE} in training)")
+    f32, es, rows = torch.float32, 4, []
+    kw = dict(scale=0.125, dropout_rate=TRAIN_RATE, is_test=False,
+              seed=MASK_SEED)
+    q, k, v, qkv, bias = mha_inputs(B, S, H, D, f32, SEED)
+    mask = bias[:, None, None, :]
+    head = B * H * S * D * es
+    t_k = cuda_ms(lambda: fa.fused_attention(q, k, v, bias, **kw), iters=10,
+                  reps=5)
+    t_p = cuda_ms(lambda: fa.reference(q, k, v, bias, **kw), iters=3, reps=3)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, dropout_p=TRAIN_RATE, scale=0.125),
+        iters=10, reps=5)
+    b = bound(4 * head + bias.numel() * 4, 4 * B * H * S * S * D, f32)
+    print(f"#5 fwd: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
+          f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    rows.append(row("fused_mha_fwd", "mha_training",
+                    "flash_attention.cu",
+                    "paddle_tpu/kernels/flash_attention.py:165",
+                    train_n["mha_fwd"], err["mha_fwd"], t_k, t_p, b, t_l))
+
+    do = torch.randn(B, H, S, D, device="cuda")
+    t = launch_ms(lambda: fa.attention_grads(q, k, v, bias, do,
+                                             want_dbias=False, **kw),
+                  (("flash_attention", "flash_attention_bwd_dq"),
+                   ("flash_attention", "flash_attention_bwd_dkv")))
+    t_k = cuda_ms(lambda: fa.attention_grads(q, k, v, bias, do,
+                                             want_dbias=False, **kw),
+                  iters=10, reps=5)
+    t_p = cuda_ms(lambda: fa.reference_bwd(q, k, v, bias, do, **kw),
+                  iters=2, reps=3)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         dropout_p=TRAIN_RATE, scale=0.125)
+    t_l = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                              retain_graph=True),
+                  iters=10, reps=5)
+    b = bound(7 * head + bias.numel() * 4, 8 * B * H * S * S * D, f32)
+    print(f"#6 bwd: {t_k:.3f} ms through the wrapper (dq kernel "
+          f"{t['flash_attention_bwd_dq']:.3f} ms, dkv kernel "
+          f"{t['flash_attention_bwd_dkv']:.3f} ms), plain {t_p:.3f} ms, sdpa "
+          f"backward {t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    rows.append(row("fused_mha_bwd", "mha_training",
+                    "flash_attention.cu",
+                    "paddle_tpu/kernels/flash_attention.py:175",
+                    train_n["mha_bwd_dq"], err["mha_bwd"], t_k, t_p, b, t_l))
+    del q, k, v, qkv, bias, mask, do, qg, kg, vg, out
+    torch.cuda.empty_cache()
+
+    Bp = MHA_BUCKETS[-1]
+    q, k, v, _, bias = mha_inputs(Bp, S, H, D, f32, SEED + 1)
+    mask = bias[:, None, None, :]
+    pkw = dict(scale=0.125, dropout_rate=TRAIN_RATE, is_test=True)
+    got = fa.fused_attention(q, k, v, bias, **pkw)
+    e_p = compare(got, fa.reference(q, k, v, bias, **pkw), "attention", f32,
+                  f"mha fwd predictor B={Bp} S={S} test mode")
+    t_k = cuda_ms(lambda: fa.fused_attention(q, k, v, bias, **pkw))
+    t_p = cuda_ms(lambda: fa.reference(q, k, v, bias, **pkw), iters=5,
+                  reps=3)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=0.125))
+    b = bound(4 * Bp * H * S * D * es + bias.numel() * 4,
+              4 * Bp * H * S * S * D, f32)
+    print(f"#5 fwd, predictor bucket {Bp}, test mode: kernel {t_k:.4f} ms, "
+          f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]})")
+    rows.append(row("fused_mha_fwd", "mha_predictor",
+                    "flash_attention.cu",
+                    "paddle_tpu/kernels/flash_attention.py:165",
+                    pred_n["mha_fwd"], e_p, t_k, t_p, b, t_l))
     return rows
 
 
@@ -1880,6 +2503,7 @@ def main():
     train_err = train_parity(fa, fr, pm)
     tiled_err = tiled_parity(ft)
     ln_err = ln_parity(lnk)
+    mha_err = mha_parity(fa)
     frozen, exe, scope, samples, serve_n = main_path(fluid, layers, kc)
     serve_times(frozen, exe, scope, samples)
     del frozen, exe, scope
@@ -1893,10 +2517,13 @@ def main():
     train_full(fluid, layers, kc, amp=True)
     gpt_train_full(fluid, kc, amp=True)
     gpt_ln_n, _ = gpt_train_full(fluid, kc, amp=True, ln_kernels=True)
+    mha_train_small(fluid, layers)
+    mha_train_n, mha_pred_n, _ = mha_path(fluid, layers, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n)
     rows += ln_kernel_times(lnk, ln_err, gpt_ln_n)
+    rows += mha_kernel_times(fa, mha_err, mha_train_n, mha_pred_n)
 
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -1,4 +1,5 @@
-"""Carry state between the JAX package and the port by name.
+"""Carry state between the JAX package and the port by name, as numpy
+arrays (io.py's checkpoint files carry the same arrays on disk).
 
 Names match when both programs are built from a fresh `unique_name`
 state. The JAX package runs without 64-bit mode, so its int64 arrays
@@ -31,7 +32,12 @@ def state_from_numpy(arrays, scope, place, program=None, exclude=()):
         if name in skip:
             continue
         arr = np.asarray(arr)
-        if name in declared and declared[name] != "bfloat16":
+        if name in declared and declared[name] == "bfloat16":
+            # numpy has no bfloat16: the array arrives widened
+            scope.set_var(name, torch.tensor(
+                arr, dtype=torch.float32, device=device).to(torch.bfloat16))
+            continue
+        if name in declared:
             arr = arr.astype(to_numpy_dtype(declared[name]))
         elif arr.dtype.kind in "iu":
             arr = arr.astype(np.int64)

@@ -1,6 +1,6 @@
 """Typed errors of the port (counterpart of paddle_tpu/errors.py).
 
-Only the classes this slice raises. Each one is an `EnforceNotMet` and
+Only the classes the port raises. Each one is an `EnforceNotMet` and
 also the Python builtin it naturally is, so callers can catch either.
 """
 
@@ -14,8 +14,10 @@ class ErrorCode(enum.IntEnum):
 
     INVALID_ARGUMENT = 1
     NOT_FOUND = 2
+    RESOURCE_EXHAUSTED = 5
     PRECONDITION_NOT_MET = 6
     UNIMPLEMENTED = 9
+    EXTERNAL = 12
 
 
 class EnforceNotMet(Exception):
@@ -45,3 +47,20 @@ class PreconditionNotMetError(EnforceNotMet, RuntimeError):
 
 class UnimplementedError(EnforceNotMet, NotImplementedError):
     code = ErrorCode.UNIMPLEMENTED
+
+
+class CheckpointCorruptionError(EnforceNotMet, OSError):
+    """A checkpoint failed integrity verification (torn write, CRC, shape
+    or dtype mismatch against its manifest, undecodable container).
+    Raised by io.py's load paths before any scope is written. Retrying
+    cannot help: the caller falls back to an older checkpoint."""
+
+    code = ErrorCode.EXTERNAL
+
+
+class StorageExhaustedError(EnforceNotMet, OSError):
+    """A durable write ran out of disk: ENOSPC/EDQUOT from the filesystem,
+    or the preflight found less free room than the payload needs. The
+    failed write leaves no temp file behind; retry once space is freed."""
+
+    code = ErrorCode.RESOURCE_EXHAUSTED

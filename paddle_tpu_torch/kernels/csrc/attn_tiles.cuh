@@ -1,10 +1,12 @@
-// Device code shared by the packed-QKV attention kernels of
-// flash_attention_qkv.cu (#1 forward, #3 backward) and flash_tiled.cu (#7
-// forward, #8 dkv, #9 dq): the helpers, the forward body (#1, #7) and the
-// dkv body (#3's dkv kernel, #8).
+// Device code shared by the attention kernels of flash_attention.cu (the
+// whole-row kernels: #1/#5 forward, #3/#6 backward) and flash_tiled.cu
+// (#7 forward, #8 dkv, #9 dq): the helpers, the forward body (#1, #5, #7)
+// and the dkv body (the whole-row dkv kernel, #8). The bodies take each
+// head's rows through base pointers and a row stride, so one body serves
+// the packed projection qkv[B, S, 3*H*D] (section i in {q, k, v}, head h
+// at column i*H*D + h*D) and the 4-D [B, H, S, D] layout alike.
 //
-// Per batch b and head h of a packed projection qkv[B, S, 3*H*D] (section
-// i in {q, k, v}, head h at column i*H*D + h*D):
+// Per batch b and head h:
 //
 //   s    = q k^T * scale + bias[b]     (bias: additive fp32 key bias [B, S];
 //                                       causal entries j > i at -1e30)
@@ -230,17 +232,24 @@ struct Args {
 
 // ---------------------------------------------------------------------------
 // forward: one block per (query tile, head, batch); the keys stream through
-// shared memory in tiles of BN with an online softmax. With `lse`, the row
-// logsumexp of the softmax before dropout, m + log(l), is written too.
+// shared memory in tiles of BN with an online softmax. The caller resolves
+// the layout: qb, kb and vb point at row 0 of this block's (b, h) head in q,
+// k and v (rows in_ss elements apart), ob at row 0 of its output head (rows
+// out_ss apart), brow at the key bias of batch b (or null). With lse_row
+// (this head's [S] row of an fp32 [B, H, S]), the row logsumexp of the
+// softmax before dropout, m + log(l), is written too.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, typename A>
 __device__ __forceinline__ void fwd_block(float* smem,
-                                          const T* __restrict__ qkv,
-                                          const float* __restrict__ bias,
-                                          T* __restrict__ out,
-                                          float* __restrict__ lse,
-                                          const Args& a) {
+                                          const T* __restrict__ qb,
+                                          const T* __restrict__ kb,
+                                          const T* __restrict__ vb,
+                                          long long in_ss,
+                                          const float* __restrict__ brow,
+                                          T* __restrict__ ob, long long out_ss,
+                                          float* __restrict__ lse_row,
+                                          const A& a) {
   static_assert(D % (4 * TPR) == 0, "head dim must split into float4 chunks");
   constexpr int LD = Layout<D>::LD;
   constexpr int PLD = Layout<D>::PLD;
@@ -253,7 +262,7 @@ __device__ __forceinline__ void fwd_block(float* smem,
   float* sP = sV + BN * LD;
   unsigned char* sM = reinterpret_cast<unsigned char*>(sP + BM * PLD);
 
-  const int S = a.S, H = a.H;
+  const int S = a.S;
   const int q0 = blockIdx.x * BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -261,12 +270,9 @@ __device__ __forceinline__ void fwd_block(float* smem,
   const int r = tid / TPR;  // query row within the tile
   const int t = tid % TPR;  // this thread's share of the row
   const int row = q0 + r;
-  const int HD = H * D;
   const Dropout& dr = a.dr;
 
-  const T* base = qkv + (long long)b * a.qkv_sb + (long long)h * D;
-  const float* brow = bias ? bias + (long long)b * S : nullptr;
-  load_rows<T, D, BM>(sQ, base, a.qkv_ss, q0, S, tid);
+  load_rows<T, D, BM>(sQ, qb, in_ss, q0, S, tid);
 
   float acc[4 * CHUNKS];
 #pragma unroll
@@ -278,8 +284,8 @@ __device__ __forceinline__ void fwd_block(float* smem,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();  // every read of the previous tile is done
-    load_rows<T, D, BN>(sK, base + HD, a.qkv_ss, k0, S, tid);
-    load_rows<T, D, BN>(sV, base + 2 * HD, a.qkv_ss, k0, S, tid);
+    load_rows<T, D, BN>(sK, kb, in_ss, k0, S, tid);
+    load_rows<T, D, BN>(sV, vb, in_ss, k0, S, tid);
     fill_mask(sM, dr, q0, k0, h, b, tid);
     __syncthreads();
 
@@ -312,10 +318,8 @@ __device__ __forceinline__ void fwd_block(float* smem,
   }
 
   if (row < S) {
-    T* orow = out + (long long)b * a.out_sb + (long long)row * a.out_ss +
-              (long long)h * D;
-    store_cols<T, D>(orow, acc, dr.scale / l, t);
-    if (lse && t == 0) lse[((long long)b * H + h) * S + row] = m + logf(l);
+    store_cols<T, D>(ob + (long long)row * out_ss, acc, dr.scale / l, t);
+    if (lse_row && t == 0) lse_row[row] = m + logf(l);
   }
 }
 
@@ -323,15 +327,21 @@ __device__ __forceinline__ void fwd_block(float* smem,
 // backward, dkv: one block per (key tile, head, batch) loops over the query
 // tiles with the rows' lse and delta: dv = (keep . p)^T dO * drop_scale,
 // dk = scale * dS^T q, and, when asked, the per-head column sums of dS, a
-// [B, H, S] partial that a second deterministic pass sums over heads.
+// [B, H, S] partial that a second deterministic pass sums over heads. As
+// for the forward, the caller resolves the layout: qb, kb, vb (rows in_ss
+// apart), dob (rows do_ss apart), dkb and dvb (rows d_ss apart) point at
+// row 0 of this block's head; stats, dstats and part_row at its [S] rows of
+// the fp32 [B, H, S] lse, delta and dbias partial (part_row may be null).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, typename A>
 __device__ __forceinline__ void dkv_block(
-    float* smem, const T* __restrict__ qkv, const float* __restrict__ bias,
-    const T* __restrict__ dout, T* __restrict__ dqkv,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dbias_part, const Args& a) {
+    float* smem, const T* __restrict__ qb, const T* __restrict__ kb,
+    const T* __restrict__ vb, long long in_ss, const T* __restrict__ dob,
+    long long do_ss, const float* __restrict__ brow, T* __restrict__ dkb,
+    T* __restrict__ dvb, long long d_ss, const float* __restrict__ stats,
+    const float* __restrict__ dstats, float* __restrict__ part_row,
+    const A& a) {
   constexpr int LD = Layout<D>::LD;
   constexpr int PLD = Layout<D>::PLD;
   constexpr int IPT = BM / TPR;  // queries per thread per query tile
@@ -347,7 +357,7 @@ __device__ __forceinline__ void dkv_block(
   float* sDelta = sLse + BM;
   unsigned char* sM = reinterpret_cast<unsigned char*>(sDelta + BM);
 
-  const int S = a.S, H = a.H;
+  const int S = a.S;
   const int k0 = blockIdx.x * BN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -355,16 +365,11 @@ __device__ __forceinline__ void dkv_block(
   const int r = tid / TPR;  // key row within the tile
   const int t = tid % TPR;
   const int j = k0 + r;
-  const int HD = H * D;
   const Dropout& dr = a.dr;
 
-  const T* base = qkv + (long long)b * a.qkv_sb + (long long)h * D;
-  const T* dobase = dout + (long long)b * a.do_sb + (long long)h * D;
-  const float* stats = lse + ((long long)b * H + h) * S;
-  const float* dstats = delta + ((long long)b * H + h) * S;
-  load_rows<T, D, BN>(sK, base + HD, a.qkv_ss, k0, S, tid);
-  load_rows<T, D, BN>(sV, base + 2 * HD, a.qkv_ss, k0, S, tid);
-  const float bj = (bias && j < S) ? bias[(long long)b * S + j] : 0.f;
+  load_rows<T, D, BN>(sK, kb, in_ss, k0, S, tid);
+  load_rows<T, D, BN>(sV, vb, in_ss, k0, S, tid);
+  const float bj = (brow && j < S) ? brow[j] : 0.f;
 
   float dk[4 * CHUNKS], dv[4 * CHUNKS];
 #pragma unroll
@@ -377,8 +382,8 @@ __device__ __forceinline__ void dkv_block(
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();
-    load_rows<T, D, BM>(sQ, base, a.qkv_ss, q0, S, tid);
-    load_rows<T, D, BM>(sDO, dobase, a.do_ss, q0, S, tid);
+    load_rows<T, D, BM>(sQ, qb, in_ss, q0, S, tid);
+    load_rows<T, D, BM>(sDO, dob, do_ss, q0, S, tid);
     for (int i = tid; i < BM; i += THREADS) {
       const bool ok = q0 + i < S;
       // rows past the end: p = exp(s - inf) = 0, so they add nothing
@@ -416,14 +421,44 @@ __device__ __forceinline__ void dkv_block(
 
   db = row_sum4(db);
   if (j < S) {
-    T* drow = dqkv + (long long)b * a.out_sb + (long long)j * a.out_ss +
-              (long long)h * D;
-    store_cols<T, D>(drow + HD, dk, a.scale, t);
-    store_cols<T, D>(drow + 2 * HD, dv, 1.f, t);
-    if (dbias_part && t == 0) {
-      dbias_part[((long long)b * H + h) * S + j] = db;
-    }
+    store_cols<T, D>(dkb + (long long)j * d_ss, dk, a.scale, t);
+    store_cols<T, D>(dvb + (long long)j * d_ss, dv, 1.f, t);
+    if (part_row && t == 0) part_row[j] = db;
   }
+}
+
+// The tiled kernels' callers of the two bodies (#7 forward, #8 dkv), on
+// the packed layout: head h of batch b at column h*D of row b of qkv, its
+// k and v sections H*D and 2*H*D columns on; the same for out and dqkv.
+template <typename T, int D>
+__device__ __forceinline__ void packed_fwd(float* smem, const Args& a,
+                                           float* lse) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long HD = (long long)a.H * D;
+  const T* qb = static_cast<const T*>(a.qkv) + (long long)b * a.qkv_sb +
+                (long long)h * D;
+  T* ob = static_cast<T*>(a.out) + (long long)b * a.out_sb + (long long)h * D;
+  fwd_block<T, D>(smem, qb, qb + HD, qb + 2 * HD, a.qkv_ss,
+                  a.bias ? a.bias + (long long)b * a.S : nullptr, ob,
+                  a.out_ss,
+                  lse ? lse + ((long long)b * a.H + h) * a.S : nullptr, a);
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void packed_dkv(float* smem, const Args& a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long HD = (long long)a.H * D;
+  const long long head = ((long long)b * a.H + h) * a.S;
+  const T* qb = static_cast<const T*>(a.qkv) + (long long)b * a.qkv_sb +
+                (long long)h * D;
+  T* dqb = static_cast<T*>(a.out) + (long long)b * a.out_sb + (long long)h * D;
+  dkv_block<T, D>(smem, qb, qb + HD, qb + 2 * HD, a.qkv_ss,
+                  static_cast<const T*>(a.dout) + (long long)b * a.do_sb +
+                      (long long)h * D,
+                  a.do_ss, a.bias ? a.bias + (long long)b * a.S : nullptr,
+                  dqb + HD, dqb + 2 * HD, a.out_ss, a.lse + head,
+                  a.delta + head,
+                  a.dbias_part ? a.dbias_part + head : nullptr, a);
 }
 
 // Above 48 KB a block's shared memory must be opted into, per kernel and
@@ -447,8 +482,8 @@ cudaError_t opt_in_smem() {
 
 // Launch K<T, D> (K::launch(grid, stream, args)) for the dtype code (0 =
 // float32, 1 = bfloat16) and head dim of one call.
-template <template <typename, int> class K>
-int dispatch(int dtype, int D, const Args& a, void* stream) {
+template <template <typename, int> class K, typename A>
+int dispatch(int dtype, int D, const A& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((a.S + BM - 1) / BM, a.H, a.B);
   auto run = [&](auto launch, cudaError_t opt) -> int {

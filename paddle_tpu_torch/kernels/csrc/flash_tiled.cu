@@ -5,7 +5,7 @@
 // (launched by flash_tiled_fwd), _dkv_kernel and _dq_kernel (both
 // launched by flash_tiled_bwd), which carry every attention longer than
 // the whole-row kernel's cap of 1024 (causal GPT at S = 2048). The math is
-// attn_tiles.cuh's, as for flash_attention_qkv.cu; what the tiled trio
+// attn_tiles.cuh's, as for flash_attention.cu; what the tiled trio
 // adds is the saved statistics:
 //
 //   tiled_fwd: one block per (query tile, head, batch) streams the key
@@ -42,9 +42,7 @@ using namespace attn;
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) tiled_fwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  fwd_block<T, D>(reinterpret_cast<float*>(smem4),
-                  static_cast<const T*>(a.qkv), a.bias,
-                  static_cast<T*>(a.out), a.lse, a);
+  packed_fwd<T, D>(reinterpret_cast<float*>(smem4), a, a.lse);
 }
 
 // ---------------------------------------------------------------------------
@@ -183,10 +181,7 @@ __global__ void __launch_bounds__(THREADS, 2) tiled_dq_kernel(Args a) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) tiled_dkv_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  dkv_block<T, D>(reinterpret_cast<float*>(smem4),
-                  static_cast<const T*>(a.qkv), a.bias,
-                  static_cast<const T*>(a.dout), static_cast<T*>(a.out),
-                  a.lse, a.delta, a.dbias_part, a);
+  packed_dkv<T, D>(reinterpret_cast<float*>(smem4), a);
 }
 
 #define TILED_KERNEL(NAME, KERNEL, SMEM)                                     \

@@ -1,39 +1,51 @@
-"""Packed-QKV attention, forward and backward: hand-written CUDA kernels
-and their plain PyTorch versions (counterpart of
-paddle_tpu/kernels/flash_attention.py).
+"""Whole-row attention, forward and backward, on the packed projection
+and on the 4-D [B, H, S, D] layout: hand-written CUDA kernels and their
+plain PyTorch versions (counterpart of paddle_tpu/kernels/flash_attention.py).
 
 Replaces: paddle_tpu/kernels/flash_attention.py:_fwd_kernel_qkv (via
-`_pallas_fwd_qkv`) and _bwd_kernel_qkv (via `_pallas_bwd_qkv`), the
-Pallas kernels behind `fused_attention_qkv` and `attention_grads_qkv`.
+`_pallas_fwd_qkv`, #1) and _bwd_kernel_qkv (via `_pallas_bwd_qkv`, #3),
+the Pallas kernels behind `fused_attention_qkv` and
+`attention_grads_qkv`; and _fwd_kernel (via `_pallas_fwd`, #5) and
+_bwd_kernel (via `_pallas_bwd`, #6), the kernels behind
+`fused_attention` and `attention_grads` (the fused_multihead_attention
+op).
 
-Computes, per batch and head of a packed projection qkv [B, S, 3*H*D]
-(section i in {q, k, v}, head h at columns i*H*D + h*D):
-softmax(q k^T * scale + key_bias) v -> [B, S, H*D], with key_bias an
-additive fp32 [B, S], causal masking at NEG_INF, and fluid's dropout on
-the probabilities: in training the Philox keep mask of prng_mask.py
-(keyed by the op's two seed words), kept values scaled by 1/(1-p) under
-`upscale_in_train`; in test mode a scale of 1-p under
-`downgrade_in_infer`. The backward gives dqkv [B, S, 3*H*D] and, when
-asked, dbias [B, S], the sum of dS over heads and query rows.
+Computes, per batch and head: softmax(q k^T * scale + key_bias) v, with
+key_bias an additive fp32 [B, S], causal masking at NEG_INF, and fluid's
+dropout on the probabilities: in training the Philox keep mask of
+prng_mask.py (keyed by the op's two seed words, the batch, head, query
+and key), kept values scaled by 1/(1-p) under `upscale_in_train`; in test
+mode a scale of 1-p under `downgrade_in_infer`. The packed wrappers take
+qkv [B, S, 3*H*D] (section i in {q, k, v}, head h at columns
+i*H*D + h*D) -> [B, S, H*D]; the 4-D wrappers take separate q, k, v
+[B, H, S, D] -> [B, H, S, D]. The backwards give dqkv (or dq, dk, dv)
+and, when asked, dbias [B, S], the sum of dS over heads and query rows.
 
 What bounds it on the H100: at BERT shapes (S=128..512, D=64) each
 query row and head does 4*S*D flops forward (about 9*S*D backward)
 against 12*D input bytes, ~S/3 flop per byte, so fp32 CUDA-core kernels
-are bound by operations. The designs (csrc/flash_attention_qkv.cu) keep
-every [S, S] tile out of device memory: the forward streams key tiles
-through shared memory with an online softmax; the backward splits into
-a per-query-tile kernel (row statistics, delta, dq) and a per-key-tile
-kernel (dk, dv, per-head dbias partials), reading the packed projection
-in place and writing one packed dqkv. The mask is regenerated from its
-coordinates in every kernel, never stored.
+are bound by operations. The kernels (csrc/flash_attention.cu, on
+csrc/attn_tiles.cuh) keep every [S, S] tile out of device memory: the
+forward streams key tiles through shared memory with an online softmax;
+the backward splits into a per-query-tile kernel (row statistics, delta,
+dq) and a per-key-tile kernel (dk, dv, per-head dbias partials). Both
+layouts launch the same three kernels, which read q, k and v as
+[B, H, S, D] views through their strides: the packed projection is the
+view whose k and v sections lie H*D and 2*H*D columns on, so it is read
+in place and dq, dk and dv land in one packed dqkv; the head-split views
+of a projection (#5's usual operands) need no copy either. The mask is
+regenerated from its coordinates in every kernel, never stored.
 
-Dispatch: a sequence longer than MAX_SEQ = 1024 goes to the KV-tiled
-kernels of flash_tiled.py (#7-#9), which also save the row logsumexp;
-the rule reads only shapes and dtypes (uses_tiled_path), so a program
-built before its device is known takes the same branch on the card and
-on the CPU. Then a CUDA tensor goes to the kernels, or raises if they do
-not take it; a CPU tensor goes to the plain version; a meta tensor
-(shape inference) gets an empty output of the right shape.
+Dispatch reads only shapes and dtypes. Packed: a sequence longer than
+MAX_SEQ = 1024 goes to the KV-tiled kernels of flash_tiled.py (#7-#9),
+which also save the row logsumexp (uses_tiled_path), so a program built
+before its device is known takes the same branch on the card and on the
+CPU. 4-D: the kernels take what `supports` admits (S <= MAX_SEQ, as the
+JAX package's whole-row kernel); a CUDA tensor outside it raises
+UnimplementedError, where the JAX package computes its jnp reference.
+Then a CUDA tensor goes to the kernels, or raises if they do not take
+it; a CPU tensor goes to the plain version; a meta tensor (shape
+inference) gets an empty output of the right shape.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ import math
 import torch
 
 from ..core.dtypes import to_torch_dtype
-from ..errors import InvalidArgumentError
+from ..errors import InvalidArgumentError, UnimplementedError
 from . import _build
 from .prng_mask import drop_scale, keep_mask, mask_args
 from .sum_partials import sum_partials
@@ -78,16 +90,21 @@ def uses_tiled_path(seq_len, num_heads, head_dim, dtype):
     return seq_len > MAX_SEQ and _kernel_kind(head_dim, dtype)
 
 
+def _split_heads(t, H):
+    """The [B, H, S, D] view of t [B, S, H*D] (rows t.stride(1) apart)."""
+    return t.unflatten(-1, (H, -1)).transpose(1, 2)
+
+
+def _head_views(qkv, H):
+    """(q, k, v): the [B, H, S, D] views of the packed projection's
+    sections, which share their strides."""
+    heads = _split_heads(qkv, 3 * H)
+    return heads[:, :H], heads[:, H:2 * H], heads[:, 2 * H:]
+
+
 def _heads(qkv, H):
-    """(q, k, v) as fp32 [B, H, S, D] views of the packed projection."""
-    B, S, three_hd = qkv.shape
-    D = three_hd // 3 // H
-
-    def head(i):
-        sec = qkv[..., i * H * D:(i + 1) * H * D]
-        return sec.reshape(B, S, H, D).transpose(1, 2).float()
-
-    return head(0), head(1), head(2)
+    """(q, k, v) as fp32 [B, H, S, D] of the packed projection."""
+    return tuple(t.float() for t in _head_views(qkv, H))
 
 
 def _probs(q, k, key_bias, scale, causal):
@@ -109,6 +126,36 @@ def _mask(q, rate, is_test, seed):
     return keep_mask(seed, rate, S, S, lead=(B, H), device=q.device)
 
 
+def _attend(q, k, v, key_bias, scale, dropout_rate, is_test, upscale,
+            causal, seed):
+    """fp32 [B, H, S, D] attention of fp32 heads [B, H, S, D]: the
+    arithmetic every plain version shares."""
+    p = _probs(q, k, key_bias, scale, causal)
+    p = p * drop_scale(dropout_rate, is_test, upscale)
+    keep = _mask(q, dropout_rate, is_test, seed)
+    if keep is not None:
+        p = p * keep
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def _attend_bwd(q, k, v, key_bias, do, scale, dropout_rate, is_test,
+                upscale, causal, seed):
+    """(dq, dk, dv fp32 [B, H, S, D], dbias fp32 [B, S]) of _attend for the
+    fp32 output gradient do, in the formulas of the JAX package's
+    `_head_bwd`."""
+    p = _probs(q, k, key_bias, scale, causal)
+    ds_ = drop_scale(dropout_rate, is_test, upscale)
+    keep = _mask(q, dropout_rate, is_test, seed)
+    w = ds_ if keep is None else keep * ds_  # multiplier of p and dp
+    pm = p * w
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v) * w
+    dv = torch.einsum("bhqk,bhqd->bhkd", pm, do)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return dq, dk, dv, ds.sum(dim=(1, 2))
+
+
 def reference_qkv(qkv, num_heads, key_bias=None, *, scale, dropout_rate=0.0,
                   is_test=True, upscale=False, causal=False, seed=None):
     """The plain version: the same function in PyTorch ops, in fp32, with
@@ -117,12 +164,8 @@ def reference_qkv(qkv, num_heads, key_bias=None, *, scale, dropout_rate=0.0,
     mask_args(dropout_rate, is_test, seed, "reference_qkv")
     B, S, _ = qkv.shape
     q, k, v = _heads(qkv, num_heads)
-    p = _probs(q, k, key_bias, scale, causal)
-    p = p * drop_scale(dropout_rate, is_test, upscale)
-    keep = _mask(q, dropout_rate, is_test, seed)
-    if keep is not None:
-        p = p * keep
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v)
+    out = _attend(q, k, v, key_bias, scale, dropout_rate, is_test, upscale,
+                  causal, seed)
     return out.transpose(1, 2).reshape(B, S, -1).to(qkv.dtype)
 
 
@@ -136,19 +179,35 @@ def reference_qkv_bwd(qkv, num_heads, key_bias, d_out, *, scale,
     H = num_heads
     q, k, v = _heads(qkv, H)
     do = d_out.reshape(B, S, H, -1).transpose(1, 2).float()
-    p = _probs(q, k, key_bias, scale, causal)
-    ds_ = drop_scale(dropout_rate, is_test, upscale)
-    keep = _mask(q, dropout_rate, is_test, seed)
-    w = ds_ if keep is None else keep * ds_  # multiplier of p and dp
-    pm = p * w
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, v) * w
-    dv = torch.einsum("bhqk,bhqd->bhkd", pm, do)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dq, dk, dv, dbias = _attend_bwd(q, k, v, key_bias, do, scale,
+                                    dropout_rate, is_test, upscale, causal,
+                                    seed)
     dqkv = torch.cat([t.transpose(1, 2).reshape(B, S, -1)
                       for t in (dq, dk, dv)], dim=-1)
-    return dqkv.to(qkv.dtype), ds.sum(dim=(1, 2))
+    return dqkv.to(qkv.dtype), dbias
+
+
+def reference(q, k, v, key_bias=None, *, scale, dropout_rate=0.0,
+              is_test=True, upscale=False, causal=False, seed=None):
+    """The plain version of #5: attention on [B, H, S, D] q, k and v in
+    fp32, the output cast back to q's dtype (the JAX package's
+    `_reference`), the kernels' Philox mask in training."""
+    mask_args(dropout_rate, is_test, seed, "reference")
+    out = _attend(q.float(), k.float(), v.float(), key_bias, scale,
+                  dropout_rate, is_test, upscale, causal, seed)
+    return out.to(q.dtype)
+
+
+def reference_bwd(q, k, v, key_bias, d_out, *, scale, dropout_rate=0.0,
+                  is_test=True, upscale=False, causal=False, seed=None):
+    """The plain version of #6: (dq, dk, dv in q's dtype, dbias fp32
+    [B, S], the sum of dS over heads and query rows)."""
+    mask_args(dropout_rate, is_test, seed, "reference_bwd")
+    dq, dk, dv, dbias = _attend_bwd(q.float(), k.float(), v.float(),
+                                    key_bias, d_out.float(), scale,
+                                    dropout_rate, is_test, upscale, causal,
+                                    seed)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias
 
 
 def _check(qkv, num_heads, key_bias, who):
@@ -227,8 +286,7 @@ def _whole_row_fwd(qkv, num_heads, key_bias, D, scale, dropout_rate, is_test,
     if qkv.device.type == "meta":
         return torch.empty((B, S, num_heads * D), dtype=qkv.dtype,
                            device=qkv.device)
-    use_mask, s0, s1, thr = mask_args(dropout_rate, is_test, seed,
-                                      "fused_attention_qkv")
+    mask = mask_args(dropout_rate, is_test, seed, "fused_attention_qkv")
     if qkv.device.type == "cpu":
         return reference_qkv(qkv, num_heads, key_bias, scale=scale,
                              dropout_rate=dropout_rate, is_test=is_test,
@@ -236,18 +294,10 @@ def _whole_row_fwd(qkv, num_heads, key_bias, D, scale, dropout_rate, is_test,
     B, S, D, bias = _check(qkv, num_heads, key_bias, "fused_attention_qkv")
     out = torch.empty((B, S, num_heads * D), dtype=qkv.dtype,
                       device=qkv.device)
-    err = _bind().flash_attention_qkv_fwd(
-        qkv.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), B, S, num_heads, D, qkv.stride(0), qkv.stride(1),
-        out.stride(0), out.stride(1), float(scale),
-        float(drop_scale(dropout_rate, is_test, upscale)), int(bool(causal)),
-        use_mask, s0, s1, thr, DTYPES.index(qkv.dtype),
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(
-            f"flash_attention_qkv_fwd launch failed: CUDA error {err}"
-        )
+    _launch_fwd(*_head_views(qkv, num_heads), bias,
+                _split_heads(out, num_heads), scale,
+                drop_scale(dropout_rate, is_test, upscale), causal,
+                mask)
     fused_attention_qkv.launches += 1
     return out
 
@@ -284,8 +334,7 @@ def fused_attention_qkv_bwd(qkv, num_heads, key_bias, d_out, *, scale=None,
                                saved_lse, num_heads, D,
                                want_dbias=want_dbias, **kw)
     upscale = dropout_implementation == "upscale_in_train"
-    use_mask, s0, s1, thr = mask_args(dropout_rate, is_test, seed,
-                                      "fused_attention_qkv_bwd")
+    mask = mask_args(dropout_rate, is_test, seed, "fused_attention_qkv_bwd")
     if qkv.device.type == "cpu":
         dqkv, dbias = reference_qkv_bwd(
             qkv, num_heads, key_bias, d_out, scale=scale,
@@ -304,41 +353,13 @@ def fused_attention_qkv_bwd(qkv, num_heads, key_bias, d_out, *, scale=None,
             f"contiguous last dim; got {tuple(d_out.shape)} {d_out.dtype} "
             f"on {d_out.device}"
         )
-    dev = qkv.device
-    dqkv = torch.empty((B, S, 3 * H * D), dtype=qkv.dtype, device=dev)
-    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=dev)
-    part = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
-            if want_dbias else None)
-    lib = _bind()
-    common = (
-        B, S, H, D, qkv.stride(0), qkv.stride(1), d_out.stride(0),
-        d_out.stride(1), dqkv.stride(0), dqkv.stride(1), float(scale),
-        float(drop_scale(dropout_rate, is_test, upscale)), int(bool(causal)),
-        use_mask, s0, s1, thr, DTYPES.index(qkv.dtype),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    bias_p = bias.data_ptr() if bias is not None else None
-    err = lib.flash_attention_qkv_bwd_dq(
-        qkv.data_ptr(), bias_p, d_out.data_ptr(), dqkv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), *common,
-    )
-    if err:
-        raise RuntimeError(
-            f"flash_attention_qkv_bwd_dq launch failed: CUDA error {err}"
-        )
-    fused_attention_qkv_bwd.launches_dq += 1
-    err = lib.flash_attention_qkv_bwd_dkv(
-        qkv.data_ptr(), bias_p, d_out.data_ptr(), dqkv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(),
-        part.data_ptr() if part is not None else None, *common,
-    )
-    if err:
-        raise RuntimeError(
-            f"flash_attention_qkv_bwd_dkv launch failed: CUDA error {err}"
-        )
-    fused_attention_qkv_bwd.launches_dkv += 1
-    # per-head partials summed over heads in a fixed order
-    return dqkv, (sum_partials(part) if want_dbias else None)
+    dqkv = torch.empty((B, S, 3 * H * D), dtype=qkv.dtype, device=qkv.device)
+    dbias = _launch_bwd(
+        *_head_views(qkv, H), bias, _split_heads(d_out, H),
+        _head_views(dqkv, H), want_dbias, scale,
+        drop_scale(dropout_rate, is_test, upscale), causal,
+        mask, fused_attention_qkv_bwd)
+    return dqkv, dbias
 
 
 fused_attention_qkv_bwd.launches_dq = 0
@@ -379,18 +400,250 @@ def flash_qkv(qkv, num_heads, key_bias=None, **kw):
     return FlashQKV.apply(qkv, key_bias, num_heads, kw)
 
 
+# ---------------------------------------------------------------------------
+# [B, H, S, D]: separate q, k and v (#5, #6)
+# ---------------------------------------------------------------------------
+
+
+def supports(seq_len, head_dim, dtype):
+    """True when fused_attention and attention_grads take the kernels (#5,
+    #6) for these static properties (the JAX package's `supports`: the
+    whole-row cap of MAX_SEQ; the port's HEAD_DIMS; fp32 or bf16). On a
+    CUDA tensor anything else raises; a CPU tensor always runs the plain
+    version."""
+    return seq_len <= MAX_SEQ and _kernel_kind(head_dim, dtype)
+
+
+def _shape4(q, k, v, who):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise InvalidArgumentError(
+            f"{who}: q, k and v must be [B, H, S, D] of one shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise InvalidArgumentError(
+            f"{who}: q, k and v must share a dtype, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}"
+        )
+    return tuple(q.shape)
+
+
+def _kernel_operands(q, k, v, key_bias, who):
+    """(q, k, v sharing strides with a contiguous last dim, fp32 bias or
+    None) for the kernels, after their input checks. The head-split views
+    of a projection (reshape + transpose) share their strides and are
+    taken as they are; anything else is made contiguous first."""
+    B, H, S, D = q.shape
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise InvalidArgumentError(
+            f"{who}: unsupported devices {q.device}, {k.device}, {v.device}"
+        )
+    if not supports(S, D, q.dtype):
+        raise UnimplementedError(
+            f"{who}: the kernels take S <= {MAX_SEQ}, head dim in "
+            f"{HEAD_DIMS} and fp32 or bf16; got S={S}, D={D}, {q.dtype}"
+        )
+    if not (q.stride() == k.stride() == v.stride() and q.stride(3) == 1):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    bias = None
+    if key_bias is not None:
+        bias = key_bias.float().contiguous()
+        if bias.device != q.device or tuple(bias.shape) != (B, S):
+            raise InvalidArgumentError(
+                f"{who}: key_bias must be [B, S] = {(B, S)} on {q.device}, "
+                f"got {tuple(bias.shape)} on {bias.device}"
+            )
+    return q, k, v, bias
+
+
+def _strides(*tensors):
+    """The kernels' host array of (batch, head, row) element strides."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def fused_attention(q, k, v, key_bias=None, *, scale=None, dropout_rate=0.0,
+                    is_test=True, dropout_implementation="downgrade_in_infer",
+                    causal=False, seed=None):
+    """softmax(q k^T * scale + key_bias) v on [B, H, S, D] q, k and v, with
+    fluid's dropout on the probabilities -> [B, H, S, D] in q's dtype
+    (#5). key_bias: additive [B, S]. Training dropout (rate > 0, not
+    is_test) needs `seed`, the op's two seed words, on every device."""
+    B, H, S, D = _shape4(q, k, v, "fused_attention")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    upscale = dropout_implementation == "upscale_in_train"
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    mask = mask_args(dropout_rate, is_test, seed, "fused_attention")
+    if q.device.type == "cpu":
+        return reference(q, k, v, key_bias, scale=scale,
+                         dropout_rate=dropout_rate, is_test=is_test,
+                         upscale=upscale, causal=causal, seed=seed)
+    q, k, v, bias = _kernel_operands(q, k, v, key_bias, "fused_attention")
+    out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    _launch_fwd(q, k, v, bias, out, scale,
+                drop_scale(dropout_rate, is_test, upscale), causal,
+                mask)
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+
+
+def attention_grads(q, k, v, key_bias, d_out, *, scale=None,
+                    dropout_rate=0.0, is_test=True,
+                    dropout_implementation="downgrade_in_infer",
+                    causal=False, seed=None, want_dbias=True):
+    """(dq, dk, dv [B, H, S, D] in q's dtype, dbias fp32 [B, S] or None) of
+    fused_attention for the output gradient d_out (#6), with the forward's
+    mask regenerated from the same seed words. dbias, the sum of dS over
+    heads and query rows, is computed only when want_dbias."""
+    B, H, S, D = _shape4(q, k, v, "attention_grads")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    upscale = dropout_implementation == "upscale_in_train"
+    if q.device.type == "meta":
+        grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                      for _ in range(3))
+        dbias = (torch.empty((B, S), dtype=torch.float32, device=q.device)
+                 if want_dbias else None)
+        return grads + (dbias,)
+    mask = mask_args(dropout_rate, is_test, seed, "attention_grads")
+    if q.device.type == "cpu":
+        dq, dk, dv, dbias = reference_bwd(
+            q, k, v, key_bias, d_out, scale=scale, dropout_rate=dropout_rate,
+            is_test=is_test, upscale=upscale, causal=causal, seed=seed)
+        return dq, dk, dv, (dbias if want_dbias else None)
+    q, k, v, bias = _kernel_operands(q, k, v, key_bias, "attention_grads")
+    if (tuple(d_out.shape) != (B, H, S, D) or d_out.dtype != q.dtype
+            or d_out.device != q.device):
+        raise InvalidArgumentError(
+            f"attention_grads: d_out must be [B, H, S, D] = {(B, H, S, D)} "
+            f"of {q.dtype} on {q.device}; got {tuple(d_out.shape)} "
+            f"{d_out.dtype} on {d_out.device}"
+        )
+    if d_out.stride(3) != 1:
+        d_out = d_out.contiguous()
+    grads = tuple(torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    dbias = _launch_bwd(q, k, v, bias, d_out, grads, want_dbias, scale,
+                        drop_scale(dropout_rate, is_test, upscale), causal,
+                        mask, attention_grads)
+    return grads + (dbias,)
+
+
+attention_grads.launches_dq = 0
+attention_grads.launches_dkv = 0
+
+
+class Flash4D(torch.autograd.Function):
+    """Differentiable fused_attention (counterpart of the JAX package's
+    `_flash` custom_vjp): the backward calls attention_grads with the
+    forward's seed words, so it regenerates the forward's mask. Written
+    with setup_context, so torch.func transforms (the `__vjp__` replay's
+    torch.func.vjp) reach #6 as autograd does. The static graph uses the
+    dedicated fused_multihead_attention_grad op (ops/fused.py)."""
+
+    @staticmethod
+    def forward(q, k, v, key_bias, kw):
+        return fused_attention(q, k, v, key_bias, **kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_bias, kw = inputs
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.kw = kw
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, key_bias = ctx.saved_tensors
+        want_dbias = key_bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = attention_grads(q, k, v, key_bias, d_out,
+                                            want_dbias=want_dbias, **ctx.kw)
+        if dbias is not None:
+            dbias = dbias.to(key_bias.dtype)
+        return dq, dk, dv, dbias, None
+
+
+def flash_attention(q, k, v, key_bias=None, **kw):
+    """fused_attention through Flash4D (autograd-aware)."""
+    return Flash4D.apply(q, k, v, key_bias, kw)
+
+
+def _launch_fwd(q, k, v, bias, out, scale, dscale, causal, mask):
+    """Launch the forward kernel on the [B, H, S, D] views q, k, v (shared
+    strides, last dim contiguous) into the view out."""
+    B, H, S, D = q.shape
+    err = _bind().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        B, S, H, D, _strides(q, q, out), float(scale), float(dscale),
+        int(bool(causal)), *mask, DTYPES.index(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{err}")
+
+
+def _launch_bwd(q, k, v, bias, d_out, grads, want_dbias, scale, dscale,
+                causal, mask, counter):
+    """Launch the two backward kernels on the [B, H, S, D] views q, k, v
+    and d_out into the views grads = (dq, dk, dv), which share their
+    strides; add each launch to `counter`'s launches_dq / launches_dkv.
+    Returns dbias fp32 [B, S] when want_dbias, else None."""
+    B, H, S, D = q.shape
+    dq, dk, dv = grads
+    dev = q.device
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=dev)
+    part = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+            if want_dbias else None)
+    lib = _bind()
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                d_out.data_ptr())
+    tail = (
+        B, S, H, D, _strides(q, d_out, dq), float(scale), float(dscale),
+        int(bool(causal)), *mask, DTYPES.index(q.dtype),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    err = lib.flash_attention_bwd_dq(
+        *operands, dq.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        *tail,
+    )
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bwd_dq launch failed: CUDA error {err}"
+        )
+    counter.launches_dq += 1
+    err = lib.flash_attention_bwd_dkv(
+        *operands, dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), part.data_ptr() if part is not None else None,
+        *tail,
+    )
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bwd_dkv launch failed: CUDA error {err}"
+        )
+    counter.launches_dkv += 1
+    # per-head partials summed over heads in a fixed order
+    return sum_partials(part) if want_dbias else None
+
+
 def _bind():
-    lib = _build.load("flash_attention_qkv")
-    if lib.flash_attention_qkv_fwd.argtypes is None:
-        p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float, ctypes.c_uint)
-        tail = [f, f, i, i, u, u, u, i, p]
-        lib.flash_attention_qkv_fwd.argtypes = (
-            [p, p, p, i, i, i, i, ll, ll, ll, ll] + tail)
-        bwd = [i, i, i, i, ll, ll, ll, ll, ll, ll] + tail
-        lib.flash_attention_qkv_bwd_dq.argtypes = [p, p, p, p, p, p] + bwd
-        lib.flash_attention_qkv_bwd_dkv.argtypes = [p, p, p, p, p, p, p] + bwd
-        for fn in (lib.flash_attention_qkv_fwd, lib.flash_attention_qkv_bwd_dq,
-                   lib.flash_attention_qkv_bwd_dkv):
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_fwd.argtypes is None:
+        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
+        st = ctypes.POINTER(ctypes.c_longlong)
+        tail = [i, i, i, i, st, f, f, i, i, u, u, u, i, p]
+        lib.flash_attention_fwd.argtypes = [p] * 5 + tail
+        lib.flash_attention_bwd_dq.argtypes = [p] * 8 + tail
+        lib.flash_attention_bwd_dkv.argtypes = [p] * 10 + tail
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
+                   lib.flash_attention_bwd_dkv):
             fn.restype = ctypes.c_int
     return lib

@@ -1,7 +1,11 @@
 """fluid.layers-equivalent functional API: the layers of the serving and
 training slices."""
 
-from .attention import fused_dropout_add_ln, fused_qkv_attention  # noqa: F401
+from .attention import (  # noqa: F401
+    fused_dropout_add_ln,
+    fused_multihead_attention,
+    fused_qkv_attention,
+)
 from .control_flow import increment  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     linear_lr_warmup,

@@ -1,6 +1,7 @@
 """Fused transformer layers (counterpart of paddle_tpu/layers/attention.py):
-packed-QKV attention and the dropout + residual + LayerNorm tail, each
-one op backed by a hand-written kernel (paddle_tpu_torch/kernels)."""
+attention on [B, H, S, D] heads and on a packed QKV projection, and the
+dropout + residual + LayerNorm tail, each one op backed by a hand-written
+kernel (paddle_tpu_torch/kernels)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,38 @@ import numpy as np
 
 from ..initializer import Constant
 from .helper import LayerHelper
+
+
+def fused_multihead_attention(
+    q,
+    k,
+    v,
+    key_bias=None,
+    scale=None,
+    dropout_prob=0.0,
+    is_test=False,
+    dropout_implementation="downgrade_in_infer",
+    causal=False,
+    name=None,
+):
+    """softmax(q k^T * scale + key_bias) v in one op, q/k/v [B, H, S, D]
+    (the head-split layout of ERNIE's multi_head_attention); key_bias an
+    optional additive [B, S] (0 keep / -1e4 pad); fluid dropout on the
+    probabilities. Reference: the fused CUDA attention of
+    operators/fused/multihead_matmul_op.cu, with mask and dropout."""
+    helper = LayerHelper("fused_multihead_attention", name=name)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if key_bias is not None:
+        inputs["KeyBias"] = [key_bias]
+    attrs = {
+        "dropout_prob": dropout_prob,
+        "is_test": is_test,
+        "dropout_implementation": dropout_implementation,
+        "causal": causal,
+    }
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    return helper.create_and_append(inputs, attrs)
 
 
 def fused_qkv_attention(

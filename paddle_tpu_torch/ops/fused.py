@@ -18,6 +18,8 @@ from ..framework.backward import _ensure_var
 from ..framework.program import grad_var_name
 from ..framework.registry import register_op
 from ..kernels.flash_attention import (
+    attention_grads,
+    fused_attention,
     fused_attention_qkv,
     fused_attention_qkv_bwd,
     uses_tiled_path,
@@ -63,20 +65,28 @@ def _append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
     block.append_op(grad_type, inputs, outs, attrs)
 
 
-def _attention_grad_maker(op, block, contribs, finalize, needs_grad=None):
-    g_out = finalize(op.outputs["Out"][0])
-    if g_out is None:
-        return
-    inputs = {"QKV": op.inputs["QKV"], "OutGrad": [g_out]}
-    if op.inputs.get("KeyBias"):
-        inputs["KeyBias"] = op.inputs["KeyBias"]
-    if op.outputs.get("Lse") and _qkv_tiled_at_build(op, block):
-        # the forward saves (Out, Lse): the tiled backward kernels read
-        # both and never re-run the forward
-        inputs["Out"] = op.outputs["Out"]
-        inputs["Lse"] = op.outputs["Lse"]
-    _append_grad_op(op, block, contribs, needs_grad,
-                    "fused_qkv_attention_grad", inputs, ("QKV", "KeyBias"))
+def _attention_grad_maker(grad_type, primal_slots):
+    """The grad maker of an attention op: `grad_type` reads the primal
+    inputs, the key bias and the output gradient, and gives a gradient
+    for each of them that needs one."""
+
+    def maker(op, block, contribs, finalize, needs_grad=None):
+        g_out = finalize(op.outputs["Out"][0])
+        if g_out is None:
+            return
+        inputs = {slot: op.inputs[slot] for slot in primal_slots}
+        inputs["OutGrad"] = [g_out]
+        if op.inputs.get("KeyBias"):
+            inputs["KeyBias"] = op.inputs["KeyBias"]
+        if op.outputs.get("Lse") and _qkv_tiled_at_build(op, block):
+            # the forward saves (Out, Lse): the tiled backward kernels read
+            # both and never re-run the forward
+            inputs["Out"] = op.outputs["Out"]
+            inputs["Lse"] = op.outputs["Lse"]
+        _append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
+                        primal_slots + ("KeyBias",))
+
+    return maker
 
 
 def _qkv_tiled_at_build(op, block):
@@ -103,8 +113,51 @@ def _attention_kw(ctx, op):
     )
 
 
+@register_op("fused_multihead_attention", inputs=["Q", "K", "V", "KeyBias"],
+             outputs=["Out"],
+             grad_maker=_attention_grad_maker(
+                 "fused_multihead_attention_grad", ("Q", "K", "V")))
+def _fused_multihead_attention(ctx, op, ins):
+    """softmax(Q K^T * scale + KeyBias) V with fused attention-prob
+    dropout, Q/K/V [B, H, S, D] and KeyBias an optional additive [B, S]
+    (the kernels #5/#6). Out is [B, H, S, D] in Q's dtype."""
+    bias = ins["KeyBias"][0] if ins.get("KeyBias") else None
+    out = fused_attention(
+        ins["Q"][0], ins["K"][0], ins["V"][0], bias,
+        seed=_seed(ctx, op, op.uid, op.type), **_attention_kw(ctx, op),
+    )
+    return {"Out": [out]}
+
+
+@register_op("fused_multihead_attention_grad",
+             inputs=["Q", "K", "V", "KeyBias", "OutGrad"],
+             outputs=["QGrad", "KGrad", "VGrad", "KeyBiasGrad"],
+             differentiable=False)
+def _fused_multihead_attention_grad(ctx, op, ins):
+    """Backward of fused_multihead_attention through the backward kernels
+    (no forward replay); the mask regenerates from the forward op's seed
+    words. KeyBiasGrad is computed only when the op has that output."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    bias = ins["KeyBias"][0] if ins.get("KeyBias") else None
+    want_dbias = bool(op.outputs.get("KeyBiasGrad")) and bias is not None
+    dq, dk, dv, dbias = attention_grads(
+        q, k, v, bias, ins["OutGrad"][0],
+        seed=_seed(ctx, op, op.attr("__fwd_uid__"),
+                   "fused_multihead_attention"),
+        want_dbias=want_dbias, **_attention_kw(ctx, op),
+    )
+    outs = {slot: [g] for slot, g in (("QGrad", dq), ("KGrad", dk),
+                                      ("VGrad", dv))
+            if op.outputs.get(slot)}
+    if want_dbias:
+        outs["KeyBiasGrad"] = [dbias.to(bias.dtype)]
+    return outs
+
+
 @register_op("fused_qkv_attention", inputs=["QKV", "KeyBias"],
-             outputs=["Out", "Lse"], grad_maker=_attention_grad_maker)
+             outputs=["Out", "Lse"],
+             grad_maker=_attention_grad_maker("fused_qkv_attention_grad",
+                                              ("QKV",)))
 def _fused_qkv_attention(ctx, op, ins):
     """Attention over the packed qkv projection [B, S, 3*H*D] -> [B, S,
     H*D] (attr num_heads). The kernel reads the projection in place

@@ -15,8 +15,8 @@ shapes. ``generate_full_recompute`` keeps the plain re-run-the-whole-
 context baseline for parity checks.
 
 The JAX package's ``serving.*`` spans and counters come with the
-observability port, and ``load_params``/``save_params`` with the
-checkpoint files (`io.save`/`io.load`).
+observability port. ``load_params``/``save_params`` read and write
+io.save's files.
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..errors import InvalidArgumentError, UnimplementedError
-from ..framework import Executor, Program, Scope, program_guard
+from ..errors import InvalidArgumentError
+from ..framework import Executor, Program, Scope, program_guard, scope_guard
 from ..layers import data
 from ..models.gpt import (
     gpt_cache_names,
@@ -88,18 +88,28 @@ class GPTGenerator:
         self.executor.run(self.startup_prog, scope=self.scope)
         self.reset()
 
+    def _param_vars(self):
+        caches = set(gpt_cache_names(self.cfg))
+        return [v for v in self.prefill_prog.list_vars()
+                if v.persistable and v.name not in caches]
+
     def load_params(self, path):
-        raise UnimplementedError(
-            "GPTGenerator.load_params needs io.load, which comes with the "
-            "checkpoint files (ROADMAP Queue 1 item 5); carry a state with "
-            "convert.state_from_numpy meanwhile"
-        )
+        """Load trained GPT parameters (io.save's files, written by either
+        package) into the shared scope on the executor's device; the KV
+        caches are runtime state, not checkpoint content."""
+        from .. import io as _io
+
+        with scope_guard(self.scope):
+            _io.load(self.prefill_prog, path, var_list=self._param_vars(),
+                     executor=self.executor)
+        self.reset()
 
     def save_params(self, path):
-        raise UnimplementedError(
-            "GPTGenerator.save_params needs io.save, which comes with the "
-            "checkpoint files (ROADMAP Queue 1 item 5)"
-        )
+        """io.save of the prefill program's persistables."""
+        from .. import io as _io
+
+        with scope_guard(self.scope):
+            return _io.save(self.prefill_prog, path)
 
     def reset(self):
         """Zero the KV caches (fresh generation state)."""

@@ -1,7 +1,8 @@
 """Port parity for GPT serving through the KV cache: the kv_cache_write and
 kv_cache_attention ops on the JAX package's goldens
 (tests/test_serving.py::test_kv_cache_op_goldens), the port's GPTGenerator
-against the JAX package's from the same weights, cached generation
+against the JAX package's from the same weights (carried as arrays, and
+as the files of the JAX package's save_params), cached generation
 against full recompute, a `generate` endpoint behind the port's Server,
 and the v1 `lookup_table` op that [B, 1] ids build (the decode step's
 token embedding), on the CPU.
@@ -25,7 +26,7 @@ from paddle_tpu.serving.generate import GPTGenerator as JGPTGenerator
 import paddle_tpu_torch as tf
 from paddle_tpu_torch import convert
 from paddle_tpu_torch import layers as tl
-from paddle_tpu_torch.errors import InvalidArgumentError, UnimplementedError
+from paddle_tpu_torch.errors import InvalidArgumentError
 from paddle_tpu_torch.framework.registry import OpView
 from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from paddle_tpu_torch.models.gpt import gpt_cache_names
@@ -141,6 +142,29 @@ def test_generator_gives_the_jax_packages_tokens_from_its_weights():
     np.testing.assert_array_equal(gen.generate(ctx, NEW), got)
 
 
+def test_load_params_reads_the_jax_packages_checkpoint(tmp_path):
+    """GPTGenerator.save_params of the JAX package (io.save of its prefill
+    program) -> the port's load_params (io.load, the KV caches left out)
+    gives the JAX package's greedy tokens; the port's own save_params ->
+    load_params gives them again."""
+    jgen = _jax_generator(seed=13)
+    path = str(tmp_path / "gpt")
+    jgen.save_params(path)
+    gen = _port_generator(seed=99)  # other weights, overwritten by the load
+    gen.load_params(path)
+    caches = set(gpt_cache_names(gen.cfg))
+    params = {v.name for v in gen.prefill_prog.list_vars()
+              if v.persistable and v.name not in caches}
+    assert params <= set(gen.scope.local_var_names())
+    ctx = _context()
+    want = np.asarray(jgen.generate(ctx, NEW))
+    np.testing.assert_array_equal(gen.generate(ctx, NEW), want)
+    again = _port_generator(seed=98)
+    gen.save_params(str(tmp_path / "port"))
+    again.load_params(str(tmp_path / "port"))
+    np.testing.assert_array_equal(again.generate(ctx, NEW), want)
+
+
 def test_cached_generation_equals_full_recompute():
     gen = _port_generator(seed=5)
     ctx = _context()
@@ -151,7 +175,7 @@ def test_cached_generation_equals_full_recompute():
     assert {"kv_cache_write", "kv_cache_attention", "lookup_table"} <= ops
     with pytest.raises(InvalidArgumentError):
         gen.generate(ctx, MAX_LEN - CONTEXT + 1)
-    with pytest.raises(UnimplementedError):
+    with pytest.raises(FileNotFoundError):  # no checkpoint there
         gen.load_params("somewhere")
 
 

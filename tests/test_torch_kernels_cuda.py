@@ -760,3 +760,149 @@ def test_amp_programs_run_the_kernels_in_bf16_like_the_cpu(dev, which, flag):
     for g, c, (p, _) in zip(gpu[1:], cpu[1:], pg):
         err = np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-30)
         assert err <= 2 ** -4, (p.name, err)
+
+
+# ---------------------------------------------------------------------------
+# 4-D attention (#5, #6) and the ERNIE-layout saved-model path
+# ---------------------------------------------------------------------------
+
+
+def _heads(dev, B, S, H, D, dtype, seed=0):
+    """q, k, v as the program hands them over: [B, H, S, D] head-split
+    views (reshape + transpose) of one projection; a padded key bias."""
+    qkv, bias = _qkv(dev, B, S, H, D, dtype, seed)
+    q, k, v = qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    return q, k, v, qkv, bias
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_mha_kernels_match_their_plain_versions(dev, D, dtype, causal,
+                                                training):
+    """#5 and #6 against their plain versions: test-mode scaling or
+    training dropout, dbias on, S not a multiple of the tile."""
+    H, S = 3, 150
+    q, k, v, _, bias = _heads(dev, 2, S, H, D, dtype, seed=4)
+    g = torch.Generator(device=dev).manual_seed(5)
+    do = torch.randn(2, H, S, D, generator=g, device=dev).to(dtype)
+    kw = dict(scale=1 / math.sqrt(D), dropout_rate=0.2, is_test=not training,
+              causal=causal, seed=SEED if training else None)
+    before = (fa.fused_attention.launches, fa.attention_grads.launches_dq,
+              fa.attention_grads.launches_dkv)
+    out = fa.fused_attention(q, k, v, bias, **kw)
+    got = fa.attention_grads(q, k, v, bias, do, **kw)
+    assert (fa.fused_attention.launches, fa.attention_grads.launches_dq,
+            fa.attention_grads.launches_dkv) == tuple(n + 1 for n in before)
+    _close(out, fa.reference(q, k, v, bias, **kw), "attention", dtype)
+    want = fa.reference_bwd(q, k, v, bias, do, **kw)
+    for a, w in zip(got[:3], want[:3]):
+        _close(a, w, "attention_bwd", dtype)
+    _close(got[3], want[3], "attention_bwd", torch.float32)
+
+
+def test_mha_kernels_read_views_and_draw_the_packed_kernels_mask(dev):
+    """On the head-split views of a projection (read in place) #5/#6 give
+    the bits they give on contiguous copies, and the bits #1/#3 give on
+    the projection itself, training dropout on (one mask)."""
+    B, S, H, D = 2, 200, 4, 64
+    q, k, v, qkv, bias = _heads(dev, B, S, H, D, torch.float32, seed=6)
+    kw = dict(scale=0.125, dropout_rate=0.2, is_test=False, seed=SEED)
+    do = torch.randn(B, S, H * D, device=dev)
+    do4 = do.view(B, S, H, D).transpose(1, 2)
+    out = fa.fused_attention(q, k, v, bias, **kw)
+    grads = fa.attention_grads(q, k, v, bias, do4, **kw)
+    copies = [t.contiguous() for t in (q, k, v)]
+    assert torch.equal(out, fa.fused_attention(*copies, bias, **kw))
+    again = fa.attention_grads(*copies, bias, do4.contiguous(), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    packed = fa.fused_attention_qkv(qkv, H, bias, **kw)
+    assert torch.equal(out.transpose(1, 2).reshape(B, S, H * D), packed)
+    dqkv, dbias = fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                             want_dbias=True, **kw)
+    cat = torch.cat([t.transpose(1, 2).reshape(B, S, H * D)
+                     for t in grads[:3]], -1)
+    assert torch.equal(cat, dqkv) and torch.equal(grads[3], dbias)
+
+
+def test_mha_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from paddle_tpu_torch.errors import UnimplementedError
+
+    counts = (fa.fused_attention.launches, fa.attention_grads.launches_dq)
+    q, k, v, _, bias = _heads(dev, 1, 1025, 2, 64, torch.float32)
+    with pytest.raises(UnimplementedError, match="S=1025"):  # past the cap
+        fa.fused_attention(q, k, v, bias)
+    q, k, v, _, bias = _heads(dev, 1, 16, 2, 48, torch.float32)
+    with pytest.raises(UnimplementedError, match="D=48"):
+        fa.attention_grads(q, k, v, bias, q)
+    q, k, v, _, bias = _heads(dev, 1, 16, 2, 64, torch.float32)
+    with pytest.raises(UnimplementedError):  # fp16
+        fa.fused_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(InvalidArgumentError):  # training without seed words
+        fa.fused_attention(q, k, v, bias, dropout_rate=0.1, is_test=False)
+    with pytest.raises(InvalidArgumentError):  # shapes differ
+        fa.fused_attention(q, k[:, :1], v, bias)
+    with pytest.raises(InvalidArgumentError):  # bias of another shape
+        fa.fused_attention(q, k, v, bias[:, :8])
+    with pytest.raises(InvalidArgumentError):  # d_out of another dtype
+        fa.attention_grads(q, k, v, bias, q.bfloat16())
+    assert counts == (fa.fused_attention.launches,
+                      fa.attention_grads.launches_dq)
+
+
+def test_mha_classifier_trains_saves_and_serves_on_the_card(dev, tmp_path):
+    """The ERNIE-layout classifier at BertConfig.tiny() widths: a training
+    step on the card against the CPU, io.save/io.load bit for bit, and
+    the exported model answered by the predictor on the card against the
+    CPU predictor."""
+    from paddle_tpu_torch import inference, io
+    from torch_mha_classifier import build_mha_classifier, mha_feed
+
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    with fluid.unique_name.guard():
+        main, startup, loss, prob = build_mha_classifier(
+            fluid, layers, cfg, -1, 64, False)
+        with fluid.program_guard(main, startup):
+            _, pg = Adam(1e-3).minimize(loss, startup)
+    main.random_seed = startup.random_seed = 3
+    feed = mha_feed(cfg, 4, 64, 0)
+    fetch = [loss] + [g for _, g in pg]
+    exe, gscope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=gscope)
+    cscope = fluid.Scope()
+    convert.state_from_numpy(convert.state_to_numpy(gscope), cscope,
+                             fluid.CPUPlace(), program=main)
+    before = (fa.fused_attention.launches, fa.attention_grads.launches_dq)
+    gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+    assert (fa.fused_attention.launches - before[0],
+            fa.attention_grads.launches_dq - before[1]) == (2, 2)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(main.clone(), feed=feed,
+                                               fetch_list=fetch, scope=cscope)
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-5)
+    for g, c in zip(gpu[1:], cpu[1:]):
+        np.testing.assert_allclose(g, c, rtol=1e-3, atol=1e-5)
+
+    path = str(tmp_path / "ernie")
+    with fluid.scope_guard(gscope):
+        io.save(main, path)
+    loaded = fluid.Scope()
+    with fluid.scope_guard(loaded):
+        io.load(main, path, executor=exe)
+    assert all(loaded.find_var(n).is_cuda
+               and torch.equal(loaded.find_var(n), gscope.find_var(n))
+               for n in loaded.local_var_names())
+    model = str(tmp_path / "model")
+    with fluid.scope_guard(gscope):
+        io.save_inference_model(model, ["ids", "types", "mask"], [prob],
+                                exe, main_program=main)
+    inputs = [feed[k][:3] for k in ("ids", "types", "mask")]
+    answers = []
+    for place in (None, fluid.CPUPlace()):
+        config = inference.AnalysisConfig(model, place=place)
+        config.set_batch_buckets([4])
+        answers.append(inference.create_paddle_predictor(config).run(
+            inputs)[0].as_ndarray())
+    assert answers[0].shape == (3, 2)
+    np.testing.assert_allclose(answers[0], answers[1], atol=1e-5)

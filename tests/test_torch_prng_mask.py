@@ -123,6 +123,6 @@ def test_editing_a_header_rebuilds_the_libraries_that_include_it(tmp_path):
     header = csrc / "philox.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
-    for name in ("flash_attention_qkv", "fused_dropout_add_ln"):
+    for name in ("flash_attention", "fused_dropout_add_ln"):
         assert after[name] != before[name]  # both include philox.cuh
     assert after["sum_partials"] == before["sum_partials"]
