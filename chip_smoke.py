@@ -90,11 +90,32 @@ Phases, each fatal on failure:
    6 and 8 at S=512 against a direct Executor.run of the predictor's
    program, #5 12 times a predicted batch, the bf16 program's attention on
    bf16 q, k, v, run_zero_copy, latency by bucket;
-15. kernel times: each kernel beside its plain version, its bound and one
+15. sequence parallelism, kernels (run after phase 3's parity): the ring
+   blocks #12-#14 against their plain versions at runtime causal offsets
+   (row0, col0), causal and not, fp32 and bf16 inputs, rows that see no
+   key (o = 0, lse = -1e30 exactly), the backward added into
+   accumulators; the port's ring forward and backward (ring_fwd_steps,
+   ring_bwd_steps) for n=4 shards in one process over an in-process
+   exchange (drive_lockstep), against dense attention, each kernel
+   launched once per live shard (1 + 2 + 3 + 4); the attention shapes the
+   4-D op takes only routed: S > 1024 on #7-#9 (4-D views), D=48 on
+   heads zero-padded to 64, fp16 on the plain version with no launch;
+16. SP training path: __graft_entry__.py's sp_ring leg (build_sp_leg: fc
+   projections, causal ring or Ulysses attention over "sp", the global
+   loss through mp_allreduce_sum, SGD, c_allreduce_sum on every gradient)
+   at x [1, 12, 8192, 64] fp32 on a 1-rank NCCL "sp" mesh, ring and
+   Ulysses: 3 warm-up and 5 timed steps, one profiled, one timed by op
+   type; every loss finite, every weight moved; #12 twice, #13 and #14
+   once a step, nothing else of ours; then the same program at S=1024,
+   two steps on the card (NCCL) and on the CPU (a 1-rank gloo mesh) from
+   one state, under phase 5's tolerances;
+17. kernel times: each kernel beside its plain version, its bound and one
    PyTorch call, at the serving, the BERT training and the GPT shapes,
    #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32 line
-   printed beside), and #5/#6 at the ERNIE-layout path's shapes (#5 also
-   at the predictor's bucket 8, test mode).
+   printed beside), #5/#6 at the ERNIE-layout path's shapes (#5 also at
+   the predictor's bucket 8, test mode), and #12-#14 at the SP path's
+   [1, 12, 8192, 64] fp32, causal (scaled_dot_product_attention causal
+   as the yardstick).
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -111,6 +132,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -209,9 +231,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def counters(fa, fr, sp, ft, lnk):
+def counters(fa, fr, sp, ft, lnk, rb):
     """{kernel: (wrapper, attribute)} of every launch counter."""
     return {
+        "ring_fwd": (rb.ring_block_fwd, "launches"),
+        "ring_bwd_dq": (rb.ring_block_bwd, "launches_dq"),
+        "ring_bwd_dkv": (rb.ring_block_bwd, "launches_dkv"),
         "layer_norm_fwd": (lnk.layer_norm_fwd, "launches"),
         "layer_norm_bwd": (lnk.layer_norm_bwd, "launches"),
         "attention_fwd": (fa.fused_attention_qkv, "launches"),
@@ -1029,6 +1054,9 @@ KINDS = (
     ("tiled attention forward (ours)", ("tiled_fwd_kernel",)),
     ("tiled attention backward (ours)", ("tiled_dq_kernel",
                                          "tiled_dkv_kernel")),
+    ("ring block forward (ours)", ("ring_fwd_kernel",)),
+    ("ring block backward (ours)", ("ring_dq_kernel", "ring_dkv_kernel")),
+    ("NCCL collectives", ("nccl",)),
     ("layer_norm fwd/bwd (ours)", ("ln_row_fwd_kernel",
                                    "ln_row_bwd_kernel")),
     ("residual fwd/bwd + sum_partials (ours)",
@@ -2470,6 +2498,511 @@ def mha_kernel_times(fa, err, train_n, pred_n):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: #12-#14, the ring schedule, routed attention, the
+# SP training path
+# ---------------------------------------------------------------------------
+
+# the SP path: __graft_entry__.py's sp_ring leg at GPT-small's attention
+# width and bench.py's longest GPT context (gpt_s8192, B=1)
+SP_B, SP_H, SP_S, SP_D = 1, 12, 8192, 64
+SP_SMALL_S = 1024  # reduced depth: card vs CPU
+SP_LR = 0.1
+# (row0, col0) of the ring-block parity cases: the diagonal shard; key
+# shards wholly before and wholly after the query shard (every row
+# masked); straddling ones with wholly masked rows; tile-aligned offsets
+RING_OFFSETS = ((0, 0), (512, 0), (0, 512), (40, 100), (100, 40), (64, 64),
+                (1024, 960))
+# the in-process ring schedule: n shards of S_local rows
+RING_N, RING_S_LOCAL = 4, 512
+# ring schedule against dense attention, fp32, different algorithms: out
+# 2e-5 and gradients 2e-4 (the JAX package's own bounds,
+# tests/test_longcontext.py)
+RING_TOL = (2e-5, 2e-4)
+
+
+def ring_inputs(B, H, Sq, Sk, D, dtype, seed):
+    """q [B, H, Sq, D] and k, v [B, H, Sk, D] as strided head-split views
+    of packed projections, and dO."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    kv = torch.randn(B, Sk, 2, H, D, generator=g, device="cuda").to(dtype)
+    do = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dtype)
+    return (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+            kv[:, :, 1].transpose(1, 2), do)
+
+
+def ring_parity(rb):
+    """#12-#14 against their plain versions on the card at runtime causal
+    offsets, causal and not, fp32 and bf16 inputs (fp32 outputs on both
+    sides: fp32 tolerances), Sq != Sk and neither a multiple of the tile;
+    rows that see no key give o = 0 and lse = -1e30 exactly; the backward
+    adds into accumulators that already hold values."""
+    print("== parity, ring blocks: #12-#14 vs plain version on the card, "
+          f"offsets {list(RING_OFFSETS)}")
+    worst = dict(o=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
+    masked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (32, 64, 128):
+            for causal in (False, True):
+                q, k, v, do = ring_inputs(2, 3, 200, 130, D, dtype, D)
+                g = torch.Generator(device="cuda").manual_seed(1)
+                acc = [torch.randn(t.shape, generator=g, device="cuda")
+                       for t in (q, k, v)]
+                for row0, col0 in RING_OFFSETS:
+                    args = (row0, col0, causal, 1 / math.sqrt(D))
+                    o, lse = rb.ring_block_fwd(q, k, v, *args)
+                    o_p, lse_p = rb.shard_fwd_ref(q, k, v, *args)
+                    torch.cuda.synchronize()
+                    check(o.dtype == lse.dtype == torch.float32,
+                          "ring_block_fwd's outputs are not fp32")
+                    dead = lse_p == rb.NEG_INF
+                    check(torch.equal(lse[dead], lse_p[dead])
+                          and not o[dead].any(),
+                          "a row that sees no key is not o=0, lse=-1e30")
+                    masked += int(dead.sum())
+                    tag = f"{str(dtype)[6:]} D={D} causal={causal} " \
+                          f"offsets ({row0}, {col0})"
+                    worst["o"] = max(worst["o"], quiet_compare(
+                        o, o_p, "attention", tag + " o"))
+                    worst["lse"] = max(worst["lse"], quiet_compare(
+                        lse, lse_p, "lse", tag + " lse"))
+                    glse = torch.where(dead, torch.zeros_like(lse), lse)
+                    delta = (do.float() * o).sum(-1)
+                    got = rb.ring_block_bwd(q, k, v, do, glse, delta, *args,
+                                            *[a.clone() for a in acc])
+                    want = rb.add_shard_bwd_ref(q, k, v, do, glse, delta,
+                                                *args,
+                                                *[a.clone() for a in acc])
+                    for n, a, w in zip(("dq", "dk", "dv"), got, want):
+                        worst[n] = max(worst[n], quiet_compare(
+                            a, w, "attention_bwd", f"{tag} {n}"))
+    print(f"ring blocks: {len(RING_OFFSETS) * 12} cases, {masked} rows that "
+          "see no key; max_abs_err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (atol {TOL['attention'][torch.float32][0]:g} fwd, "
+          f"{TOL['lse'][torch.float32][0]:g} lse, "
+          f"{TOL['attention_bwd'][torch.float32][0]:g} bwd)")
+    return worst
+
+
+def quiet_compare(got, want, kernel, what):
+    """compare() of fp32 outputs without its line: the max abs error,
+    failing beyond the kernel's fp32 tolerance."""
+    got, want = got.float(), want.float()
+    atol, rtol = TOL[kernel][torch.float32]
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= atol + rtol * want.abs()).all())
+    check(ok, f"{what}: the kernel disagrees with its plain version "
+          f"(max_abs_err {diff.max().item():.3e})")
+    return diff.max().item()
+
+
+def drive_lockstep(gens):
+    """Run the ring generators of n ranks in one process: each ("post",
+    tensors) is kept for the left neighbour and answered with its
+    sequence number; each ("wait", i) gets copies of the right
+    neighbour's post i once it exists, as GroupExchange receives them.
+    Returns each rank's result."""
+    n = len(gens)
+    posts = [[] for _ in range(n)]
+    reqs = [next(g) for g in gens]
+    results, done = [None] * n, [False] * n
+    while not all(done):
+        progressed = False
+        for r, g in enumerate(gens):
+            if done[r]:
+                continue
+            kind, arg = reqs[r]
+            if kind == "post":
+                posts[r].append(tuple(arg))
+                answer = len(posts[r]) - 1
+            else:
+                src = posts[(r + 1) % n]
+                if arg >= len(src):
+                    continue  # the right neighbour has not posted it yet
+                answer = [t.clone() for t in src[arg]]
+            progressed = True
+            try:
+                reqs[r] = g.send(answer)
+            except StopIteration as stop:
+                results[r], done[r] = stop.value, True
+        check(progressed, "the ring schedule deadlocked")
+    return results
+
+
+def ring_schedule(rb, kc):
+    """The port's ring forward and backward (parallel/ring_attention.py
+    ring_fwd_steps / ring_bwd_steps) for RING_N shards of one sequence in
+    one process, over drive_lockstep's exchange: the merged output and
+    dq, dk, dv against dense causal attention and its autograd gradients
+    (fp32), and each kernel launched once per live shard, 1 + 2 + ... + n
+    under the causal mask (n(n+1)/2), the global offsets of every pair
+    nonzero but the diagonal's."""
+    from paddle_tpu_torch.parallel import ring_attention as ra
+
+    n, sl = RING_N, RING_S_LOCAL
+    B, H, D = 1, SP_H, SP_D
+    print(f"== ring schedule: n={n} shards of {sl} rows in one process "
+          f"(B={B}, H={H}, S={n * sl}, D={D}, causal, fp32) vs dense")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn(B, H, n * sl, D, generator=g, device="cuda")
+                   for _ in range(4))
+    scale = 1 / math.sqrt(D)
+    shards = [t.split(sl, dim=2) for t in (q, k, v, do)]
+    reset_counts(kc)
+    fwd = drive_lockstep([ra.ring_fwd_steps(shards[0][i], shards[1][i],
+                                            shards[2][i], i, n, True, scale)
+                          for i in range(n)])
+    out = torch.cat([o for o, _ in fwd], 2)
+    bwd = drive_lockstep([ra.ring_bwd_steps(
+        shards[0][i], shards[1][i], shards[2][i], shards[3][i], fwd[i][0],
+        fwd[i][1], i, n, True, scale) for i in range(n)])
+    counts = read_counts(kc)
+    live = n * (n + 1) // 2
+    want = dict.fromkeys(kc, 0)
+    want.update(ring_fwd=live, ring_bwd_dq=live, ring_bwd_dkv=live)
+    check(counts == want, f"ring schedule launched {counts}, want {want}")
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    dense = ra._attention_fallback(qg, kg, vg, True, scale)
+    grads = torch.autograd.grad(dense, (qg, kg, vg), do)
+    errs = [(out - dense).abs().max().item()]
+    errs += [(torch.cat([b[j] for b in bwd], 2) - gr).abs().max().item()
+             for j, gr in enumerate(grads)]
+    print(f"launches {counts['ring_fwd']} / {counts['ring_bwd_dq']} / "
+          f"{counts['ring_bwd_dkv']} (#12 / #13 / #14; {live} live shards); "
+          f"max_abs_err vs dense: out {errs[0]:.3e}, dq {errs[1]:.3e}, "
+          f"dk {errs[2]:.3e}, dv {errs[3]:.3e} (atol {RING_TOL[0]:g}, "
+          f"{RING_TOL[1]:g})")
+    check(errs[0] <= RING_TOL[0] and max(errs[1:]) <= RING_TOL[1],
+          "the ring schedule disagrees with dense attention")
+    return errs
+
+
+def routed_attention(fa, ft, kc):
+    """The shapes the 4-D and packed attention take only routed: past
+    S=1024 #7-#9 on the 4-D views (#7 twice: the 4-D backward runs the
+    forward again for its lse), D=48 #5/#6 or #7-#9 on heads zero-padded
+    to 64, in fp32 and bf16; fp16 the plain version and no kernel of ours.
+    Each in test mode and with training dropout (the seed words
+    MASK_SEED), causal with the key bias: forward and backward (dbias
+    through sum_partials) against the plain versions. The tiled plain
+    backward takes the kernel's output, as the kernels' backward does (in
+    bf16 a plain output one rounding apart moves rowsum(dO * out), and a
+    few gradients by one bf16 step past rtol 2^-7; tiled_parity holds
+    #8/#9 the same way). Then the cost of what the routes add: the
+    zero-padding copies, and the extra #7 of a 4-D backward past S=1024."""
+    print("== routed attention: S=1152 and 2048 (#7-#9 on 4-D views), D=48 "
+          "(#5/#6 or #7-#9 on heads zero-padded to 64), fp32 and bf16, "
+          "fp16 (plain) on the card; test mode and training dropout")
+    f32, bf16 = torch.float32, torch.bfloat16
+    tiled = dict(tiled_fwd=2, tiled_bwd_dq=1, tiled_bwd_dkv=1,
+                 sum_partials=1)
+    whole = dict(mha_fwd=1, mha_bwd_dq=1, mha_bwd_dkv=1, sum_partials=1)
+    cases = (
+        ("S=1152 D=64 fp32", 1152, 64, f32, tiled),
+        ("S=1152 D=64 bf16", 1152, 64, bf16, tiled),
+        ("S=200 D=48 fp32", 200, 48, f32, whole),
+        ("S=200 D=48 bf16", 200, 48, bf16, whole),
+        ("S=2048 D=48 fp32", 2048, 48, f32, tiled),
+        ("S=2048 D=48 bf16", 2048, 48, bf16, tiled),
+        ("S=256 D=64 fp16", 256, 64, torch.float16, {}),
+    )
+    errs = {}
+    for name, S, D, dtype, launches in cases:
+        B, H = 2, 3
+        g = torch.Generator(device="cuda").manual_seed(S + D)
+        q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                       .to(dtype) for _ in range(4))
+        bias = torch.zeros(B, S, device="cuda")
+        bias[1, S - S // 5:] = -1e4
+        for training in (False, True):
+            tag = f"{name} {'training' if training else 'test mode'}"
+            seed = MASK_SEED if training else None
+            kw = dict(scale=1 / math.sqrt(D), causal=True,
+                      dropout_rate=TRAIN_RATE, is_test=not training,
+                      seed=seed)
+            reset_counts(kc)
+            out = fa.fused_attention(q, k, v, bias, **kw)
+            grads = fa.attention_grads(q, k, v, bias, do, **kw)
+            counts = read_counts(kc)
+            want = dict.fromkeys(kc, 0)
+            want.update(launches)
+            check(counts == want, f"{tag}: launched {counts}, want {want}")
+            if launches is tiled:  # the tiled plain versions (#7-#9's)
+                tkw = dict(scale=kw["scale"], rate=TRAIN_RATE,
+                           is_test=not training, causal=True)
+                ref, lse = ft.reference_fwd4(q, k, v, bias, seed, **tkw)
+                gref = ft.reference_bwd4(q, k, v, bias, seed, do, out, lse,
+                                         **tkw)
+            else:
+                ref = fa.reference(q, k, v, bias, **kw)
+                gref = fa.reference_bwd(q, k, v, bias, do, **kw)
+            # fp16: the plain version on both sides (bf16's tolerance
+            # bounds it, a fortiori)
+            tol = dtype if dtype != torch.float16 else bf16
+            e = [compare(out, ref, "attention", tol, f"{tag} out")]
+            e += [compare(a, w, "attention_bwd", tol, f"{tag} {n}")
+                  for n, a, w in zip(("dq", "dk", "dv"), grads, gref)]
+            compare(grads[3], gref[3], "attention_bwd", f32, f"{tag} dbias")
+            errs[tag] = max(e)
+            if launches is tiled and dtype == bf16:
+                # what the plain backward gives from the plain output
+                # instead: a measurement, not a check
+                own = ft.reference_bwd4(q, k, v, bias, seed, do, ref, lse,
+                                        **tkw)
+                atol, rtol = TOL["attention_bwd"][bf16]
+                over = sum(int(((a.float() - w.float()).abs() >
+                                atol + rtol * w.float().abs()).sum())
+                           for a, w in zip(grads[:3], own[:3]))
+                print(f"{tag}: kernel and plain outputs differ in "
+                      f"{int((out != ref).sum())} of {out.numel()} elements; "
+                      f"the plain backward from the plain output puts "
+                      f"{over} of {3 * q.numel()} gradient elements past "
+                      f"the tolerance")
+    # the cost of zero-padding: D=48 padded to 64 against D=64 at the
+    # ERNIE-layout path's B=32, S=512, H=12 (the kernels do the same work)
+    t = {}
+    for D in (48, 64):
+        q, k, v = (torch.randn(32, 12, 512, D, device="cuda")
+                   for _ in range(3))
+        t[D] = cuda_ms(lambda: fa.fused_attention(q, k, v), iters=10, reps=5)
+    print(f"zero-padded heads: #5 at D=48 (padded to 64) {t[48]:.3f} ms "
+          f"against D=64 {t[64]:.3f} ms at B=32, S=512, H=12 fp32: the three "
+          f"pads cost {t[48] - t[64]:.3f} ms (the output is a view)")
+    # the 4-D op saves no lse, so its backward past S=1024 runs #7 again:
+    # at GPT's [4, 12, 2048, 64] causal fp32, the backward against #7
+    q, k, v, do = (torch.randn(GPT_B, 12, GPT_S, 64, device="cuda")
+                   for _ in range(4))
+    t_fwd = cuda_ms(lambda: fa.fused_attention(q, k, v, causal=True),
+                    iters=5, reps=5)
+    t_bwd = cuda_ms(lambda: fa.attention_grads(q, k, v, None, do,
+                                               causal=True, want_dbias=False),
+                    iters=5, reps=5)
+    print(f"4-D backward at [{GPT_B}, 12, {GPT_S}, 64] causal fp32: "
+          f"{t_bwd:.3f} ms, of which the extra #7 (the forward again, for "
+          f"the lse) {t_fwd:.3f} ms ({100 * t_fwd / t_bwd:.1f}%)")
+    return errs
+
+
+def build_sp_leg(fluid, layers, shape, op):
+    """__graft_entry__.py's build_sp_leg through the builder the CPU tests
+    share (tests/torch_sp_worker.py, which imports neither jax nor
+    paddle_tpu): fc projections of x [B, H, S, D] into q, k and v, causal
+    ring or Ulysses attention over "sp", the global loss reduce_sum(square)
+    -> mp_allreduce_sum over sp -> scale by the global element count,
+    SGD(SP_LR), c_allreduce_sum over sp on every gradient."""
+    from paddle_tpu_torch.parallel import insert_grad_allreduce
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_sp_worker import build_sp_leg as build
+
+    return build(fluid, layers, fluid.unique_name, insert_grad_allreduce,
+                 shape, op, SP_LR)
+
+
+def sp_feed(shape, seed):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def sp_small_run(fluid, layers, place, op, state):
+    """Two SGD steps of the reduced-depth SP program (S=SP_SMALL_S) on a
+    1-rank "sp" mesh of `place` from `state`: per step the loss and every
+    gradient, and the state after."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.parallel import make_mesh, shard_program
+
+    shape = (SP_B, SP_H, SP_SMALL_S, SP_D)
+    main, _, loss, pg = build_sp_leg(fluid, layers, shape, op)
+    scope = fluid.Scope()
+    convert.state_from_numpy(state, scope, place, program=main)
+    mesh = make_mesh({"sp": 1}, place=place)
+    try:
+        shard_program(main, mesh, {"x": (None, None, "sp")})
+        exe = fluid.Executor(place)
+        steps = [exe.run(main, feed={"x": sp_feed(shape, i)},
+                         fetch_list=[loss] + [g for _, g in pg], scope=scope)
+                 for i in range(2)]
+    finally:
+        mesh.close()
+    return steps, convert.state_to_numpy(scope), [p.name for p, _ in pg]
+
+
+def sp_small(fluid, layers, op):
+    """The reduced-depth SP program, two SGD steps on a 1-rank NCCL mesh
+    on the card and a 1-rank gloo mesh on the CPU from one state, under
+    phase 5's tolerances: loss, every gradient, each parameter's update."""
+    from paddle_tpu_torch import convert
+
+    print(f"== SP training, reduced depth: {op} at S={SP_SMALL_S} (B={SP_B}, "
+          f"H={SP_H}, D={SP_D}), card (NCCL) vs CPU (gloo), 2 SGD steps")
+    shape = (SP_B, SP_H, SP_SMALL_S, SP_D)
+    _, startup, _, _ = build_sp_leg(fluid, layers, shape, op)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    start = convert.state_to_numpy(scope)
+    card, gend, names = sp_small_run(fluid, layers, fluid.CUDAPlace(0), op,
+                                     start)
+    cpu, cend, _ = sp_small_run(fluid, layers, fluid.CPUPlace(), op, start)
+    tol = FP32_TOL
+    worst = dict(loss=0.0, grad=0.0)
+    grads = {n: [] for n in names}
+    for step, (g, c) in enumerate(zip(card, cpu)):
+        check(np.isfinite(g[0]).all(), f"card loss not finite: {g[0]}")
+        rel = float(np.abs(g[0] - c[0]).max() / np.abs(c[0]).max())
+        worst["loss"] = max(worst["loss"], rel)
+        check(rel <= tol["loss"], f"step {step}: loss {g[0]} vs CPU {c[0]}")
+        for n, gv, cv in zip(names, g[1:], c[1:]):
+            grads[n].append((gv, cv))
+            err, ok = _held(gv, cv, tol["grad"])
+            worst["grad"] = max(worst["grad"], err)
+            check(ok, f"step {step}: {n}@GRAD differs by {err:.3e}")
+    worst_u, exempt, total = check_updates(start, gend, cend, grads, SP_LR,
+                                           *tol["update"])
+    moved = sum(not np.array_equal(start[n], cend[n]) for n in names)
+    check(moved == len(names), f"only {moved} of {len(names)} weights moved")
+    print(f"max error vs CPU: loss {worst['loss']:.2e} relative, @GRAD "
+          f"{worst['grad']:.2e}, updates {worst_u:.2e} of (|update| + lr) "
+          f"({exempt} of {total} exempt); every weight moved")
+    return worst
+
+
+def sp_path(fluid, layers, kc):
+    """build_sp_leg's program at x [1, 12, 8192, 64] fp32 (GPT-small's
+    attention width at bench.py's gpt_s8192 context) on a 1-rank NCCL "sp"
+    mesh, ring and Ulysses: 3 warm-up and 5 timed SGD steps, one profiled,
+    one timed by op type; every loss finite, every weight moved by the
+    first step; each step launches #12 twice (forward, and the grad op's
+    forward again), #13 and #14 once, and no other kernel of ours; the
+    mp_allreduce_sum and c_allreduce_sum ops through NCCL. Then the
+    reduced-depth program card vs CPU. Returns {op: launch counts}."""
+    from paddle_tpu_torch.parallel import make_mesh, shard_program
+
+    shape = (SP_B, SP_H, SP_S, SP_D)
+    out = {}
+    mesh = make_mesh({"sp": 1})  # the default place: the card, NCCL
+    try:
+        for op in ("ring_attention", "ulysses_attention"):
+            print(f"== SP training path: build_sp_leg with {op} at x "
+                  f"{list(shape)} fp32, 1-rank NCCL sp mesh, SGD({SP_LR})")
+            main, startup, loss, pg = build_sp_leg(fluid, layers, shape, op)
+            shard_program(main, mesh, {"x": (None, None, "sp")})
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            names = [p.name for p, _ in pg]
+            snap = {n: scope.find_var(n).clone() for n in names}
+            batches = [{"x": torch.from_numpy(sp_feed(shape, i)).cuda()}
+                       for i in range(2)]
+            expect = dict.fromkeys(kc, 0)
+            expect.update(ring_fwd=2, ring_bwd_dq=1, ring_bwd_dkv=1)
+
+            def after(i, values, scope=scope, snap=snap, names=names):
+                if i == 0:
+                    moved = [n for n in names
+                             if not torch.equal(scope.find_var(n), snap[n])]
+                    check(len(moved) == len(names),
+                          f"step 0 moved only {moved}")
+
+            _, stats = run_steps(exe, main, scope, batches, [loss],
+                                 ("loss",), kc, expect, SP_B * SP_S, after)
+            out[op] = read_counts(kc)
+            stats["ops"] = len(main.global_block.ops)
+            print(f"{op} training: " + json.dumps(stats))
+            del exe, scope, batches, snap
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    for op in ("ring_attention", "ulysses_attention"):
+        sp_small(fluid, layers, op)
+    return out
+
+
+def ring_kernel_times(rb, sp_n):
+    """#12, #13 and #14 at the SP path's shape: B=1, H=12, S=8192, D=64,
+    fp32, causal, offsets (0, 0). Bounds: each input read once and each
+    output written once (the accumulators read and written) over 3.35
+    TB/s, and 4*D operations a live pair for each kernel (the forward's
+    q k^T and p v; the backward's 8*D split between the two) over 67
+    TFLOP/s fp32. #13 and #14 timed apart by CUDA events around each
+    launch (launch_ms). Library: scaled_dot_product_attention, causal, on
+    the same tensors (its backward through autograd for #13 and #14)."""
+    import torch.nn.functional as F
+
+    B, H, S, D = SP_B, SP_H, SP_S, SP_D
+    print(f"== kernel times, ring blocks (B={B}, H={H}, S={S}, D={D}, fp32, "
+          "causal, offsets (0, 0))")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                   for _ in range(4))
+    scale, es = 1 / math.sqrt(D), 4
+    pairs = B * H * live_pairs(S, True)
+    head = B * H * S * D * es
+    stats = B * H * S * 4
+    o, lse = rb.ring_block_fwd(q, k, v, 0, 0, True, scale)
+    o_p, lse_p = rb.shard_fwd_ref(q, k, v, 0, 0, True, scale)
+    err_f = max(compare(o, o_p, "attention", torch.float32, "#12 o"),
+                compare(lse, lse_p, "lse", torch.float32, "#12 lse"))
+    delta = (do * o).sum(-1)
+    zeros = [torch.zeros(B, H, S, D, device="cuda") for _ in range(3)]
+    dq, dk, dv = rb.ring_block_bwd(q, k, v, do, lse, delta, 0, 0, True, scale,
+                                   *[z.clone() for z in zeros])
+    dq_p = rb.shard_dq_ref(q, k, v, do, lse, delta, 0, 0, True, scale)
+    dk_p, dv_p = rb.shard_dkv_ref(q, k, v, do, lse, delta, 0, 0, True, scale)
+    err_q = compare(dq, dq_p, "attention_bwd", torch.float32, "#13 dq")
+    err_kv = max(compare(dk, dk_p, "attention_bwd", torch.float32, "#14 dk"),
+                 compare(dv, dv_p, "attention_bwd", torch.float32, "#14 dv"))
+
+    t12 = cuda_ms(lambda: rb.ring_block_fwd(q, k, v, 0, 0, True, scale),
+                  iters=10, reps=5)
+    p12 = cuda_ms(lambda: rb.shard_fwd_ref(q, k, v, 0, 0, True, scale),
+                  iters=2, reps=3)
+    l12 = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), iters=10, reps=5)
+    b12 = bound(4 * head + stats, 4 * D * pairs, torch.float32)
+    t = launch_ms(lambda: rb.ring_block_bwd(q, k, v, do, lse, delta, 0, 0,
+                                            True, scale, *zeros),
+                  (("ring_block", "ring_block_bwd_dq"),
+                   ("ring_block", "ring_block_bwd_dkv")), iters=5, reps=3)
+    p13 = cuda_ms(lambda: rb.shard_dq_ref(q, k, v, do, lse, delta, 0, 0,
+                                          True, scale), iters=2, reps=3)
+    p14 = cuda_ms(lambda: rb.shard_dkv_ref(q, k, v, do, lse, delta, 0, 0,
+                                           True, scale), iters=2, reps=3)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    sd = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        scale=scale)
+    l_bwd = cuda_ms(lambda: torch.autograd.grad(sd, (qg, kg, vg), do,
+                                                retain_graph=True),
+                    iters=10, reps=5)
+    # dq: q, k, v, dO, lse, delta read, dq read and written; dk, dv: the
+    # same inputs, dk and dv read and written
+    b13 = bound(6 * head + 2 * stats, 4 * D * pairs, torch.float32)
+    b14 = bound(8 * head + 2 * stats, 4 * D * pairs, torch.float32)
+    t13, t14 = t["ring_block_bwd_dq"], t["ring_block_bwd_dkv"]
+    print(f"#12 fwd: kernel {t12:.3f} ms, plain {p12:.3f} ms, sdpa causal "
+          f"{l12:.3f} ms, bound {b12[0]:.3f} ms ({b12[1]})")
+    print(f"#13 dq: kernel {t13:.3f} ms, plain {p13:.3f} ms, bound "
+          f"{b13[0]:.3f} ms ({b13[1]}); #14 dkv: kernel {t14:.3f} ms, plain "
+          f"{p14:.3f} ms, bound {b14[0]:.3f} ms ({b14[1]}); sdpa causal "
+          f"backward {l_bwd:.3f} ms")
+    rows = []
+    for path, op in (("sp_training", "ring_attention"),
+                     ("ulysses_training", "ulysses_attention")):
+        n = sp_n[op]
+        rows.append(row("ring_fwd", path, "ring_block.cu",
+                        "paddle_tpu/kernels/ring_block.py:85",
+                        n["ring_fwd"], err_f, t12, p12, b12, l12))
+        rows.append(row("ring_dq", path, "ring_block.cu",
+                        "paddle_tpu/kernels/ring_block.py:199",
+                        n["ring_bwd_dq"], err_q, t13, p13, b13, l_bwd))
+        rows.append(row("ring_dkv", path, "ring_block.cu",
+                        "paddle_tpu/kernels/ring_block.py:234",
+                        n["ring_bwd_dkv"], err_kv, t14, p14, b14, l_bwd))
+    del q, k, v, do, o, o_p, qg, kg, vg, sd, zeros
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2482,6 +3015,7 @@ def main():
     from paddle_tpu_torch.kernels import fused_residual as fr
     from paddle_tpu_torch.kernels import layer_norm as lnk
     from paddle_tpu_torch.kernels import prng_mask as pm
+    from paddle_tpu_torch.kernels import ring_block as rb
     from paddle_tpu_torch.kernels import sum_partials as sp
 
     gpu = gpu_line()
@@ -2498,12 +3032,15 @@ def main():
         for kernel, regs, spill in ptxas_usage(ptxas):
             print(f"  {name}: {kernel} {regs} registers, {spill}")
 
-    kc = counters(fa, fr, sp, ft, lnk)
+    kc = counters(fa, fr, sp, ft, lnk, rb)
     main_err = parity(fa, fr)
     train_err = train_parity(fa, fr, pm)
     tiled_err = tiled_parity(ft)
     ln_err = ln_parity(lnk)
     mha_err = mha_parity(fa)
+    ring_parity(rb)
+    ring_schedule(rb, kc)
+    routed_attention(fa, ft, kc)
     frozen, exe, scope, samples, serve_n = main_path(fluid, layers, kc)
     serve_times(frozen, exe, scope, samples)
     del frozen, exe, scope
@@ -2519,11 +3056,13 @@ def main():
     gpt_ln_n, _ = gpt_train_full(fluid, kc, amp=True, ln_kernels=True)
     mha_train_small(fluid, layers)
     mha_train_n, mha_pred_n, _ = mha_path(fluid, layers, kc)
+    sp_n = sp_path(fluid, layers, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n)
     rows += ln_kernel_times(lnk, ln_err, gpt_ln_n)
     rows += mha_kernel_times(fa, mha_err, mha_train_n, mha_pred_n)
+    rows += ring_kernel_times(rb, sp_n)
 
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -10,7 +10,7 @@ Entry points run on the card (`CUDAPlace(0)`) unless the caller passes
 """
 
 from . import ops  # noqa: F401  (registers every op emitter)
-from . import contrib, initializer, layers, optimizer  # noqa: F401
+from . import contrib, initializer, layers, optimizer, parallel  # noqa: F401
 from . import inference, io  # noqa: F401
 from .core import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework import (  # noqa: F401

@@ -6,7 +6,8 @@ The transform walks a block's ops in reverse from the loss, appends one
 grad op per differentiable op, sums the gradients of a variable that
 several ops read (a `sum` op), and returns (param, grad) pairs for the
 optimizer. Ops whose backward is a hand-written kernel register a
-grad_maker that appends a dedicated grad op (ops/fused.py); every other
+grad_maker that appends a dedicated grad op (dedicated_grad_maker,
+used by ops/fused.py); every other
 op gets the generic `__vjp__` op, which replays the forward emitter under
 `torch.func.vjp` and pulls the output gradients back through it. The
 replay runs under the forward op's attrs and uid, so a dropout op draws
@@ -89,6 +90,54 @@ def _ensure_var(block, name, like_name):
         src = block.var(like_name)
         block.create_var(name=name, shape=src.shape, dtype=src.dtype)
     return block.var(name)
+
+
+def append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
+                   slots):
+    """Append the dedicated grad op `grad_type` of `op` with `inputs` and
+    an `<slot>Grad` output for each input slot in `slots` whose variable
+    needs a gradient. The grad op keeps the forward's attrs but its uid,
+    which becomes `__fwd_uid__` (a dropout mask regenerates from it)."""
+    outs = {}
+    for slot in slots:
+        if not op.inputs.get(slot):
+            continue
+        n = op.inputs[slot][0]
+        if needs_grad is not None and n not in needs_grad:
+            continue
+        gname = unique_name.generate(grad_var_name(n) + "@RENAME")
+        _ensure_var(block, gname, n)
+        outs[slot + "Grad"] = [gname]
+        contribs.setdefault(n, []).append(gname)
+    if not outs:
+        return
+    attrs = {k: v for k, v in op.attrs.items() if k not in ("__uid__",
+                                                            "__loc__")}
+    attrs["__fwd_uid__"] = op.uid
+    block.append_op(grad_type, inputs, outs, attrs)
+
+
+def dedicated_grad_maker(grad_type, slots, optional=(), saved=None):
+    """The grad_maker of an op whose backward is the op `grad_type`: it
+    reads the op's inputs in `slots`, the gradient of its Out as
+    `OutGrad`, those of the `optional` slots the op has, and
+    `saved(op, block)`, a dict of forward outputs to read as well; it
+    gives a gradient for each of those slots that needs one."""
+
+    def maker(op, block, contribs, finalize, needs_grad=None):
+        g_out = finalize(op.outputs["Out"][0])
+        if g_out is None:
+            return
+        inputs = {slot: op.inputs[slot] for slot in slots}
+        inputs["OutGrad"] = [g_out]
+        inputs.update((slot, op.inputs[slot]) for slot in optional
+                      if op.inputs.get(slot))
+        if saved is not None:
+            inputs.update(saved(op, block))
+        append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
+                       tuple(slots) + tuple(optional))
+
+    return maker
 
 
 def append_backward(loss, parameter_list=None, no_grad_set=None):

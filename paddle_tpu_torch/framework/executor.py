@@ -12,6 +12,14 @@ with the block analysis cached per (program, program version, feed
 shapes, fetch set), as the JAX package caches its jitted executables.
 Mutated persistables (initializer outputs, optimizer updates) are written
 back to the scope after the run.
+
+A program with a mesh (parallel/spmd.py shard_program) runs SPMD: every
+rank runs the block on its shard, as the JAX package's shard_map does on
+every device. A feed or scope value whose variable has a sharding spec
+is the global value, and the rank takes its slice; a sharded fetch or
+written-back value is all-gathered into the global value on every rank;
+replicated ones pass as they are. The collective ops run over the
+mesh's process groups (EmitContext.mesh).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from ..core.place import default_place
 from ..errors import NotFoundError, PreconditionNotMetError
+from ..parallel.spmd import gather_global, local_slice, spec_for
 from .program import Variable, default_main_program
 from .registry import EmitContext, run_op
 from .scope import global_scope
@@ -93,6 +102,13 @@ class Executor:
 
         env = {n: self._from_scope(scope, n, block) for n in from_scope}
         env.update(feeds)
+        mesh = program._mesh
+        if mesh is not None:
+            self._check_mesh(mesh)
+            for n in env:
+                sp = spec_for(program, n)
+                if sp:
+                    env[n] = local_slice(mesh, env[n], sp, n)
         # seed 0 = nondeterministic (fluid semantics): use the program's
         # own nonce. The run counter advances every call.
         seed = program.random_seed or program._rng_nonce
@@ -102,7 +118,7 @@ class Executor:
             self.device, seed=seed, step=step,
             # frozen serving programs run in test mode even where an op
             # missed its is_test flip
-            is_test=program._is_inference,
+            is_test=program._is_inference, mesh=mesh,
         )
         with torch.no_grad():
             for i, op in enumerate(block.ops):
@@ -112,6 +128,12 @@ class Executor:
                     raise NotFoundError(
                         f"op #{i} references undefined variable {e}", op=op
                     ) from None
+        if mesh is not None:
+            # in one order on every rank: each gather is a collective
+            for n in dict.fromkeys(write_back + fetch_names):
+                sp = spec_for(program, n)
+                if sp and n in env:
+                    env[n] = gather_global(mesh, env[n], sp)
         for n in write_back:
             if n in env:
                 scope.set_var(n, env[n])
@@ -119,6 +141,12 @@ class Executor:
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
+
+    def _check_mesh(self, mesh):
+        if mesh.place.torch_device() != self.device:
+            raise PreconditionNotMetError(
+                f"the program's mesh runs on {mesh.place!r}, but this "
+                f"executor runs on {self.device}")
 
     def _to_device(self, name, value):
         t = torch.as_tensor(value)

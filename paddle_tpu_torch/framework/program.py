@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import random as _random
+from types import MappingProxyType
 
 from ..core.dtypes import convert_dtype
 from . import unique_name
@@ -185,6 +186,11 @@ class Block:
 
 
 class Program:
+    # SPMD (parallel/spmd.py shard_program): the mesh and {var: spec};
+    # class-level defaults, so programs read from files have them
+    _mesh = None
+    _sharding = MappingProxyType({})
+
     def __init__(self):
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
@@ -227,7 +233,14 @@ class Program:
     def clone(self, for_test=False):
         """Deep copy. for_test=True flips is_test on the ops that carry it
         (dropout and the fused ops), matching fluid Program.clone."""
-        p = copy.deepcopy(self)
+        # the mesh holds process groups: shared by the clone, never copied
+        mesh, self._mesh = self._mesh, None
+        try:
+            p = copy.deepcopy(self)
+        finally:
+            self._mesh = mesh
+        if mesh is not None:
+            p._mesh = mesh
         if for_test:
             for b in p.blocks:
                 for op in b.ops:

@@ -27,8 +27,10 @@ _META = torch.device("meta")
 
 
 class EmitContext:
-    """Per-run state handed to emitters: the device, the mode flag and
-    the random streams.
+    """Per-run state handed to emitters: the device, the mode flag, the
+    random streams and, under SPMD, the mesh: `mesh_axes` (the axes
+    collectives run over), `axis_sizes`, and per axis this rank's process
+    group (`axis_group`) and coordinate (`axis_index`).
 
     RNG: every Operator owns a stable uid; the stream of op U at run S of
     a program seeded with `seed` is a torch.Generator seeded from
@@ -38,7 +40,8 @@ class EmitContext:
     grad op replays its forward op under the forward's uid, so its
     dropout mask is the forward's."""
 
-    def __init__(self, device, seed=0, step=0, is_test=False, abstract=False):
+    def __init__(self, device, seed=0, step=0, is_test=False, abstract=False,
+                 mesh=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
@@ -46,6 +49,18 @@ class EmitContext:
         # True only in infer_shapes' meta-tensor pass: emitters may then
         # substitute BATCH_SENTINEL for -1 dims; at run time -1 is an error
         self.abstract = abstract
+        # the program's mesh (parallel/mesh.py) under SPMD, else None
+        self.mesh = mesh
+        self.mesh_axes = tuple(mesh.axis_names) if mesh is not None else ()
+        self.axis_sizes = dict(mesh.shape) if mesh is not None else {}
+
+    def axis_group(self, axis):
+        """The process group of mesh axis `axis` this rank belongs to."""
+        return self.mesh.group(axis)
+
+    def axis_index(self, axis):
+        """This rank's coordinate along mesh axis `axis`."""
+        return self.mesh.coordinate(axis)
 
     def _digest(self, op_uid, op_type):
         salt = zlib.crc32(op_type.encode()) & 0x7FFFFFFF

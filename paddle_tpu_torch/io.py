@@ -22,11 +22,14 @@ size estimate preflights the volume's free bytes. Load paths verify the
 whole payload against its manifest before the first scope write and
 raise CheckpointCorruptionError on any mismatch or undecodable file.
 
-Programs are read back through `ProgramUnpickler`, which maps the JAX
-package's IR classes to the port's, translating their pickled fields on
-the way, and refuses every other global of paddle_tpu and all of jax:
-reading a file never imports either. A program that needs what the port
-lacks (a mesh, ZeRO shards) is refused there by name.
+Programs are written by `ProgramPickler` as the JAX package's IR classes
+with its fields, so the JAX package reads the port's `.pdmodel` and
+`__model__` (a program with a mesh is refused by name: its process groups
+cannot be written). They are read back through `ProgramUnpickler`, which
+maps the JAX package's IR classes to the port's, translating their
+pickled fields on the way, and refuses every other global of paddle_tpu
+and all of jax: reading a file never imports either. A program that needs
+what the port lacks (a mesh, ZeRO shards) is refused there by name.
 
 Tensors leave the device as numpy arrays; bfloat16, which numpy lacks,
 is written as float32 (exact) and read back in the dtype the program
@@ -36,6 +39,7 @@ place (the card) when none is given.
 
 from __future__ import annotations
 
+import copyreg
 import errno as _errno
 import json
 import os
@@ -81,6 +85,7 @@ __all__ = [
     "read_persistables",
     "apply_persistables",
     "sweep_stale_tmp",
+    "ProgramPickler",
     "ProgramUnpickler",
 ]
 
@@ -418,6 +423,77 @@ class ProgramUnpickler(pickle.Unpickler):
             "read (only the IR classes and numpy arrays)")
 
 
+# -- writing programs in the JAX package's form ------------------------------
+# The port writes its IR objects as the JAX package's classes
+# (paddle_tpu.framework.program.*) with the JAX package's fields, so the
+# JAX package reads a `.pdmodel` or `__model__` the port wrote: the inverse
+# of the translation above. The C pickler checks that a global it names can
+# be imported, which paddle_tpu (and jax with it) must not be here, so the
+# pure-Python pickler writes those globals itself.
+_JAX_PROGRAM_MODULE = "paddle_tpu.framework.program"
+
+
+class _JaxClass:
+    """Stands for the JAX package's class `name` in a pickle stream."""
+
+    def __init__(self, name):
+        self.name = name
+
+
+_TO_JAX = {cls: _JaxClass(cls.__name__) for cls in _JAX_FIELDS}
+
+
+def _jax_fields(obj):
+    """obj's pickled state in the JAX package's form: the port's fields
+    plus what the JAX package's class carries beside them (at the
+    neutral values the translation drops)."""
+    state = dict(obj.__dict__)
+    if isinstance(obj, Program):
+        if state.get("_mesh") is not None or state.get("_sharding"):
+            raise UnimplementedError(
+                "a program with a mesh (_mesh, _sharding: shard_program) "
+                "holds process groups and cannot be written; save the "
+                "program before shard_program, or a clone without them")
+        state.update(_mesh=None, _sharding={}, _pipeline=None,
+                     _spmd_mode="shard_map")
+    elif isinstance(obj, Variable):
+        state.setdefault("initializer", None)
+        if isinstance(obj, Parameter):
+            state.setdefault("regularizer", None)
+            state.setdefault("need_clip", True)
+    return state
+
+
+class ProgramPickler(pickle._Pickler):
+    """Writes a Program, model meta or checkpoint payload with the port's
+    Program, Block, Operator, Variable and Parameter as the JAX package's
+    (their fields as the JAX package pickles them); everything else as
+    pickle does. A program with a mesh is refused by name."""
+
+    dispatch = dict(pickle._Pickler.dispatch)
+
+    def reducer_override(self, obj):
+        jax_cls = _TO_JAX.get(type(obj))
+        if jax_cls is None:
+            return NotImplemented
+        # object.__new__ of the class, then its state (the JAX package's
+        # Program.__setstate__, or __dict__ for the others)
+        return copyreg._reconstructor, (jax_cls, object, None), \
+            _jax_fields(obj)
+
+    def _save_jax_class(self, obj):
+        self.save(_JAX_PROGRAM_MODULE)
+        self.save(obj.name)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+    dispatch[_JaxClass] = _save_jax_class
+
+
+def _dump(obj, f):
+    ProgramPickler(f, protocol=4).dump(obj)
+
+
 def _unpickle(path, what):
     try:
         with open(path, "rb") as f:
@@ -540,8 +616,7 @@ def save(program, model_path):
     _atomic_write(model_path + ".pdparams",
                   lambda f: pickle.dump(payload, f, protocol=4),
                   estimated_size=est + (1 << 16))
-    _atomic_write(model_path + ".pdmodel",
-                  lambda f: pickle.dump(program, f, protocol=4))
+    _atomic_write(model_path + ".pdmodel", lambda f: _dump(program, f))
     _write_manifest(
         model_path + ".manifest.json", model_path + ".pdparams",
         {**{f"params/{k}": v for k, v in payload["params"].items()},
@@ -630,7 +705,7 @@ def save_inference_model(dirname, feeded_var_names, target_vars,
         "fetch_names": [t.name for t in targets],
     }
     _atomic_write(os.path.join(dirname, model_filename or "__model__"),
-                  lambda f: pickle.dump(meta, f, protocol=4))
+                  lambda f: _dump(meta, f))
     read = {n for op in pruned.global_block.ops for n in op.input_names()}
     arrays = _collect(pruned, global_scope(),
                       lambda v: _is_persistable(v) and v.name in read)

@@ -27,7 +27,7 @@ from ..errors import PreconditionNotMetError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "flash_tiled", "fused_dropout_add_ln",
-           "layer_norm", "sum_partials")
+           "layer_norm", "ring_block", "sum_partials")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

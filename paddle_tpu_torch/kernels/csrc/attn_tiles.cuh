@@ -210,21 +210,30 @@ __device__ __forceinline__ float row_sum4(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Pointers, shapes and strides of one launch (strides in elements; every
-// last dim is contiguous). The bodies below take the pointers again as
-// __restrict__ parameters, as the kernels did before they shared them: the
-// tensors never overlap.
+// Pointers, shapes and strides of one launch of the tiled kernels
+// (strides in elements; every last dim is contiguous). q, k and v are
+// [B, H, S, D] views sharing their (batch, head, row) strides in_*; out
+// (the forward's output, or dq), dk and dv share out_*. The packed
+// projection qkv[B, S, 3*H*D] is the view with k = q + H*D,
+// v = q + 2*H*D, in_sh = D, in_ss = 3*H*D. The bodies below take the
+// pointers again as __restrict__ parameters, as the kernels did before
+// they shared them: the tensors never overlap.
 struct Args {
-  const void* qkv;
+  const void* q;
+  const void* k;
+  const void* v;
   const float* bias;   // may be null: every key kept
   const void* dout;
   const void* fwd_out; // the forward's saved output (#9's delta)
-  void* out;           // forward: out; backward: dqkv
+  void* out;           // forward: out; backward: dq
+  void* dk;
+  void* dv;
   float* lse;          // fp32 [B, H, S]
   float* delta;        // fp32 [B, H, S]
   float* dbias_part;   // fp32 [B, H, S], may be null
   int B, S, H;
-  long long qkv_sb, qkv_ss, do_sb, do_ss, out_sb, out_ss, fo_sb, fo_ss;
+  long long in_sb, in_sh, in_ss, do_sb, do_sh, do_ss, out_sb, out_sh,
+      out_ss, fo_sb, fo_sh, fo_ss;
   float scale;
   int causal;
   Dropout dr;
@@ -428,36 +437,36 @@ __device__ __forceinline__ void dkv_block(
 }
 
 // The tiled kernels' callers of the two bodies (#7 forward, #8 dkv), on
-// the packed layout: head h of batch b at column h*D of row b of qkv, its
-// k and v sections H*D and 2*H*D columns on; the same for out and dqkv.
+// the [B, H, S, D] views of Args: head h of batch b at b*sb + h*sh.
 template <typename T, int D>
-__device__ __forceinline__ void packed_fwd(float* smem, const Args& a,
-                                           float* lse) {
+__device__ __forceinline__ void view_fwd(float* smem, const Args& a,
+                                         float* lse) {
   const int h = blockIdx.y, b = blockIdx.z;
-  const long long HD = (long long)a.H * D;
-  const T* qb = static_cast<const T*>(a.qkv) + (long long)b * a.qkv_sb +
-                (long long)h * D;
-  T* ob = static_cast<T*>(a.out) + (long long)b * a.out_sb + (long long)h * D;
-  fwd_block<T, D>(smem, qb, qb + HD, qb + 2 * HD, a.qkv_ss,
+  const long long in = (long long)b * a.in_sb + (long long)h * a.in_sh;
+  T* ob = static_cast<T*>(a.out) + (long long)b * a.out_sb +
+          (long long)h * a.out_sh;
+  fwd_block<T, D>(smem, static_cast<const T*>(a.q) + in,
+                  static_cast<const T*>(a.k) + in,
+                  static_cast<const T*>(a.v) + in, a.in_ss,
                   a.bias ? a.bias + (long long)b * a.S : nullptr, ob,
                   a.out_ss,
                   lse ? lse + ((long long)b * a.H + h) * a.S : nullptr, a);
 }
 
 template <typename T, int D>
-__device__ __forceinline__ void packed_dkv(float* smem, const Args& a) {
+__device__ __forceinline__ void view_dkv(float* smem, const Args& a) {
   const int h = blockIdx.y, b = blockIdx.z;
-  const long long HD = (long long)a.H * D;
   const long long head = ((long long)b * a.H + h) * a.S;
-  const T* qb = static_cast<const T*>(a.qkv) + (long long)b * a.qkv_sb +
-                (long long)h * D;
-  T* dqb = static_cast<T*>(a.out) + (long long)b * a.out_sb + (long long)h * D;
-  dkv_block<T, D>(smem, qb, qb + HD, qb + 2 * HD, a.qkv_ss,
+  const long long in = (long long)b * a.in_sb + (long long)h * a.in_sh;
+  const long long out = (long long)b * a.out_sb + (long long)h * a.out_sh;
+  dkv_block<T, D>(smem, static_cast<const T*>(a.q) + in,
+                  static_cast<const T*>(a.k) + in,
+                  static_cast<const T*>(a.v) + in, a.in_ss,
                   static_cast<const T*>(a.dout) + (long long)b * a.do_sb +
-                      (long long)h * D,
+                      (long long)h * a.do_sh,
                   a.do_ss, a.bias ? a.bias + (long long)b * a.S : nullptr,
-                  dqb + HD, dqb + 2 * HD, a.out_ss, a.lse + head,
-                  a.delta + head,
+                  static_cast<T*>(a.dk) + out, static_cast<T*>(a.dv) + out,
+                  a.out_ss, a.lse + head, a.delta + head,
                   a.dbias_part ? a.dbias_part + head : nullptr, a);
 }
 

@@ -1,12 +1,15 @@
-// KV-tiled packed-QKV attention with a saved row logsumexp, forward and
-// backward, for Hopper (sm_90a), plain C interface.
+// KV-tiled attention with a saved row logsumexp, forward and backward, for
+// Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels paddle_tpu/kernels/flash_tiled.py: _fwd_kernel
 // (launched by flash_tiled_fwd), _dkv_kernel and _dq_kernel (both
 // launched by flash_tiled_bwd), which carry every attention longer than
 // the whole-row kernel's cap of 1024 (causal GPT at S = 2048). The math is
-// attn_tiles.cuh's, as for flash_attention.cu; what the tiled trio
-// adds is the saved statistics:
+// attn_tiles.cuh's, as for flash_attention.cu, and so is the addressing:
+// q, k and v are [B, H, S, D] views given by their strides, the packed
+// projection qkv[B, S, 3*H*D] (fused_qkv_attention) and separate 4-D
+// tensors (fused_multihead_attention past S = 1024) alike. What the tiled
+// trio adds is the saved statistics:
 //
 //   tiled_fwd: one block per (query tile, head, batch) streams the key
 //     tiles through shared memory with an online softmax and writes, beside
@@ -42,19 +45,21 @@ using namespace attn;
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) tiled_fwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  packed_fwd<T, D>(reinterpret_cast<float*>(smem4), a, a.lse);
+  view_fwd<T, D>(reinterpret_cast<float*>(smem4), a, a.lse);
 }
 
 // ---------------------------------------------------------------------------
 // dq: given each row's lse and delta, one pass over the key tiles
 // recomputes p = exp(s - lse), forms dS = p (dp - delta) (dp = dO v^T,
 // masked and scaled as the forward scaled p) and accumulates
-// dq = scale * dS k into acc. sQ and sDO hold the block's query rows.
+// dq = scale * dS k into acc. sQ and sDO hold the block's query rows; kb
+// and vb point at row 0 of the block's head in k and v.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
 __device__ __forceinline__ void dq_pass(float* acc, float* smem,
-                                        const T* __restrict__ qkv,
+                                        const T* __restrict__ kb,
+                                        const T* __restrict__ vb,
                                         const float* __restrict__ bias,
                                         const Args& a, float lse,
                                         float delta) {
@@ -70,7 +75,7 @@ __device__ __forceinline__ void dq_pass(float* acc, float* smem,
   float* sP = sV + BN * LD;
   unsigned char* sM = reinterpret_cast<unsigned char*>(sP + BM * PLD);
 
-  const int S = a.S, H = a.H;
+  const int S = a.S;
   const int q0 = blockIdx.x * BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -78,9 +83,7 @@ __device__ __forceinline__ void dq_pass(float* acc, float* smem,
   const int r = tid / TPR;
   const int t = tid % TPR;
   const int row = q0 + r;
-  const int HD = H * D;
   const Dropout& dr = a.dr;
-  const T* base = qkv + (long long)b * a.qkv_sb + (long long)h * D;
   const float* brow = bias ? bias + (long long)b * S : nullptr;
 
 #pragma unroll
@@ -89,8 +92,8 @@ __device__ __forceinline__ void dq_pass(float* acc, float* smem,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
-    load_rows<T, D, BN>(sK, base + HD, a.qkv_ss, k0, S, tid);
-    load_rows<T, D, BN>(sV, base + 2 * HD, a.qkv_ss, k0, S, tid);
+    load_rows<T, D, BN>(sK, kb, a.in_ss, k0, S, tid);
+    load_rows<T, D, BN>(sV, vb, a.in_ss, k0, S, tid);
     fill_mask(sM, dr, q0, k0, h, b, tid);
     __syncthreads();
 
@@ -112,9 +115,10 @@ __device__ __forceinline__ void dq_pass(float* acc, float* smem,
 
 template <typename T, int D>
 __device__ __forceinline__ void dq_block(
-    float* smem, const T* __restrict__ qkv, const float* __restrict__ bias,
+    float* smem, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ bias,
     const T* __restrict__ dout, const T* __restrict__ fwd_out,
-    const float* __restrict__ lse_in, T* __restrict__ dqkv,
+    const float* __restrict__ lse_in, T* __restrict__ dq,
     float* __restrict__ delta_out, const Args& a) {
   constexpr int LD = Layout<D>::LD;
   constexpr int CHUNKS = D / (4 * TPR);
@@ -131,9 +135,10 @@ __device__ __forceinline__ void dq_block(
   const int t = tid % TPR;
   const int row = q0 + r;
 
-  load_rows<T, D, BM>(sQ, qkv + (long long)b * a.qkv_sb + (long long)h * D,
-                      a.qkv_ss, q0, S, tid);
-  load_rows<T, D, BM>(sDO, dout + (long long)b * a.do_sb + (long long)h * D,
+  const long long in = (long long)b * a.in_sb + (long long)h * a.in_sh;
+  load_rows<T, D, BM>(sQ, q + in, a.in_ss, q0, S, tid);
+  load_rows<T, D, BM>(sDO, dout + (long long)b * a.do_sb +
+                               (long long)h * a.do_sh,
                       a.do_ss, q0, S, tid);
   __syncthreads();
 
@@ -142,7 +147,7 @@ __device__ __forceinline__ void dq_block(
   float lse = INFINITY, part = 0.f;
   if (row < S) {
     const T* orow = fwd_out + (long long)b * a.fo_sb +
-                    (long long)row * a.fo_ss + (long long)h * D;
+                    (long long)row * a.fo_ss + (long long)h * a.fo_sh;
 #pragma unroll
     for (int k = 0; k < CHUNKS; ++k) {
 #pragma unroll
@@ -156,11 +161,11 @@ __device__ __forceinline__ void dq_block(
   const float delta = row_sum4(part);
 
   float acc[4 * CHUNKS];
-  dq_pass<T, D>(acc, smem, qkv, bias, a, lse, delta);
+  dq_pass<T, D>(acc, smem, k + in, v + in, bias, a, lse, delta);
 
   if (row < S) {
-    T* drow = dqkv + (long long)b * a.out_sb + (long long)row * a.out_ss +
-              (long long)h * D;
+    T* drow = dq + (long long)b * a.out_sb + (long long)row * a.out_ss +
+              (long long)h * a.out_sh;
     store_cols<T, D>(drow, acc, a.scale, t);
     if (t == 0) delta_out[((long long)b * H + h) * S + row] = delta;
   }
@@ -172,7 +177,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2) tiled_dq_kernel(Args a) {
   extern __shared__ float4 smem4[];
   dq_block<T, D>(reinterpret_cast<float*>(smem4),
-                 static_cast<const T*>(a.qkv), a.bias,
+                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                 static_cast<const T*>(a.v), a.bias,
                  static_cast<const T*>(a.dout),
                  static_cast<const T*>(a.fwd_out), a.lse,
                  static_cast<T*>(a.out), a.delta, a);
@@ -181,7 +187,7 @@ __global__ void __launch_bounds__(THREADS, 2) tiled_dq_kernel(Args a) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) tiled_dkv_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  packed_dkv<T, D>(reinterpret_cast<float*>(smem4), a);
+  view_dkv<T, D>(reinterpret_cast<float*>(smem4), a);
 }
 
 #define TILED_KERNEL(NAME, KERNEL, SMEM)                                     \
@@ -198,53 +204,68 @@ TILED_KERNEL(Fwd, tiled_fwd_kernel, fwd)
 TILED_KERNEL(Dq, tiled_dq_kernel, dq)
 TILED_KERNEL(Dkv, tiled_dkv_kernel, dkv)
 
+Args make_args(const void* q, const void* k, const void* v,
+               const float* bias, const void* dout, const void* fwd_out,
+               void* out, void* dk, void* dv, float* lse, float* delta,
+               float* dbias_part, int B, int S, int H,
+               const long long* s, float scale, float drop_scale,
+               int causal, int use_mask, unsigned seed0, unsigned seed1,
+               unsigned threshold) {
+  return Args{q, k, v, bias, dout, fwd_out, out, dk, dv, lse, delta,
+              dbias_part, B, S, H, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
+              s[7], s[8], s[9], s[10], s[11], scale, causal,
+              make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (qkv, dout, out and dqkv alike). bias may
-// be null (all keys kept). Strides are in elements; every last dim is
-// contiguous. lse is fp32 [B, H, S], written by the forward and read by
-// both backward kernels; delta, fp32 [B, H, S], is written by bwd_dq and
-// read by bwd_dkv, which must run after it on the same stream; dbias_part,
-// fp32 [B, H, S], may be null. Each returns the cudaError_t of its launch
-// (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, out, dq, dk and dv
+// alike). q, k and v are [B, H, S, D] views sharing their strides (the
+// packed projection's sections or separate 4-D tensors), as are out, dq,
+// dk and dv. strides: a host array of twelve element strides (batch,
+// head, row) of q/k/v, of dout, of out/dq/dk/dv and of the forward's saved
+// output, in that order; every last dim is contiguous. bias may be null
+// (all keys kept). lse is fp32 [B, H, S], written by the forward and read
+// by both backward kernels; delta, fp32 [B, H, S], is written by bwd_dq
+// and read by bwd_dkv, which must run after it on the same stream;
+// dbias_part, fp32 [B, H, S], may be null. Each returns the cudaError_t of
+// its launch (0 on success).
 extern "C" int flash_tiled_fwd(
-    const void* qkv, const float* bias, void* out, float* lse, int B, int S,
-    int H, int D, long long qkv_sb, long long qkv_ss, long long out_sb,
-    long long out_ss, float scale, float drop_scale, int causal,
+    const void* q, const void* k, const void* v, const float* bias,
+    void* out, float* lse, int B, int S, int H, int D,
+    const long long* strides, float scale, float drop_scale, int causal,
     int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
     int dtype, void* stream) {
-  const Args a{qkv, bias, nullptr, nullptr, out, lse, nullptr, nullptr,
-               B, S, H, qkv_sb, qkv_ss, 0, 0, out_sb, out_ss, 0, 0,
-               scale, causal,
-               make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+  const Args a = make_args(q, k, v, bias, nullptr, nullptr, out, nullptr,
+                           nullptr, lse, nullptr, nullptr, B, S, H, strides,
+                           scale, drop_scale, causal, use_mask, seed0, seed1,
+                           threshold);
   return dispatch<Fwd>(dtype, D, a, stream);
 }
 
 extern "C" int flash_tiled_bwd_dq(
-    const void* qkv, const float* bias, const void* dout,
-    const void* fwd_out, const float* lse, void* dqkv, float* delta, int B,
-    int S, int H, int D, long long qkv_sb, long long qkv_ss, long long do_sb,
-    long long do_ss, long long fo_sb, long long fo_ss, long long dqkv_sb,
-    long long dqkv_ss, float scale, float drop_scale, int causal,
-    int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
-    int dtype, void* stream) {
-  const Args a{qkv, bias, dout, fwd_out, dqkv, const_cast<float*>(lse),
-               delta, nullptr, B, S, H, qkv_sb, qkv_ss, do_sb, do_ss,
-               dqkv_sb, dqkv_ss, fo_sb, fo_ss, scale, causal,
-               make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+    const void* q, const void* k, const void* v, const float* bias,
+    const void* dout, const void* fwd_out, const float* lse, void* dq,
+    float* delta, int B, int S, int H, int D, const long long* strides,
+    float scale, float drop_scale, int causal, int use_mask, unsigned seed0,
+    unsigned seed1, unsigned threshold, int dtype, void* stream) {
+  const Args a = make_args(q, k, v, bias, dout, fwd_out, dq, nullptr,
+                           nullptr, const_cast<float*>(lse), delta, nullptr,
+                           B, S, H, strides, scale, drop_scale, causal,
+                           use_mask, seed0, seed1, threshold);
   return dispatch<Dq>(dtype, D, a, stream);
 }
 
 extern "C" int flash_tiled_bwd_dkv(
-    const void* qkv, const float* bias, const void* dout, const float* lse,
-    const float* delta, void* dqkv, float* dbias_part, int B, int S, int H,
-    int D, long long qkv_sb, long long qkv_ss, long long do_sb,
-    long long do_ss, long long dqkv_sb, long long dqkv_ss, float scale,
-    float drop_scale, int causal, int use_mask, unsigned seed0,
-    unsigned seed1, unsigned threshold, int dtype, void* stream) {
-  const Args a{qkv, bias, dout, nullptr, dqkv, const_cast<float*>(lse),
-               const_cast<float*>(delta), dbias_part, B, S, H, qkv_sb,
-               qkv_ss, do_sb, do_ss, dqkv_sb, dqkv_ss, 0, 0, scale, causal,
-               make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+    const void* q, const void* k, const void* v, const float* bias,
+    const void* dout, const float* lse, const float* delta, void* dk,
+    void* dv, float* dbias_part, int B, int S, int H, int D,
+    const long long* strides, float scale, float drop_scale, int causal,
+    int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
+    int dtype, void* stream) {
+  const Args a = make_args(q, k, v, bias, dout, nullptr, nullptr, dk, dv,
+                           const_cast<float*>(lse), const_cast<float*>(delta),
+                           dbias_part, B, S, H, strides, scale, drop_scale,
+                           causal, use_mask, seed0, seed1, threshold);
   return dispatch<Dkv>(dtype, D, a, stream);
 }

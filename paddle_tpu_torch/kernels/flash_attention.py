@@ -36,16 +36,24 @@ in place and dq, dk and dv land in one packed dqkv; the head-split views
 of a projection (#5's usual operands) need no copy either. The mask is
 regenerated from its coordinates in every kernel, never stored.
 
-Dispatch reads only shapes and dtypes. Packed: a sequence longer than
-MAX_SEQ = 1024 goes to the KV-tiled kernels of flash_tiled.py (#7-#9),
-which also save the row logsumexp (uses_tiled_path), so a program built
-before its device is known takes the same branch on the card and on the
-CPU. 4-D: the kernels take what `supports` admits (S <= MAX_SEQ, as the
-JAX package's whole-row kernel); a CUDA tensor outside it raises
-UnimplementedError, where the JAX package computes its jnp reference.
-Then a CUDA tensor goes to the kernels, or raises if they do not take
-it; a CPU tensor goes to the plain version; a meta tensor (shape
-inference) gets an empty output of the right shape.
+Dispatch reads only shapes and dtypes (`route`), never the device, so a
+program built before its device is known takes the same branch on the
+card and on the CPU, and answers every shape the JAX package answers:
+- fp32 or bf16 with a head dim D in HEAD_DIMS: the whole-row kernels up
+  to MAX_SEQ = 1024, the KV-tiled kernels of flash_tiled.py (#7-#9)
+  past it, which also save the row logsumexp (uses_tiled_path: the
+  packed op hands its saved Out and Lse to the grad op);
+- D % 8 == 0 and D < 128 outside HEAD_DIMS (heads the JAX package's
+  kernel takes): q, k, v (and dO) zero-padded to the next width in
+  HEAD_DIMS, the scale taken from the true D, the kernels run, the
+  output sliced back. Exact: zero columns add nothing to q k^T, and v's
+  are dropped. The pads and slices are copies the card pays for;
+- fp16, D % 8 != 0 or D > 128, where the JAX package itself runs no
+  kernel (its jnp `_reference`): the plain version, on every device,
+  launching nothing.
+Then a CUDA tensor goes to the kernels, or raises if it is malformed; a
+CPU tensor goes to the plain version of the routed kernels; a meta
+tensor (shape inference) gets an empty output of the right shape.
 """
 
 from __future__ import annotations
@@ -54,9 +62,10 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..core.dtypes import to_torch_dtype
-from ..errors import InvalidArgumentError, UnimplementedError
+from ..errors import InvalidArgumentError
 from . import _build
 from .prng_mask import drop_scale, keep_mask, mask_args
 from .sum_partials import sum_partials
@@ -73,6 +82,26 @@ MAX_SEQ = 1024
 def _kernel_kind(head_dim, dtype):
     dtype = to_torch_dtype(dtype) if isinstance(dtype, str) else dtype
     return head_dim in HEAD_DIMS and dtype in DTYPES
+
+
+def kernel_width(head_dim):
+    """The head width the kernels run a head of `head_dim` at: itself in
+    HEAD_DIMS, else the next width of HEAD_DIMS above it when head_dim is
+    a multiple of 8 (zero-padded), else None (no kernel)."""
+    if head_dim % 8:
+        return None
+    return next((w for w in HEAD_DIMS if head_dim <= w), None)
+
+
+def route(seq_len, head_dim, dtype):
+    """Which kernels attention of these static properties runs: "whole"
+    (#1/#3 packed, #5/#6 4-D) up to MAX_SEQ, "tiled" (#7-#9) past it, or
+    None: the plain version on every device (fp16, D % 8 != 0, D > 128),
+    as the JAX package computes its jnp reference there."""
+    dtype = to_torch_dtype(dtype) if isinstance(dtype, str) else dtype
+    if dtype not in DTYPES or kernel_width(head_dim) is None:
+        return None
+    return "tiled" if seq_len > MAX_SEQ else "whole"
 
 
 def supports_packed(seq_len, num_heads, head_dim, dtype):
@@ -274,6 +303,15 @@ def fused_attention_qkv(qkv, num_heads, key_bias=None, *, scale=None,
             **_tiled_kw(scale, dropout_rate, is_test, dropout_implementation,
                         causal))
         return (out, lse) if return_lse else out
+    if _padded_route(S, D, qkv.dtype):
+        # a head the kernels take zero-padded: the 4-D wrappers on the
+        # projection's head views (their counters)
+        out = _pack4(fused_attention(
+            *_head_views(qkv, num_heads), key_bias, scale=scale,
+            dropout_rate=dropout_rate, is_test=is_test,
+            dropout_implementation=dropout_implementation, causal=causal,
+            seed=seed))
+        return (out, None) if return_lse else out
     out = _whole_row_fwd(qkv, num_heads, key_bias, D, scale, dropout_rate,
                          is_test, dropout_implementation, causal, seed)
     return (out, None) if return_lse else out
@@ -287,7 +325,7 @@ def _whole_row_fwd(qkv, num_heads, key_bias, D, scale, dropout_rate, is_test,
         return torch.empty((B, S, num_heads * D), dtype=qkv.dtype,
                            device=qkv.device)
     mask = mask_args(dropout_rate, is_test, seed, "fused_attention_qkv")
-    if qkv.device.type == "cpu":
+    if qkv.device.type == "cpu" or route(S, D, qkv.dtype) is None:
         return reference_qkv(qkv, num_heads, key_bias, scale=scale,
                              dropout_rate=dropout_rate, is_test=is_test,
                              upscale=upscale, causal=causal, seed=seed)
@@ -333,9 +371,17 @@ def fused_attention_qkv_bwd(qkv, num_heads, key_bias, d_out, *, scale=None,
         return flash_tiled_bwd(qkv, key_bias, seed, d_out, saved_out,
                                saved_lse, num_heads, D,
                                want_dbias=want_dbias, **kw)
+    if _padded_route(S, D, qkv.dtype):
+        dq, dk, dv, dbias = attention_grads(
+            *_head_views(qkv, num_heads), key_bias,
+            _split_heads(d_out, num_heads), scale=scale,
+            dropout_rate=dropout_rate, is_test=is_test,
+            dropout_implementation=dropout_implementation, causal=causal,
+            seed=seed, want_dbias=want_dbias)
+        return torch.cat([_pack4(t) for t in (dq, dk, dv)], -1), dbias
     upscale = dropout_implementation == "upscale_in_train"
     mask = mask_args(dropout_rate, is_test, seed, "fused_attention_qkv_bwd")
-    if qkv.device.type == "cpu":
+    if qkv.device.type == "cpu" or route(S, D, qkv.dtype) is None:
         dqkv, dbias = reference_qkv_bwd(
             qkv, num_heads, key_bias, d_out, scale=scale,
             dropout_rate=dropout_rate, is_test=is_test, upscale=upscale,
@@ -407,11 +453,23 @@ def flash_qkv(qkv, num_heads, key_bias=None, **kw):
 
 def supports(seq_len, head_dim, dtype):
     """True when fused_attention and attention_grads take the kernels (#5,
-    #6) for these static properties (the JAX package's `supports`: the
-    whole-row cap of MAX_SEQ; the port's HEAD_DIMS; fp32 or bf16). On a
-    CUDA tensor anything else raises; a CPU tensor always runs the plain
-    version."""
+    #6) as they are for these static properties (the JAX package's
+    `supports`: the whole-row cap of MAX_SEQ; the port's HEAD_DIMS; fp32
+    or bf16). The other shapes go where `route` sends them."""
     return seq_len <= MAX_SEQ and _kernel_kind(head_dim, dtype)
+
+
+def _padded_route(seq_len, head_dim, dtype):
+    """True when the kernels take these heads only zero-padded: the
+    packed wrappers then go through the 4-D ones, which pad."""
+    r = route(seq_len, head_dim, dtype)
+    return r is not None and head_dim not in HEAD_DIMS
+
+
+def _pack4(t):
+    """[B, H, S, D] -> [B, S, H*D]."""
+    B, H, S, D = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * D)
 
 
 def _shape4(q, k, v, who):
@@ -432,19 +490,18 @@ def _kernel_operands(q, k, v, key_bias, who):
     """(q, k, v sharing strides with a contiguous last dim, fp32 bias or
     None) for the kernels, after their input checks. The head-split views
     of a projection (reshape + transpose) share their strides and are
-    taken as they are; anything else is made contiguous first."""
+    taken as they are; a head dim outside HEAD_DIMS is zero-padded to
+    kernel_width (copies); anything else is made contiguous first."""
     B, H, S, D = q.shape
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise InvalidArgumentError(
             f"{who}: unsupported devices {q.device}, {k.device}, {v.device}"
         )
-    if not supports(S, D, q.dtype):
-        raise UnimplementedError(
-            f"{who}: the kernels take S <= {MAX_SEQ}, head dim in "
-            f"{HEAD_DIMS} and fp32 or bf16; got S={S}, D={D}, {q.dtype}"
-        )
-    if not (q.stride() == k.stride() == v.stride() and q.stride(3) == 1):
+    W = kernel_width(D)
+    if W != D:
+        q, k, v = (F.pad(t, (0, W - D)) for t in (q, k, v))
+    elif not (q.stride() == k.stride() == v.stride() and q.stride(3) == 1):
         q, k, v = (t.contiguous() for t in (q, k, v))
     bias = None
     if key_bias is not None:
@@ -477,17 +534,28 @@ def fused_attention(q, k, v, key_bias=None, *, scale=None, dropout_rate=0.0,
     if q.device.type == "meta":
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     mask = mask_args(dropout_rate, is_test, seed, "fused_attention")
-    if q.device.type == "cpu":
-        return reference(q, k, v, key_bias, scale=scale,
-                         dropout_rate=dropout_rate, is_test=is_test,
-                         upscale=upscale, causal=causal, seed=seed)
+    r = route(S, D, q.dtype)
+    kw = dict(scale=scale, is_test=is_test, upscale=upscale, causal=causal)
+    if r == "tiled" and q.device.type == "cpu":
+        from .flash_tiled import reference_fwd4
+
+        return reference_fwd4(q, k, v, key_bias, seed, rate=dropout_rate,
+                              **kw)[0]
+    if r is None or q.device.type == "cpu":
+        return reference(q, k, v, key_bias, dropout_rate=dropout_rate,
+                         seed=seed, **kw)
     q, k, v, bias = _kernel_operands(q, k, v, key_bias, "fused_attention")
-    out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    _launch_fwd(q, k, v, bias, out, scale,
-                drop_scale(dropout_rate, is_test, upscale), causal,
-                mask)
-    fused_attention.launches += 1
-    return out
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dscale = drop_scale(dropout_rate, is_test, upscale)
+    if r == "tiled":
+        from .flash_tiled import launch_fwd
+
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        launch_fwd(q, k, v, bias, out, lse, scale, dscale, causal, mask)
+    else:
+        _launch_fwd(q, k, v, bias, out, scale, dscale, causal, mask)
+        fused_attention.launches += 1
+    return out[..., :D] if out.shape[3] != D else out
 
 
 fused_attention.launches = 0
@@ -512,10 +580,20 @@ def attention_grads(q, k, v, key_bias, d_out, *, scale=None,
                  if want_dbias else None)
         return grads + (dbias,)
     mask = mask_args(dropout_rate, is_test, seed, "attention_grads")
-    if q.device.type == "cpu":
+    r = route(S, D, q.dtype)
+    kw = dict(scale=scale, is_test=is_test, upscale=upscale, causal=causal)
+    if r == "tiled" and q.device.type == "cpu":
+        from .flash_tiled import reference_bwd4, reference_fwd4
+
+        out, lse = reference_fwd4(q, k, v, key_bias, seed,
+                                  rate=dropout_rate, **kw)
+        dq, dk, dv, dbias = reference_bwd4(q, k, v, key_bias, seed, d_out,
+                                           out, lse, rate=dropout_rate, **kw)
+        return dq, dk, dv, (dbias if want_dbias else None)
+    if r is None or q.device.type == "cpu":
         dq, dk, dv, dbias = reference_bwd(
-            q, k, v, key_bias, d_out, scale=scale, dropout_rate=dropout_rate,
-            is_test=is_test, upscale=upscale, causal=causal, seed=seed)
+            q, k, v, key_bias, d_out, dropout_rate=dropout_rate, seed=seed,
+            **kw)
         return dq, dk, dv, (dbias if want_dbias else None)
     q, k, v, bias = _kernel_operands(q, k, v, key_bias, "attention_grads")
     if (tuple(d_out.shape) != (B, H, S, D) or d_out.dtype != q.dtype
@@ -525,13 +603,28 @@ def attention_grads(q, k, v, key_bias, d_out, *, scale=None,
             f"of {q.dtype} on {q.device}; got {tuple(d_out.shape)} "
             f"{d_out.dtype} on {d_out.device}"
         )
-    if d_out.stride(3) != 1:
+    W = q.shape[3]
+    if W != D:
+        d_out = F.pad(d_out, (0, W - D))
+    elif d_out.stride(3) != 1:
         d_out = d_out.contiguous()
-    grads = tuple(torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    dbias = _launch_bwd(q, k, v, bias, d_out, grads, want_dbias, scale,
-                        drop_scale(dropout_rate, is_test, upscale), causal,
-                        mask, attention_grads)
+    dscale = drop_scale(dropout_rate, is_test, upscale)
+    if r == "tiled":
+        from .flash_tiled import launch_bwd, launch_fwd
+
+        # the 4-D op saves no lse: its backward runs #7 once more
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        launch_fwd(q, k, v, bias, out, lse, scale, dscale, causal, mask)
+        dbias = launch_bwd(q, k, v, bias, d_out, out, lse, grads,
+                           want_dbias, scale, dscale, causal, mask)
+    else:
+        dbias = _launch_bwd(q, k, v, bias, d_out, grads, want_dbias, scale,
+                            dscale, causal, mask, attention_grads)
+    if W != D:
+        grads = tuple(g[..., :D] for g in grads)
     return grads + (dbias,)
 
 

@@ -1,5 +1,5 @@
-"""KV-tiled packed-QKV attention with a saved row logsumexp: hand-written
-CUDA kernels and their plain PyTorch versions (counterpart of
+"""KV-tiled attention with a saved row logsumexp: hand-written CUDA
+kernels and their plain PyTorch versions (counterpart of
 paddle_tpu/kernels/flash_tiled.py).
 
 Replaces: paddle_tpu/kernels/flash_tiled.py:_fwd_kernel (via
@@ -8,7 +8,11 @@ the Pallas kernels behind every attention longer than the whole-row
 kernel's MAX_SEQ = 1024 (flash_attention.py dispatches here).
 
 Computes what flash_attention.fused_attention_qkv computes, over a packed
-projection qkv [B, S, 3*H*D], and returns beside the output the row
+projection qkv [B, S, 3*H*D] (flash_tiled_fwd / flash_tiled_bwd), and
+what fused_attention computes on [B, H, S, D] q, k, v past MAX_SEQ
+(flash_attention.py calls launch_fwd / launch_bwd on the 4-D views; the
+kernels read either layout through its strides, no copy), and returns
+beside the output the row
 logsumexp of the softmax before dropout, lse = m + log(l), as a compact
 fp32 [B, H, S] (the JAX package keeps a [B, S, H*D] copy with each head's
 value repeated over its D lanes, a TPU layout). The backward takes the
@@ -44,7 +48,15 @@ import torch
 
 from ..errors import InvalidArgumentError
 from . import _build
-from .flash_attention import DTYPES, NEG_INF, _check, _heads, _shape
+from .flash_attention import (
+    DTYPES,
+    NEG_INF,
+    _check,
+    _head_views,
+    _heads,
+    _shape,
+    _split_heads,
+)
 from .prng_mask import drop_scale, keep_mask, mask_args
 from .sum_partials import sum_partials
 
@@ -81,17 +93,13 @@ def _multiplier(q, rate, is_test, upscale, seed, k0, k1):
     return keep * w
 
 
-def reference_fwd(qkv, bias, seed, H, D, *, scale, rate=0.0, is_test=True,
-                  upscale=False, causal=False):
-    """The plain forward: an online softmax over key tiles of TILE in
-    PyTorch ops, fp32. Returns (out in qkv's dtype [B, S, H*D], lse fp32
-    [B, H, S])."""
-    mask_args(rate, is_test, seed, "flash_tiled.reference_fwd")
-    B, S, _ = qkv.shape
-    q, k, v = _heads(qkv, H)
-    m = torch.full((B, H, S, 1), -math.inf, device=qkv.device)
-    l = torch.zeros((B, H, S, 1), device=qkv.device)
-    acc = torch.zeros((B, H, S, D), device=qkv.device)
+def _ref_fwd4(q, k, v, bias, seed, scale, rate, is_test, upscale, causal):
+    """(fp32 out [B, H, S, D], lse fp32 [B, H, S]) of fp32 heads: an online
+    softmax over key tiles of TILE."""
+    B, H, S, D = q.shape
+    m = torch.full((B, H, S, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, H, S, 1), device=q.device)
+    acc = torch.zeros((B, H, S, D), device=q.device)
     for k0, k1 in _key_tiles(S):
         s = _tile_scores(q, k, bias, k0, k1, scale, causal)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -102,27 +110,19 @@ def reference_fwd(qkv, bias, seed, H, D, *, scale, rate=0.0, is_test=True,
         acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", e,
                                          v[:, :, k0:k1])
         m = m_new
-    out = (acc / l).transpose(1, 2).reshape(B, S, H * D)
-    return out.to(qkv.dtype), (m + torch.log(l)).squeeze(-1)
+    return acc / l, (m + torch.log(l)).squeeze(-1)
 
 
-def reference_bwd(qkv, bias, seed, do, out, lse, H, D, *, scale, rate=0.0,
-                  is_test=True, upscale=False, causal=False):
-    """The plain backward from the saved out and lse, one pass over key
-    tiles of TILE: (dqkv in qkv's dtype, dbias fp32 [B, S])."""
-    mask_args(rate, is_test, seed, "flash_tiled.reference_bwd")
-    B, S, _ = qkv.shape
-    q, k, v = _heads(qkv, H)
-
-    def split(t):
-        return t.reshape(B, S, H, D).transpose(1, 2).float()
-
-    do4 = split(do)
-    delta = (do4 * split(out)).sum(-1, keepdim=True)
+def _ref_bwd4(q, k, v, bias, seed, do4, out4, lse, scale, rate, is_test,
+              upscale, causal):
+    """(dq, dk, dv fp32 [B, H, S, D], dbias fp32 [B, S]) from fp32 heads,
+    the output gradient and the saved out and lse, one pass over key
+    tiles of TILE."""
+    delta = (do4 * out4).sum(-1, keepdim=True)
     lse4 = lse.float()[..., None]
     dq = torch.zeros_like(q)
     dk, dv, db = [], [], []
-    for k0, k1 in _key_tiles(S):
+    for k0, k1 in _key_tiles(q.shape[2]):
         p = torch.exp(_tile_scores(q, k, bias, k0, k1, scale, causal) - lse4)
         w = _multiplier(q, rate, is_test, upscale, seed, k0, k1)
         dp = torch.einsum("bhqd,bhkd->bhqk", do4, v[:, :, k0:k1]) * w
@@ -131,9 +131,61 @@ def reference_bwd(qkv, bias, seed, do, out, lse, H, D, *, scale, rate=0.0,
         dk.append(torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale)
         dv.append(torch.einsum("bhqk,bhqd->bhkd", p * w, do4))
         db.append(ds.sum(dim=(1, 2)))
-    dqkv = torch.cat([t.transpose(1, 2).reshape(B, S, H * D)
-                      for t in (dq, torch.cat(dk, 2), torch.cat(dv, 2))], -1)
-    return dqkv.to(qkv.dtype), torch.cat(db, -1)
+    return dq, torch.cat(dk, 2), torch.cat(dv, 2), torch.cat(db, -1)
+
+
+def _pack(t):
+    """[B, H, S, D] -> [B, S, H*D]."""
+    B, H, S, D = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * D)
+
+
+def reference_fwd(qkv, bias, seed, H, D, *, scale, rate=0.0, is_test=True,
+                  upscale=False, causal=False):
+    """The plain forward: an online softmax over key tiles of TILE in
+    PyTorch ops, fp32. Returns (out in qkv's dtype [B, S, H*D], lse fp32
+    [B, H, S])."""
+    mask_args(rate, is_test, seed, "flash_tiled.reference_fwd")
+    out, lse = _ref_fwd4(*_heads(qkv, H), bias, seed, scale, rate, is_test,
+                         upscale, causal)
+    return _pack(out).to(qkv.dtype), lse
+
+
+def reference_bwd(qkv, bias, seed, do, out, lse, H, D, *, scale, rate=0.0,
+                  is_test=True, upscale=False, causal=False):
+    """The plain backward from the saved out and lse, one pass over key
+    tiles of TILE: (dqkv in qkv's dtype, dbias fp32 [B, S])."""
+    mask_args(rate, is_test, seed, "flash_tiled.reference_bwd")
+
+    def split(t):
+        return _split_heads(t, H).float()
+
+    dq, dk, dv, dbias = _ref_bwd4(*_heads(qkv, H), bias, seed, split(do),
+                                  split(out), lse, scale, rate, is_test,
+                                  upscale, causal)
+    dqkv = torch.cat([_pack(t) for t in (dq, dk, dv)], -1)
+    return dqkv.to(qkv.dtype), dbias
+
+
+def reference_fwd4(q, k, v, bias, seed, *, scale, rate=0.0, is_test=True,
+                   upscale=False, causal=False):
+    """The plain forward on [B, H, S, D] q, k, v: (out in q's dtype, lse
+    fp32 [B, H, S])."""
+    mask_args(rate, is_test, seed, "flash_tiled.reference_fwd4")
+    out, lse = _ref_fwd4(q.float(), k.float(), v.float(), bias, seed, scale,
+                         rate, is_test, upscale, causal)
+    return out.to(q.dtype), lse
+
+
+def reference_bwd4(q, k, v, bias, seed, do, out, lse, *, scale, rate=0.0,
+                   is_test=True, upscale=False, causal=False):
+    """The plain backward on [B, H, S, D] q, k, v from the saved out and
+    lse: (dq, dk, dv in q's dtype, dbias fp32 [B, S])."""
+    mask_args(rate, is_test, seed, "flash_tiled.reference_bwd4")
+    dq, dk, dv, dbias = _ref_bwd4(q.float(), k.float(), v.float(), bias,
+                                  seed, do.float(), out.float(), lse, scale,
+                                  rate, is_test, upscale, causal)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias
 
 
 def _statics(qkv, H, D, scale, who):
@@ -157,24 +209,15 @@ def flash_tiled_fwd(qkv, bias, seed, H, D, *, scale=None, rate=0.0,
     if qkv.device.type == "meta":
         return (torch.empty((B, S, H * D), dtype=qkv.dtype, device="meta"),
                 torch.empty((B, H, S), dtype=torch.float32, device="meta"))
-    use_mask, s0, s1, thr = mask_args(rate, is_test, seed, "flash_tiled_fwd")
+    mask = mask_args(rate, is_test, seed, "flash_tiled_fwd")
     if qkv.device.type == "cpu":
         return reference_fwd(qkv, bias, seed, H, D, scale=scale, rate=rate,
                              is_test=is_test, upscale=upscale, causal=causal)
     B, S, D, bias = _check(qkv, H, bias, "flash_tiled_fwd")
     out = torch.empty((B, S, H * D), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=qkv.device)
-    err = _bind().flash_tiled_fwd(
-        qkv.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), lse.data_ptr(), B, S, H, D, qkv.stride(0),
-        qkv.stride(1), out.stride(0), out.stride(1), scale,
-        float(drop_scale(rate, is_test, upscale)), int(bool(causal)),
-        use_mask, s0, s1, thr, DTYPES.index(qkv.dtype),
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"flash_tiled_fwd launch failed: CUDA error {err}")
-    flash_tiled_fwd.launches += 1
+    launch_fwd(*_head_views(qkv, H), bias, _split_heads(out, H), lse, scale,
+               drop_scale(rate, is_test, upscale), causal, mask)
     return out, lse
 
 
@@ -206,7 +249,7 @@ def flash_tiled_bwd(qkv, bias, seed, do, out, lse, H, D, *, scale=None,
     seed words. dbias is computed only when want_dbias. Two kernels: dq
     (which also derives delta = rowsum(do . out)) and then dkv."""
     scale = _statics(qkv, H, D, scale, "flash_tiled_bwd")
-    use_mask, s0, s1, thr = mask_args(rate, is_test, seed, "flash_tiled_bwd")
+    mask = mask_args(rate, is_test, seed, "flash_tiled_bwd")
     if qkv.device.type == "cpu":
         dqkv, dbias = reference_bwd(
             qkv, bias, seed, do, out, lse, H, D, scale=scale, rate=rate,
@@ -214,56 +257,86 @@ def flash_tiled_bwd(qkv, bias, seed, do, out, lse, H, D, *, scale=None,
         return dqkv, (dbias if want_dbias else None)
     B, S, D, bias = _check(qkv, H, bias, "flash_tiled_bwd")
     _check_saved(qkv, H, D, do, out, lse, "flash_tiled_bwd")
-    dev = qkv.device
-    dqkv = torch.empty((B, S, 3 * H * D), dtype=qkv.dtype, device=dev)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    part = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
-            if want_dbias else None)
-    bias_p = bias.data_ptr() if bias is not None else None
-    tail = (scale, float(drop_scale(rate, is_test, upscale)),
-            int(bool(causal)), use_mask, s0, s1, thr,
-            DTYPES.index(qkv.dtype), torch.cuda.current_stream(dev).cuda_stream)
-    lib = _bind()
-    err = lib.flash_tiled_bwd_dq(
-        qkv.data_ptr(), bias_p, do.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), B, S, H, D,
-        qkv.stride(0), qkv.stride(1), do.stride(0), do.stride(1),
-        out.stride(0), out.stride(1), dqkv.stride(0), dqkv.stride(1), *tail,
-    )
-    if err:
-        raise RuntimeError(f"flash_tiled_bwd_dq launch failed: CUDA error {err}")
-    flash_tiled_bwd.launches_dq += 1
-    err = lib.flash_tiled_bwd_dkv(
-        qkv.data_ptr(), bias_p, do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(),
-        part.data_ptr() if part is not None else None, B, S, H, D,
-        qkv.stride(0), qkv.stride(1), do.stride(0), do.stride(1),
-        dqkv.stride(0), dqkv.stride(1), *tail,
-    )
-    if err:
-        raise RuntimeError(
-            f"flash_tiled_bwd_dkv launch failed: CUDA error {err}")
-    flash_tiled_bwd.launches_dkv += 1
-    # per-head partials summed over heads in a fixed order
-    return dqkv, (sum_partials(part) if want_dbias else None)
+    dqkv = torch.empty((B, S, 3 * H * D), dtype=qkv.dtype, device=qkv.device)
+    dbias = launch_bwd(*_head_views(qkv, H), bias, _split_heads(do, H),
+                       _split_heads(out, H), lse, _head_views(dqkv, H),
+                       want_dbias, scale, drop_scale(rate, is_test, upscale),
+                       causal, mask)
+    return dqkv, dbias
 
 
 flash_tiled_bwd.launches_dq = 0
 flash_tiled_bwd.launches_dkv = 0
 
 
+def _strides(*tensors):
+    """The kernels' host array of (batch, head, row) element strides."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def launch_fwd(q, k, v, bias, out, lse, scale, dscale, causal, mask):
+    """Launch #7 on the checked [B, H, S, D] views q, k, v (shared strides,
+    last dim contiguous, D in HEAD_DIMS) into the view out and the
+    contiguous fp32 lse [B, H, S]; counted on flash_tiled_fwd.launches."""
+    B, H, S, D = q.shape
+    err = _bind().flash_tiled_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        lse.data_ptr(), B, S, H, D, _strides(q, q, out, out), float(scale),
+        float(dscale), int(bool(causal)), *mask, DTYPES.index(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"flash_tiled_fwd launch failed: CUDA error {err}")
+    flash_tiled_fwd.launches += 1
+
+
+def launch_bwd(q, k, v, bias, do, out, lse, grads, want_dbias, scale,
+               dscale, causal, mask):
+    """Launch #9 (dq, and delta from the saved out) and then #8 (dk, dv)
+    on the checked [B, H, S, D] views q, k, v, do and out (each with a
+    contiguous last dim) into the views grads = (dq, dk, dv), which share
+    their strides; counted on flash_tiled_bwd.launches_dq / launches_dkv.
+    Returns dbias fp32 [B, S] when want_dbias, else None."""
+    B, H, S, D = q.shape
+    dq, dk, dv = grads
+    dev = q.device
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    part = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+            if want_dbias else None)
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                bias.data_ptr() if bias is not None else None, do.data_ptr())
+    tail = (B, S, H, D, _strides(q, do, dq, out), float(scale), float(dscale),
+            int(bool(causal)), *mask, DTYPES.index(q.dtype),
+            torch.cuda.current_stream(dev).cuda_stream)
+    lib = _bind()
+    err = lib.flash_tiled_bwd_dq(*operands, out.data_ptr(), lse.data_ptr(),
+                                 dq.data_ptr(), delta.data_ptr(), *tail)
+    if err:
+        raise RuntimeError(f"flash_tiled_bwd_dq launch failed: CUDA error {err}")
+    flash_tiled_bwd.launches_dq += 1
+    err = lib.flash_tiled_bwd_dkv(
+        *operands, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), part.data_ptr() if part is not None else None, *tail)
+    if err:
+        raise RuntimeError(
+            f"flash_tiled_bwd_dkv launch failed: CUDA error {err}")
+    flash_tiled_bwd.launches_dkv += 1
+    # per-head partials summed over heads in a fixed order
+    return sum_partials(part) if want_dbias else None
+
+
 def _bind():
     lib = _build.load("flash_tiled")
     if lib.flash_tiled_fwd.argtypes is None:
-        p, i, ll, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float, ctypes.c_uint)
-        tail = [f, f, i, i, u, u, u, i, p]
-        lib.flash_tiled_fwd.argtypes = (
-            [p, p, p, p, i, i, i, i, ll, ll, ll, ll] + tail)
-        lib.flash_tiled_bwd_dq.argtypes = (
-            [p] * 7 + [i] * 4 + [ll] * 8 + tail)
-        lib.flash_tiled_bwd_dkv.argtypes = (
-            [p] * 7 + [i] * 4 + [ll] * 6 + tail)
+        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
+        st = ctypes.POINTER(ctypes.c_longlong)
+        tail = [i, i, i, i, st, f, f, i, i, u, u, u, i, p]
+        lib.flash_tiled_fwd.argtypes = [p] * 6 + tail
+        lib.flash_tiled_bwd_dq.argtypes = [p] * 9 + tail
+        lib.flash_tiled_bwd_dkv.argtypes = [p] * 10 + tail
         for fn in (lib.flash_tiled_fwd, lib.flash_tiled_bwd_dq,
                    lib.flash_tiled_bwd_dkv):
             fn.restype = ctypes.c_int

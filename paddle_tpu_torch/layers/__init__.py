@@ -5,6 +5,8 @@ from .attention import (  # noqa: F401
     fused_dropout_add_ln,
     fused_multihead_attention,
     fused_qkv_attention,
+    ring_attention,
+    ulysses_attention,
 )
 from .control_flow import increment  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
@@ -41,6 +43,7 @@ from .tensor import (  # noqa: F401
     scale,
     slice,
     softmax,
+    square,
     transpose,
     tril,
     triu,

@@ -1,7 +1,8 @@
 """Fused transformer layers (counterpart of paddle_tpu/layers/attention.py):
 attention on [B, H, S, D] heads and on a packed QKV projection, and the
 dropout + residual + LayerNorm tail, each one op backed by a hand-written
-kernel (paddle_tpu_torch/kernels)."""
+kernel (paddle_tpu_torch/kernels); and the sequence-parallel attention
+ops (parallel/ring_attention.py)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,26 @@ import numpy as np
 
 from ..initializer import Constant
 from .helper import LayerHelper
+
+
+def _attn(op_type, q, k, v, axis_name, causal, scale, name):
+    helper = LayerHelper(op_type, name=name)
+    return helper.create_and_append(
+        {"Q": [q], "K": [k], "V": [v]},
+        {"axis_name": axis_name, "causal": causal, "scale": scale},
+    )
+
+
+def ring_attention(q, k, v, axis_name="sp", causal=False, scale=None,
+                   name=None):
+    """q, k, v: [B, H, S, D] with S sharded over `axis_name` under SPMD
+    (dense attention when the program has no such mesh axis)."""
+    return _attn("ring_attention", q, k, v, axis_name, causal, scale, name)
+
+
+def ulysses_attention(q, k, v, axis_name="sp", causal=False, scale=None,
+                      name=None):
+    return _attn("ulysses_attention", q, k, v, axis_name, causal, scale, name)
 
 
 def fused_multihead_attention(

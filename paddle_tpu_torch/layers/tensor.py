@@ -89,6 +89,10 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _simple("reduce_sum", {"X": [input]}, attrs)
 
 
+def square(x, name=None):
+    return _simple("square", {"X": [x]}, {})
+
+
 def pow(x, factor=1.0, name=None):
     return _simple("pow", {"X": [x]}, {"factor": factor})
 

@@ -3,6 +3,7 @@
 from . import (  # noqa: F401
     activation,
     amp_ops,
+    collective,
     fused,
     kv_cache,
     math,

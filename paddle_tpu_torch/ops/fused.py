@@ -13,9 +13,7 @@ forward's saved Out and Lse go to the grad op as well."""
 
 from __future__ import annotations
 
-from ..framework import unique_name
-from ..framework.backward import _ensure_var
-from ..framework.program import grad_var_name
+from ..framework.backward import dedicated_grad_maker
 from ..framework.registry import register_op
 from ..kernels.flash_attention import (
     attention_grads,
@@ -41,52 +39,12 @@ def _seed(ctx, op, uid, op_type):
     return None
 
 
-def _append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
-                    slots):
-    """Append `grad_type` with an `<slot>Grad` output for each input slot
-    in `slots` whose variable needs a gradient. The grad op keeps the
-    forward's attrs but its uid, which becomes `__fwd_uid__`."""
-    outs = {}
-    for slot in slots:
-        if not op.inputs.get(slot):
-            continue
-        n = op.inputs[slot][0]
-        if needs_grad is not None and n not in needs_grad:
-            continue
-        gname = unique_name.generate(grad_var_name(n) + "@RENAME")
-        _ensure_var(block, gname, n)
-        outs[slot + "Grad"] = [gname]
-        contribs.setdefault(n, []).append(gname)
-    if not outs:
-        return
-    attrs = {k: v for k, v in op.attrs.items() if k not in ("__uid__",
-                                                            "__loc__")}
-    attrs["__fwd_uid__"] = op.uid
-    block.append_op(grad_type, inputs, outs, attrs)
-
-
-def _attention_grad_maker(grad_type, primal_slots):
-    """The grad maker of an attention op: `grad_type` reads the primal
-    inputs, the key bias and the output gradient, and gives a gradient
-    for each of them that needs one."""
-
-    def maker(op, block, contribs, finalize, needs_grad=None):
-        g_out = finalize(op.outputs["Out"][0])
-        if g_out is None:
-            return
-        inputs = {slot: op.inputs[slot] for slot in primal_slots}
-        inputs["OutGrad"] = [g_out]
-        if op.inputs.get("KeyBias"):
-            inputs["KeyBias"] = op.inputs["KeyBias"]
-        if op.outputs.get("Lse") and _qkv_tiled_at_build(op, block):
-            # the forward saves (Out, Lse): the tiled backward kernels read
-            # both and never re-run the forward
-            inputs["Out"] = op.outputs["Out"]
-            inputs["Lse"] = op.outputs["Lse"]
-        _append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
-                        primal_slots + ("KeyBias",))
-
-    return maker
+def _saved_tiled_outs(op, block):
+    """On the tiled path the forward saves (Out, Lse): the tiled backward
+    kernels read both and never re-run the forward."""
+    if op.outputs.get("Lse") and _qkv_tiled_at_build(op, block):
+        return {"Out": op.outputs["Out"], "Lse": op.outputs["Lse"]}
+    return {}
 
 
 def _qkv_tiled_at_build(op, block):
@@ -115,8 +73,9 @@ def _attention_kw(ctx, op):
 
 @register_op("fused_multihead_attention", inputs=["Q", "K", "V", "KeyBias"],
              outputs=["Out"],
-             grad_maker=_attention_grad_maker(
-                 "fused_multihead_attention_grad", ("Q", "K", "V")))
+             grad_maker=dedicated_grad_maker(
+                 "fused_multihead_attention_grad", ("Q", "K", "V"),
+                 optional=("KeyBias",)))
 def _fused_multihead_attention(ctx, op, ins):
     """softmax(Q K^T * scale + KeyBias) V with fused attention-prob
     dropout, Q/K/V [B, H, S, D] and KeyBias an optional additive [B, S]
@@ -156,8 +115,9 @@ def _fused_multihead_attention_grad(ctx, op, ins):
 
 @register_op("fused_qkv_attention", inputs=["QKV", "KeyBias"],
              outputs=["Out", "Lse"],
-             grad_maker=_attention_grad_maker("fused_qkv_attention_grad",
-                                              ("QKV",)))
+             grad_maker=dedicated_grad_maker(
+                 "fused_qkv_attention_grad", ("QKV",), optional=("KeyBias",),
+                 saved=_saved_tiled_outs))
 def _fused_qkv_attention(ctx, op, ins):
     """Attention over the packed qkv projection [B, S, 3*H*D] -> [B, S,
     H*D] (attr num_heads). The kernel reads the projection in place
@@ -203,19 +163,6 @@ def _fused_qkv_attention_grad(ctx, op, ins):
     return outs
 
 
-def _residual_grad_maker(op, block, contribs, finalize, needs_grad=None):
-    g_out = finalize(op.outputs["Out"][0])
-    if g_out is None:
-        return
-    inputs = {"X": op.inputs["X"], "Y": op.inputs["Y"], "OutGrad": [g_out]}
-    for slot in ("Scale", "LnBias"):
-        if op.inputs.get(slot):
-            inputs[slot] = op.inputs[slot]
-    _append_grad_op(op, block, contribs, needs_grad,
-                    "fused_dropout_add_ln_grad", inputs,
-                    ("X", "Y", "Scale", "LnBias"))
-
-
 def _residual_kw(ctx, op):
     return dict(
         rate=float(op.attr("dropout_prob", 0.0)),
@@ -227,7 +174,10 @@ def _residual_kw(ctx, op):
 
 
 @register_op("fused_dropout_add_ln", inputs=["X", "Y", "Scale", "LnBias"],
-             outputs=["Out"], grad_maker=_residual_grad_maker)
+             outputs=["Out"],
+             grad_maker=dedicated_grad_maker(
+                 "fused_dropout_add_ln_grad", ("X", "Y"),
+                 optional=("Scale", "LnBias")))
 def _fused_dropout_add_ln(ctx, op, ins):
     """Out = LayerNorm(X + dropout(Y)) over the last axis as one kernel —
     the transformer residual tail. X is the residual, Y the branch output,

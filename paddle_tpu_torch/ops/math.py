@@ -1,5 +1,5 @@
 """Dense math ops of the serving and training slices (counterpart of
-paddle_tpu/ops/math.py; reference elementwise ops, scale_op.cc, mul_op.cc,
+paddle_tpu/ops/math.py; reference elementwise ops, square_op, scale_op.cc, mul_op.cc,
 matmul_op.cc, mean_op.cc, reduce_sum_op.cc, sum_op.cc, compare_op.cc)."""
 
 from __future__ import annotations
@@ -30,6 +30,11 @@ _register_elementwise("elementwise_max", torch.maximum)
 _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("not_equal", torch.ne, differentiable=False)
 _register_elementwise("less_than", torch.lt, differentiable=False)
+
+
+@register_op("square", inputs=["X"], outputs=["Out"])
+def _square(ctx, op, ins):
+    return {"Out": [torch.square(ins["X"][0])]}
 
 
 @register_op("pow", inputs=["X"], outputs=["Out"])

@@ -1,5 +1,5 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py;
-reference operators/optimizers/adam_op.cc).
+reference operators/optimizers/adam_op.cc, sgd_op.cc).
 
 ParamOut and the moment outputs reuse their inputs' variable names, so
 the executor writes the new values back to the scope. Every update op is
@@ -44,3 +44,15 @@ def _adam(ctx, op, ins):
         "Beta1PowOut": [b1p * beta1],
         "Beta2PowOut": [b2p * beta2],
     }
+
+
+@register_op(
+    "sgd",
+    inputs=["Param", "Grad", "LearningRate"],
+    outputs=["ParamOut"],
+    differentiable=False,
+)
+def _sgd(ctx, op, ins):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    return {"ParamOut": [(p - lr * g.to(p.dtype)).to(p.dtype)]}

@@ -5,8 +5,8 @@ Optimizer.minimize :796, apply_gradients :683, Adam :1716).
 minimize() = append_backward + one update op per parameter into the main
 program; the learning rate is a [1] persistable (or a schedule's
 Variable) and each accumulator a persistable created in main and startup.
-Only Adam is in this slice; gradient clipping and regularization come
-with a later one.
+Adam and SGD are in the port's slices; gradient clipping and
+regularization come with a later one.
 """
 
 from __future__ import annotations
@@ -109,6 +109,18 @@ class Optimizer:
         raise NotImplementedError
 
 
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        lr = self._create_lr(block)
+        return block.append_op(
+            "sgd",
+            {"Param": [p.name], "Grad": [g.name], "LearningRate": [lr.name]},
+            {"ParamOut": [p.name]},
+            {},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -153,3 +165,4 @@ class AdamOptimizer(Optimizer):
 
 
 Adam = AdamOptimizer
+SGD = SGDOptimizer

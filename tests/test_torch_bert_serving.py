@@ -220,6 +220,13 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.flags
         import paddle_tpu_torch.contrib.mixed_precision
         import paddle_tpu_torch.kernels.layer_norm
+        import paddle_tpu_torch.kernels.ring_block
+        import paddle_tpu_torch.parallel.mesh, paddle_tpu_torch.parallel.spmd
+        import paddle_tpu_torch.parallel.transpiler
+        import paddle_tpu_torch.parallel.ring_attention
+        import paddle_tpu_torch.ops.collective
+        sys.path.insert(0, "tests")
+        import torch_sp_worker  # the multi-rank tests' rank processes
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "paddle_tpu" or m.startswith("paddle_tpu.")]

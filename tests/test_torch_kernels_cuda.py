@@ -39,6 +39,7 @@ from paddle_tpu_torch.kernels import flash_tiled as ft
 from paddle_tpu_torch.kernels import fused_residual as fr
 from paddle_tpu_torch.kernels import layer_norm as lnk
 from paddle_tpu_torch.kernels import prng_mask as pm
+from paddle_tpu_torch.kernels import ring_block as rb
 from paddle_tpu_torch.kernels import sum_partials as sp
 from paddle_tpu_torch.models.bert import (
     BertConfig,
@@ -299,18 +300,28 @@ def test_philox_header_matches_curand_and_the_plain_version(dev, tmp_path):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """The packed wrappers answer the shapes the JAX package answers
+    (flash_attention.route): head dim 48 through the 4-D wrappers on
+    heads zero-padded to 64 (#5's counter), fp16 through the plain
+    version; neither launches a packed kernel. Malformed inputs raise."""
     counts = (fa.fused_attention_qkv.launches,
               fa.fused_attention_qkv_bwd.launches_dq,
               fr.fused_dropout_add_ln_fwd.launches,
               fr.fused_dropout_add_ln_bwd.launches)
     qkv, bias = _qkv(dev, 1, 16, 2, 48, torch.float32)
-    with pytest.raises(InvalidArgumentError):  # head dim 48
-        fa.fused_attention_qkv(qkv, 2, bias)
+    mha = _mha_counts()
+    out = fa.fused_attention_qkv(qkv, 2, bias)  # head dim 48
+    assert _mha_counts() == (mha[0] + 1, mha[1], mha[2])
+    _close(out, fa.reference_qkv(qkv, 2, bias, scale=1 / math.sqrt(48)),
+           "attention", torch.float32)
     qkv, bias = _qkv(dev, 1, 16, 2, 64, torch.float32)
     with pytest.raises(InvalidArgumentError):  # training without seed words
         fa.fused_attention_qkv(qkv, 2, bias, dropout_rate=0.1, is_test=False)
-    with pytest.raises(InvalidArgumentError):  # fp16
-        fa.fused_attention_qkv(qkv.half(), 2, bias)
+    mha = _mha_counts()
+    half = fa.fused_attention_qkv(qkv.half(), 2, bias)  # fp16: plain
+    assert half.dtype == torch.float16 and _mha_counts() == mha
+    assert torch.equal(half, fa.reference_qkv(qkv.half(), 2, bias,
+                                              scale=0.125))
     with pytest.raises(InvalidArgumentError):  # bias on another device
         fa.fused_attention_qkv(qkv, 2, bias.cpu())
     d16 = torch.zeros(1, 16, 128, device=dev).bfloat16()
@@ -826,19 +837,50 @@ def test_mha_kernels_read_views_and_draw_the_packed_kernels_mask(dev):
     assert torch.equal(cat, dqkv) and torch.equal(grads[3], dbias)
 
 
-def test_mha_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    from paddle_tpu_torch.errors import UnimplementedError
+def _mha_counts():
+    return (fa.fused_attention.launches, fa.attention_grads.launches_dq,
+            fa.attention_grads.launches_dkv)
 
-    counts = (fa.fused_attention.launches, fa.attention_grads.launches_dq)
-    q, k, v, _, bias = _heads(dev, 1, 1025, 2, 64, torch.float32)
-    with pytest.raises(UnimplementedError, match="S=1025"):  # past the cap
-        fa.fused_attention(q, k, v, bias)
-    q, k, v, _, bias = _heads(dev, 1, 16, 2, 48, torch.float32)
-    with pytest.raises(UnimplementedError, match="D=48"):
-        fa.attention_grads(q, k, v, bias, q)
-    q, k, v, _, bias = _heads(dev, 1, 16, 2, 64, torch.float32)
-    with pytest.raises(UnimplementedError):  # fp16
-        fa.fused_attention(q.half(), k.half(), v.half(), bias)
+
+def test_mha_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Every shape the JAX package answers gets an answer, routed by shape
+    and dtype (flash_attention.route): past S=1024 #7-#9 on the 4-D views
+    (#7 twice: the backward runs the forward again for its lse), D=48 #5
+    and #6 on heads zero-padded to 64, fp16 the plain version with no
+    launch of ours; each against the plain version. Malformed inputs
+    still raise, launching nothing."""
+    f32 = torch.float32
+    q, k, v, _, bias = _heads(dev, 1, 1025, 2, 64, f32)
+    t0, m0 = _tiled_counts(), _mha_counts()
+    kw = dict(scale=0.125, causal=True)
+    out = fa.fused_attention(q, k, v, bias, causal=True)
+    grads = fa.attention_grads(q, k, v, bias, q, causal=True)
+    assert _tiled_counts() == (t0[0] + 2, t0[1] + 1, t0[2] + 1)
+    assert _mha_counts() == m0
+    _close(out, fa.reference(q, k, v, bias, **kw), "attention", f32)
+    for a, w in zip(grads, fa.reference_bwd(q, k, v, bias, q, **kw)):
+        _close(a, w, "attention_bwd", f32)
+
+    q, k, v, _, bias = _heads(dev, 2, 70, 2, 48, f32)
+    t0, m0 = _tiled_counts(), _mha_counts()
+    out = fa.fused_attention(q, k, v, bias)
+    grads = fa.attention_grads(q, k, v, bias, q)
+    assert out.shape == q.shape and all(g.shape == q.shape for g in grads[:3])
+    assert _mha_counts() == tuple(n + 1 for n in m0)
+    assert _tiled_counts() == t0
+    kw = dict(scale=1 / math.sqrt(48))
+    _close(out, fa.reference(q, k, v, bias, **kw), "attention", f32)
+    for a, w in zip(grads, fa.reference_bwd(q, k, v, bias, q, **kw)):
+        _close(a, w, "attention_bwd", f32)
+
+    q, k, v, _, bias = _heads(dev, 1, 16, 2, 64, f32)
+    counts = (_tiled_counts(), _mha_counts())
+    h = [t.half() for t in (q, k, v)]
+    out = fa.fused_attention(*h, bias)
+    assert out.dtype == torch.float16
+    assert torch.equal(out, fa.reference(*h, bias, scale=0.125))
+    fa.attention_grads(*h, bias, h[0])
+    assert counts == (_tiled_counts(), _mha_counts())
     with pytest.raises(InvalidArgumentError):  # training without seed words
         fa.fused_attention(q, k, v, bias, dropout_rate=0.1, is_test=False)
     with pytest.raises(InvalidArgumentError):  # shapes differ
@@ -847,8 +889,45 @@ def test_mha_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fa.fused_attention(q, k, v, bias[:, :8])
     with pytest.raises(InvalidArgumentError):  # d_out of another dtype
         fa.attention_grads(q, k, v, bias, q.bfloat16())
-    assert counts == (fa.fused_attention.launches,
-                      fa.attention_grads.launches_dq)
+    assert counts == (_tiled_counts(), _mha_counts())
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D", [(1152, 64), (70, 48), (1152, 48)])
+def test_routed_attention_matches_its_plain_versions(dev, S, D, dtype,
+                                                     training):
+    """The routed 4-D shapes (#7-#9 past S=1024, heads zero-padded from
+    D=48 to 64) in fp32 and bf16, test mode and training dropout, causal
+    with the key bias: out, dq, dk, dv and dbias against the plain
+    versions, and the launches. The tiled plain backward takes the
+    kernel's output, as the kernels' backward does."""
+    q, k, v, _, bias = _heads(dev, 2, S, 3, D, dtype, seed=S + D)
+    do = torch.randn(q.shape, device=dev).to(dtype)
+    kw = dict(scale=1 / math.sqrt(D), causal=True, dropout_rate=0.2,
+              is_test=not training, seed=SEED if training else None)
+    t0, m0 = _tiled_counts(), _mha_counts()
+    out = fa.fused_attention(q, k, v, bias, **kw)
+    grads = fa.attention_grads(q, k, v, bias, do, **kw)
+    if S > fa.MAX_SEQ:
+        assert _tiled_counts() == (t0[0] + 2, t0[1] + 1, t0[2] + 1)
+        assert _mha_counts() == m0
+        tkw = dict(scale=kw["scale"], rate=0.2, is_test=not training,
+                   causal=True)
+        want, lse = ft.reference_fwd4(q, k, v, bias, kw["seed"], **tkw)
+        gwant = ft.reference_bwd4(q, k, v, bias, kw["seed"], do, out, lse,
+                                  **tkw)
+    else:
+        assert _mha_counts() == tuple(n + 1 for n in m0)
+        assert _tiled_counts() == t0
+        want = fa.reference(q, k, v, bias, **kw)
+        gwant = fa.reference_bwd(q, k, v, bias, do, **kw)
+    assert out.shape == q.shape
+    _close(out, want, "attention", dtype)
+    for a, w in zip(grads[:3], gwant[:3]):
+        assert a.shape == q.shape
+        _close(a, w, "attention_bwd", dtype)
+    _close(grads[3], gwant[3], "attention_bwd", torch.float32)
 
 
 def test_mha_classifier_trains_saves_and_serves_on_the_card(dev, tmp_path):
@@ -906,3 +985,134 @@ def test_mha_classifier_trains_saves_and_serves_on_the_card(dev, tmp_path):
             inputs)[0].as_ndarray())
     assert answers[0].shape == (3, 2)
     np.testing.assert_allclose(answers[0], answers[1], atol=1e-5)
+
+
+# (row0, col0) of the ring-block cases: the diagonal shard; a key shard
+# wholly before the query shard; one wholly after it (every row masked);
+# straddling ones, with wholly masked rows; tile-aligned offsets
+RING_OFFSETS = [(0, 0), (512, 0), (0, 512), (40, 100), (100, 40), (64, 64)]
+
+
+def _ring_inputs(dev, D, dtype):
+    """q [2, 3, 200, D] and k, v [2, 3, 130, D] as strided head-split
+    views of packed projections, dO, and fp32 accumulators already
+    holding values (the backward adds into them)."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    B, H, Sq, Sk = 2, 3, 200, 130
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+    kv = torch.randn(B, Sk, 2, H, D, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+    acc = [torch.randn(B, H, n, D, generator=g, device=dev)
+           for n in (Sq, Sk, Sk)]
+    return (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+            kv[:, :, 1].transpose(1, 2), do, acc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_ring_block_kernels_match_their_plain_versions(dev, D, dtype, causal):
+    """#12-#14 against their plain versions at runtime offsets (rows that
+    see no key: o = 0, lse = -1e30 exactly), Sq != Sk and neither a
+    multiple of the tile, q, k, v read as strided views, fp32 outputs for
+    either input dtype (both sides compute in fp32 from the same inputs:
+    fp32 tolerances), the backward added into the accumulators; one
+    launch of each kernel a case."""
+    q, k, v, do, acc = _ring_inputs(dev, D, dtype)
+    scale = 1 / math.sqrt(D)
+    before = (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq,
+              rb.ring_block_bwd.launches_dkv)
+    for row0, col0 in RING_OFFSETS:
+        args = (row0, col0, causal, scale)
+        o, lse = rb.ring_block_fwd(q, k, v, *args)
+        o_ref, lse_ref = rb.shard_fwd_ref(q, k, v, *args)
+        assert o.dtype == lse.dtype == torch.float32
+        _close(o, o_ref, "attention", torch.float32)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=0)
+        dead = lse_ref == rb.NEG_INF
+        assert torch.equal(lse[dead], lse_ref[dead])
+        assert not o[dead].any()
+        # a global lse is finite on every row (the diagonal is visible)
+        glse = torch.where(dead, torch.zeros_like(lse), lse)
+        delta = (do.float() * o).sum(-1)
+        got = rb.ring_block_bwd(q, k, v, do, glse, delta, *args,
+                                *[a.clone() for a in acc])
+        want = rb.add_shard_bwd_ref(q, k, v, do, glse, delta, *args,
+                                    *[a.clone() for a in acc])
+        for a, w in zip(got, want):
+            _close(a, w, "attention_bwd", torch.float32)
+    n = len(RING_OFFSETS)
+    assert (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq,
+            rb.ring_block_bwd.launches_dkv) == tuple(c + n for c in before)
+
+
+def test_ring_block_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, do, acc = _ring_inputs(dev, 64, torch.float32)
+    before = (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq)
+    with pytest.raises(InvalidArgumentError):  # fp16
+        rb.ring_block_fwd(q.half(), k.half(), v.half(), 0, 0, True, 0.125)
+    with pytest.raises(InvalidArgumentError):  # head dim 48
+        rb.ring_block_fwd(q[..., :48], k[..., :48], v[..., :48], 0, 0,
+                          True, 0.125)
+    with pytest.raises(InvalidArgumentError):  # k on the CPU
+        rb.ring_block_fwd(q, k.cpu(), v, 0, 0, True, 0.125)
+    o, lse = rb.ring_block_fwd(q, k, v, 0, 0, True, 0.125)
+    delta = (do * o).sum(-1)
+    with pytest.raises(InvalidArgumentError):  # a bf16 accumulator
+        rb.ring_block_bwd(q, k, v, do, lse, delta, 0, 0, True, 0.125,
+                          acc[0].bfloat16(), acc[1], acc[2])
+    with pytest.raises(InvalidArgumentError):  # lse of another layout
+        rb.ring_block_bwd(q, k, v, do, lse.transpose(1, 2), delta, 0, 0,
+                          True, 0.125, *acc)
+    assert (rb.ring_block_fwd.launches,
+            rb.ring_block_bwd.launches_dq) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("op", ["ring_attention", "ulysses_attention"])
+def test_sp_program_on_a_one_rank_nccl_mesh_matches_the_cpu(dev, op):
+    """build_sp_leg's program (tests/torch_sp_worker.py) at b=1, h=4,
+    s=256, d=64 on a 1-rank NCCL "sp" mesh against the same program
+    without a mesh on the CPU (the ring at n=1 is dense attention; the
+    collectives over one rank are the identity), two SGD steps from one
+    state. Each step launches #12 twice (the forward, and the grad op's
+    forward again) and #13 and #14 once. Loss rtol 1e-5; gradients atol
+    1e-5 + rtol 1e-3 (fp32 sums in other orders)."""
+    from paddle_tpu_torch.parallel import (
+        insert_grad_allreduce,
+        make_mesh,
+        shard_program,
+    )
+    from torch_sp_worker import build_sp_leg
+
+    shape = (1, 4, 256, 64)
+    main, startup, loss, pg = build_sp_leg(fluid, layers, fluid.unique_name,
+                                           insert_grad_allreduce, shape, op)
+    cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    convert.state_from_numpy(convert.state_to_numpy(cpu_scope), card_scope,
+                             fluid.CUDAPlace(0), program=main)
+    card_main = main.clone()
+    mesh = make_mesh({"sp": 1})
+    try:
+        shard_program(card_main, mesh, {"x": (None, None, "sp")})
+        x = np.random.RandomState(0).randn(*shape).astype(np.float32)
+        fetch = [loss.name] + [g.name for _, g in pg]
+        card = fluid.Executor(fluid.CUDAPlace(0))
+        before = (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq,
+                  rb.ring_block_bwd.launches_dkv)
+        for _ in range(2):
+            got = card.run(card_main, feed={"x": x}, fetch_list=fetch,
+                           scope=card_scope)
+            want = cpu.run(main, feed={"x": x}, fetch_list=fetch,
+                           scope=cpu_scope)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+            for g, w, n in zip(got[1:], want[1:], fetch[1:]):
+                np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-3,
+                                           err_msg=n)
+        assert (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq,
+                rb.ring_block_bwd.launches_dkv) == (before[0] + 4,
+                                                    before[1] + 2,
+                                                    before[2] + 2)
+    finally:
+        mesh.close()
