@@ -94,8 +94,12 @@ Phases, each fatal on failure:
    blocks #12-#14 against their plain versions at runtime causal offsets
    (row0, col0), causal and not, fp32 and bf16 inputs, rows that see no
    key (o = 0, lse = -1e30 exactly), the backward added into
-   accumulators; the port's ring forward and backward (ring_fwd_steps,
-   ring_bwd_steps) for n=4 shards in one process over an in-process
+   accumulators, the backward also on views whose rows are not 16-byte
+   aligned (its synchronous copy path); the backward pair as built: the
+   tensor-core instructions (HMMA) of each instance in the library's
+   SASS, its blocks an SM and shared memory; the port's ring forward
+   and backward (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one
+   process over an in-process
    exchange (drive_lockstep), against dense attention, each kernel
    launched once per live shard (1 + 2 + 3 + 4); the attention shapes the
    4-D op takes only routed: S > 1024 on #7-#9 (4-D views), D=48 on
@@ -115,7 +119,9 @@ Phases, each fatal on failure:
    printed beside), #5/#6 at the ERNIE-layout path's shapes (#5 also at
    the predictor's bucket 8, test mode), and #12-#14 at the SP path's
    [1, 12, 8192, 64] fp32, causal (scaled_dot_product_attention causal
-   as the yardstick).
+   as the yardstick; #13/#14 with their TFLOP/s, the fp32 CUDA-core
+   bound beside the bound of their 3xTF32 arithmetic, and two launches
+   that give the same bits).
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -125,6 +131,7 @@ result, when there is no CUDA card or any phase fails.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -147,9 +154,10 @@ WINDOW_S = 5.0
 WINDOW_REQUESTS = 1000
 WINDOW_REPS = 3
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; fp32 outside the
-# tensor cores and dense bf16 on them, operations/s
+# tensor cores and dense bf16 on them, operations/s; dense TF32 on them
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
 # kernel vs plain version on the card, |got - want| <= atol + rtol*|want|,
 # per kernel and dtype. fp32: sums in another order (observed on the H100
 # up to 9.5e-7 for attention, 1.2e-6 for the residual). bf16: both sum in
@@ -2532,12 +2540,82 @@ def ring_inputs(B, H, Sq, Sk, D, dtype, seed):
             kv[:, :, 1].transpose(1, 2), do)
 
 
+def misaligned_views(layout, B, H, Sq, Sk, D, dtype, seed):
+    """q, k, v and dO as ring_inputs gives them, as views whose rows the
+    backward cannot copy 16 bytes at a time (its synchronous copy path):
+    the base one element off a 16-byte boundary ("base off by one"), or
+    rows an odd number of elements apart ("odd row stride")."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def views(S, parts):
+        row = parts * H * D + (layout == "odd row stride")
+        buf = torch.randn(1 + B * S * row, generator=g,
+                          device="cuda").to(dtype)
+        base = 1 if layout == "base off by one" else 0
+        return [buf.as_strided((B, H, S, D), (S * row, D, row, 1),
+                               base + i * H * D) for i in range(parts)]
+
+    (q,), (k, v), (do,) = views(Sq, 1), views(Sk, 2), views(Sq, 1)
+    return q, k, v, do
+
+
+def ring_tensor_cores():
+    """#13 and #14 as built: each instance's HMMA (tensor-core)
+    instructions in the SASS of libring_block (cuobjdump -sass; none may
+    lack them), and from the CUDA runtime the blocks of each that fit on
+    one SM with its dynamic shared memory."""
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.load("ring_block")
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.lib_path("ring_block"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(ring_(?:fwd|dq|dkv)_kernel)I(\w+?)Li(\d+)E",
+                          line)
+            name = None
+            if m:
+                dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
+                name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+                hmma[name] = 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    occupancy = lib.ring_block_bwd_occupancy
+    occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    occupancy.restype = ctypes.c_int
+    print("== ring backward pair as built: tensor-core instructions, "
+          "blocks an SM")
+    for which, kernel in enumerate(("ring_dq_kernel", "ring_dkv_kernel")):
+        for code, dtype in enumerate(("f32", "bf16")):
+            for D in (32, 64, 128):
+                name = f"{kernel}<{dtype}, {D}>"
+                blocks, smem = ctypes.c_int(), ctypes.c_int()
+                err = occupancy(which, code, D, ctypes.byref(blocks),
+                                ctypes.byref(smem))
+                check(err == 0, f"{name}: occupancy query failed ({err})")
+                n_hmma = hmma.get(name, 0)
+                print(f"  {name}: {n_hmma} HMMA, {blocks.value} blocks an "
+                      f"SM, {smem.value} bytes of shared memory")
+                check(n_hmma > 0 and blocks.value > 0,
+                      f"{name}: no tensor-core instruction in its SASS or "
+                      "no block fits on an SM")
+    fwd = {n: c for n, c in hmma.items() if n.startswith("ring_fwd")}
+    print(f"  ring_fwd_kernel (CUDA cores): HMMA {sorted(set(fwd.values()))}")
+
+
 def ring_parity(rb):
     """#12-#14 against their plain versions on the card at runtime causal
     offsets, causal and not, fp32 and bf16 inputs (fp32 outputs on both
     sides: fp32 tolerances), Sq != Sk and neither a multiple of the tile;
     rows that see no key give o = 0 and lse = -1e30 exactly; the backward
-    adds into accumulators that already hold values."""
+    adds into accumulators that already hold values, and takes views
+    whose rows are not 16-byte aligned (misaligned_views), one launch of
+    each kernel a case."""
     print("== parity, ring blocks: #12-#14 vs plain version on the card, "
           f"offsets {list(RING_OFFSETS)}")
     worst = dict(o=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
@@ -2577,7 +2655,39 @@ def ring_parity(rb):
                     for n, a, w in zip(("dq", "dk", "dv"), got, want):
                         worst[n] = max(worst[n], quiet_compare(
                             a, w, "attention_bwd", f"{tag} {n}"))
-    print(f"ring blocks: {len(RING_OFFSETS) * 12} cases, {masked} rows that "
+    # the backward's synchronous copy path: views whose rows are not
+    # 16-byte aligned; one launch of each kernel a case
+    n_mis = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout in ("base off by one", "odd row stride"):
+            q, k, v, do = misaligned_views(layout, 2, 3, 200, 130, 64, dtype,
+                                           11)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            acc = [torch.randn(t.shape, generator=g, device="cuda")
+                   for t in (q, k, v)]
+            for row0, col0 in ((40, 100), (0, 0)):
+                args = (row0, col0, True, 1 / 8)
+                o_p, lse_p = rb.shard_fwd_ref(q, k, v, *args)
+                glse = torch.where(lse_p == rb.NEG_INF,
+                                   torch.zeros_like(lse_p), lse_p)
+                delta = (do.float() * o_p).sum(-1)
+                before = (rb.ring_block_bwd.launches_dq,
+                          rb.ring_block_bwd.launches_dkv)
+                got = rb.ring_block_bwd(q, k, v, do, glse, delta, *args,
+                                        *[a.clone() for a in acc])
+                check((rb.ring_block_bwd.launches_dq,
+                       rb.ring_block_bwd.launches_dkv)
+                      == (before[0] + 1, before[1] + 1),
+                      f"misaligned views ({layout}): not one launch each")
+                want = rb.add_shard_bwd_ref(q, k, v, do, glse, delta, *args,
+                                            *[a.clone() for a in acc])
+                tag = f"{str(dtype)[6:]} {layout} offsets ({row0}, {col0})"
+                for n, a, w in zip(("dq", "dk", "dv"), got, want):
+                    worst[n] = max(worst[n], quiet_compare(
+                        a, w, "attention_bwd", f"{tag} {n}"))
+                n_mis += 1
+    print(f"ring blocks: {len(RING_OFFSETS) * 12} cases and {n_mis} of the "
+          f"backward on misaligned views, {masked} rows that "
           "see no key; max_abs_err " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items())
           + f" (atol {TOL['attention'][torch.float32][0]:g} fwd, "
@@ -2924,9 +3034,17 @@ def ring_kernel_times(rb, sp_n):
     output written once (the accumulators read and written) over 3.35
     TB/s, and 4*D operations a live pair for each kernel (the forward's
     q k^T and p v; the backward's 8*D split between the two) over 67
-    TFLOP/s fp32. #13 and #14 timed apart by CUDA events around each
-    launch (launch_ms). Library: scaled_dot_product_attention, causal, on
-    the same tensors (its backward through autograd for #13 and #14)."""
+    TFLOP/s fp32 on the CUDA cores; #13 and #14 run those operations on
+    the tensor cores as three TF32 products each (3xTF32), so their rows
+    carry the bound of that arithmetic, 3 * 4*D a pair over 495 TFLOP/s
+    TF32, and the fp32 one is printed beside it. Achieved TFLOP/s: the
+    products each kernel does (#13: S, dP, dQ; #14: S, dP, dV, dK), 2*D
+    operations a live pair each, over its time. #13 and #14 timed apart
+    by CUDA events around each launch (launch_ms), and two launches of
+    the pair on the same inputs must give the same bits; head 0 of both
+    sides is measured against fp64. Library:
+    scaled_dot_product_attention, causal, on the same tensors (its
+    backward through autograd for #13 and #14)."""
     import torch.nn.functional as F
 
     B, H, S, D = SP_B, SP_H, SP_S, SP_D
@@ -2952,6 +3070,29 @@ def ring_kernel_times(rb, sp_n):
     err_q = compare(dq, dq_p, "attention_bwd", torch.float32, "#13 dq")
     err_kv = max(compare(dk, dk_p, "attention_bwd", torch.float32, "#14 dk"),
                  compare(dv, dv_p, "attention_bwd", torch.float32, "#14 dv"))
+    again = rb.ring_block_bwd(q, k, v, do, lse, delta, 0, 0, True, scale,
+                              *[z.clone() for z in zeros])
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+          "two launches of #13/#14 on the same inputs differ in their bits")
+    print("#13/#14: two launches on the same inputs give the same bits")
+    del again
+    # head 0 against fp64 (a measurement, not a check): how far the
+    # kernels' sums (3xTF32, summed by tiles) and the plain versions'
+    # (fp32 GEMMs over up to 8192 rows) each stray
+    Q, K, V, DO = (x[0, 0].double() for x in (q, k, v, do))
+    vis = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    p = torch.where(vis, torch.exp(Q @ K.T * scale
+                                   - lse[0, 0].double()[:, None]), 0.0)
+    ds = p * (DO @ V.T - delta[0, 0].double()[:, None])
+    ref = (ds @ K * scale, ds.T @ Q * scale, p.T @ DO)
+    f64 = {side: ", ".join(f"{n} {(a[0, 0].double() - r).abs().max():.3e}"
+                           for n, a, r in zip(("dq", "dk", "dv"), got, ref))
+           for side, got in (("kernels", (dq, dk, dv)),
+                             ("plain versions", (dq_p, dk_p, dv_p)))}
+    print(f"#13/#14 head 0 against fp64: kernels {f64['kernels']}; plain "
+          f"versions {f64['plain versions']}")
+    del Q, K, V, DO, vis, p, ds, ref
 
     t12 = cuda_ms(lambda: rb.ring_block_fwd(q, k, v, 0, 0, True, scale),
                   iters=10, reps=5)
@@ -2978,13 +3119,22 @@ def ring_kernel_times(rb, sp_n):
     # same inputs, dk and dv read and written
     b13 = bound(6 * head + 2 * stats, 4 * D * pairs, torch.float32)
     b14 = bound(8 * head + 2 * stats, 4 * D * pairs, torch.float32)
+    split = 3 * 4 * D * pairs / PEAK_TF32 * 1e3
+    s13 = (max(split, (6 * head + 2 * stats) / HBM_BYTES_PER_S * 1e3),
+           "operations")
+    s14 = (max(split, (8 * head + 2 * stats) / HBM_BYTES_PER_S * 1e3),
+           "operations")
     t13, t14 = t["ring_block_bwd_dq"], t["ring_block_bwd_dkv"]
+    tf13 = 3 * 2 * D * pairs / t13 / 1e9
+    tf14 = 4 * 2 * D * pairs / t14 / 1e9
     print(f"#12 fwd: kernel {t12:.3f} ms, plain {p12:.3f} ms, sdpa causal "
           f"{l12:.3f} ms, bound {b12[0]:.3f} ms ({b12[1]})")
-    print(f"#13 dq: kernel {t13:.3f} ms, plain {p13:.3f} ms, bound "
-          f"{b13[0]:.3f} ms ({b13[1]}); #14 dkv: kernel {t14:.3f} ms, plain "
-          f"{p14:.3f} ms, bound {b14[0]:.3f} ms ({b14[1]}); sdpa causal "
-          f"backward {l_bwd:.3f} ms")
+    print(f"#13 dq: kernel {t13:.3f} ms ({tf13:.1f} TFLOP/s of fp32 "
+          f"products), plain {p13:.3f} ms, bound {b13[0]:.3f} ms "
+          f"({b13[1]}, fp32 CUDA cores) / {s13[0]:.3f} ms (3xTF32 tensor "
+          f"cores); #14 dkv: kernel {t14:.3f} ms ({tf14:.1f} TFLOP/s), plain "
+          f"{p14:.3f} ms, bound {b14[0]:.3f} ms / {s14[0]:.3f} ms; the pair "
+          f"{t13 + t14:.3f} ms; sdpa causal backward {l_bwd:.3f} ms")
     rows = []
     for path, op in (("sp_training", "ring_attention"),
                      ("ulysses_training", "ulysses_attention")):
@@ -2994,10 +3144,10 @@ def ring_kernel_times(rb, sp_n):
                         n["ring_fwd"], err_f, t12, p12, b12, l12))
         rows.append(row("ring_dq", path, "ring_block.cu",
                         "paddle_tpu/kernels/ring_block.py:199",
-                        n["ring_bwd_dq"], err_q, t13, p13, b13, l_bwd))
+                        n["ring_bwd_dq"], err_q, t13, p13, s13, l_bwd))
         rows.append(row("ring_dkv", path, "ring_block.cu",
                         "paddle_tpu/kernels/ring_block.py:234",
-                        n["ring_bwd_dkv"], err_kv, t14, p14, b14, l_bwd))
+                        n["ring_bwd_dkv"], err_kv, t14, p14, s14, l_bwd))
     del q, k, v, do, o, o_p, qg, kg, vg, sd, zeros
     torch.cuda.empty_cache()
     return rows
@@ -3038,6 +3188,7 @@ def main():
     tiled_err = tiled_parity(ft)
     ln_err = ln_parity(lnk)
     mha_err = mha_parity(fa)
+    ring_tensor_cores()
     ring_parity(rb)
     ring_schedule(rb, kc)
     routed_attention(fa, ft, kc)

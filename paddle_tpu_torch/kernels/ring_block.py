@@ -32,11 +32,14 @@ fp32 [B, H, Sq] (the JAX package's `_slim_lse` form).
 What bounds it on the H100: at B=1, H=12, S=8192, D=64, causal, offsets
 (0, 0) (the SP path's one-rank ring), 4*D flops for each of 4.03e8 live
 pairs forward and 8*D backward, against a few MB: operations. The kernels
-(csrc/ring_block.cu, on csrc/attn_tiles.cuh's helpers) keep every score
-tile in shared memory, skip tiles wholly above the causal diagonal in
+(csrc/ring_block.cu) skip tiles wholly above the causal diagonal in
 global coordinates, and add into the accumulators instead of writing a
-contribution the caller would add in another pass. fp32 on the CUDA
-cores.
+contribution the caller would add in another pass. The forward (#12, on
+csrc/attn_tiles.cuh's helpers) runs fp32 on the CUDA cores; the backward
+pair (#13, #14, on csrc/mma_tiles.cuh) runs its products on the tensor
+cores as 3xTF32 (`tf32_split` below: each fp32 operand is hi + lo, both
+TF32, and a product is lo*hi + hi*lo + hi*hi, within about 2^-21 of
+fp32's), its tiles fed by cp.async.
 
 Dispatch: a CUDA tensor goes to the kernels, or raises if they do not
 take it (`ring_supports`); a CPU tensor goes to the plain version. The
@@ -158,6 +161,26 @@ def add_shard_bwd_ref(q, k, v, do, lse, delta, row0, col0, causal, scale,
     dk += dk_c
     dv += dv_c
     return dq, dk, dv
+
+
+def tf32_round(x):
+    """fp32 x rounded onto TF32's 10 mantissa bits, to nearest with ties
+    away from zero, as the card's cvt.rna.tf32.f32 rounds: integer
+    operations on the fp32 bits (add half a unit of the 13 dropped bits,
+    clear them). A value past TF32's largest rounds to infinity; inf and
+    NaN pass through. The plain model of the backward pair's split, for
+    tests."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    rounded = (bits + 0x1000) & -0x2000  # -0x2000: 0xFFFFE000
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo), both TF32, with hi + lo = x within 2^-22 |x|: the split
+    of each fp32 operand of the backward pair's 3xTF32 products."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
 
 
 def _check(q, k, v, who, do=None):

@@ -1046,6 +1046,87 @@ def test_ring_block_kernels_match_their_plain_versions(dev, D, dtype, causal):
             rb.ring_block_bwd.launches_dkv) == tuple(c + n for c in before)
 
 
+def _ring_bwd_case(q, k, v, do, causal, row0=0, col0=0, seed=1):
+    """The plain forward's lse (finite: wholly masked rows at 0) and
+    delta, and fp32 accumulators already holding values, for the
+    backward pair on (q, k, v, dO)."""
+    scale = 1 / math.sqrt(q.shape[3])
+    o, lse = rb.shard_fwd_ref(q, k, v, row0, col0, causal, scale)
+    lse = torch.where(lse == rb.NEG_INF, torch.zeros_like(lse), lse)
+    delta = (do.float() * o).sum(-1)
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    acc = [torch.randn(t.shape, generator=g, device=q.device)
+           for t in (q, k, v)]
+    return (lse, delta, row0, col0, causal, scale), acc
+
+
+def _ring_bwd_launches():
+    return rb.ring_block_bwd.launches_dq, rb.ring_block_bwd.launches_dkv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_backward_gives_the_same_bits_twice(dev, dtype):
+    """#13 and #14 sum in a fixed order (no atomics): two launches on the
+    same inputs and accumulators give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 3, 700, 64, generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    args, acc = _ring_bwd_case(q, k, v, do, True)
+    first = rb.ring_block_bwd(q, k, v, do, *args, *[a.clone() for a in acc])
+    second = rb.ring_block_bwd(q, k, v, do, *args, *[a.clone() for a in acc])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _misaligned(dev, layout, B, H, S, D, dtype, parts, seed):
+    """`parts` [B, H, S, D] views of one buffer whose rows the kernels
+    cannot copy 16 bytes at a time: the base one element off a 16-byte
+    boundary, or rows an odd number of elements apart."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    row = parts * H * D + (layout == "odd_row_stride")
+    buf = torch.randn(1 + B * S * row, generator=g, device=dev).to(dtype)
+    base = 1 if layout == "base_off_by_one" else 0
+    return [buf.as_strided((B, H, S, D), (S * row, D, row, 1),
+                           base + i * H * D) for i in range(parts)]
+
+
+@pytest.mark.parametrize("layout", ["base_off_by_one", "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_backward_reads_misaligned_views(dev, dtype, layout):
+    """Views whose rows are not 16-byte aligned take the kernels'
+    synchronous copy path: they agree with the plain versions at the
+    fp32 tolerance and count one launch of each kernel."""
+    q, = _misaligned(dev, layout, 2, 3, 200, 64, dtype, 1, 5)
+    k, v = _misaligned(dev, layout, 2, 3, 130, 64, dtype, 2, 6)
+    do, = _misaligned(dev, layout, 2, 3, 200, 64, dtype, 1, 7)
+    assert q.data_ptr() % 16 or q.stride(2) % 2
+    for row0, col0 in [(40, 100), (0, 0)]:
+        args, acc = _ring_bwd_case(q, k, v, do, True, row0, col0)
+        before = _ring_bwd_launches()
+        got = rb.ring_block_bwd(q, k, v, do, *args,
+                                *[a.clone() for a in acc])
+        assert _ring_bwd_launches() == (before[0] + 1, before[1] + 1)
+        want = rb.add_shard_bwd_ref(q, k, v, do, *args,
+                                    *[a.clone() for a in acc])
+        for a, w in zip(got, want):
+            _close(a, w, "attention_bwd", torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_backward_at_s8192_matches_the_plain_version(dev, dtype):
+    """One head at the SP path's S=8192, D=64, causal: #13 and #14 sum
+    over up to 8192 rows, against their plain versions at the fp32
+    tolerance (fp32 outputs from either input dtype)."""
+    g = torch.Generator(device=dev).manual_seed(8192)
+    q, k, v, do = (torch.randn(1, 1, 8192, 64, generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    args, acc = _ring_bwd_case(q, k, v, do, True)
+    got = rb.ring_block_bwd(q, k, v, do, *args, *[a.clone() for a in acc])
+    want = rb.add_shard_bwd_ref(q, k, v, do, *args, *[a.clone() for a in acc])
+    for a, w in zip(got, want):
+        _close(a, w, "attention_bwd", torch.float32)
+
+
 def test_ring_block_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q, k, v, do, acc = _ring_inputs(dev, 64, torch.float32)
     before = (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq)
