@@ -95,9 +95,11 @@ Phases, each fatal on failure:
    (row0, col0), causal and not, fp32 and bf16 inputs, rows that see no
    key (o = 0, lse = -1e30 exactly), the backward added into
    accumulators, the backward also on views whose rows are not 16-byte
-   aligned (its synchronous copy path); the backward pair as built: the
-   tensor-core instructions (HMMA) of each instance in the library's
-   SASS, its blocks an SM and shared memory; the port's ring forward
+   aligned (its synchronous copy path); the backward pairs as built, the
+   ring's #13/#14 and the whole-row #3/#6 (run after phase 3's 4-D
+   parity): the tensor-core instructions (HMMA) of each instance in its
+   library's SASS, its blocks an SM and shared memory; the port's ring
+   forward
    and backward (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one
    process over an in-process
    exchange (drive_lockstep), against dense attention, each kernel
@@ -114,10 +116,14 @@ Phases, each fatal on failure:
    two steps on the card (NCCL) and on the CPU (a 1-rank gloo mesh) from
    one state, under phase 5's tolerances;
 17. kernel times: each kernel beside its plain version, its bound and one
-   PyTorch call, at the serving, the BERT training and the GPT shapes,
+   PyTorch call, at the serving, the BERT training (the backward pair
+   #3 also in bf16 at the BERT AMP path's activations, beside SDPA's bf16
+   backward) and the GPT shapes,
    #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32 line
    printed beside), #5/#6 at the ERNIE-layout path's shapes (#5 also at
-   the predictor's bucket 8, test mode), and #12-#14 at the SP path's
+   the predictor's bucket 8, test mode; #6 with its TFLOP/s, the 3xTF32
+   bound beside the fp32 one, two launches that give the same bits, and
+   head 0 against fp64), and #12-#14 at the SP path's
    [1, 12, 8192, 64] fp32, causal (scaled_dot_product_attention causal
    as the yardstick; #13/#14 with their TFLOP/s, the fp32 CUDA-core
    bound beside the bound of their 3xTF32 arithmetic, and two launches
@@ -153,11 +159,10 @@ RATE = 0.1
 WINDOW_S = 5.0
 WINDOW_REQUESTS = 1000
 WINDOW_REPS = 3
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; fp32 outside the
-# tensor cores and dense bf16 on them, operations/s; dense TF32 on them
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; operations/s of fp32
+# outside the tensor cores, and of dense bf16 and TF32 ("tf32") on them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_TF32 = 495e12
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 # kernel vs plain version on the card, |got - want| <= atol + rtol*|want|,
 # per kernel and dtype. fp32: sums in another order (observed on the H100
 # up to 9.5e-7 for attention, 1.2e-6 for the residual). bf16: both sum in
@@ -426,10 +431,46 @@ def res_bound(x, N):
     return bound(nbytes, ops, x.dtype)
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, peak):
+    """The larger of nbytes over 3.35 TB/s and ops at PEAK_OPS[peak] (a
+    dtype, or "tf32"), in ms, with the name of the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = ops / PEAK_OPS[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# TF32 products the whole-row backward pair (#3/#6) does on the tensor
+# cores, (dq, dkv), each 2*B*H*S^2*D flops, recomputation included: fp32
+# operands in the 3xTF32 split, three terms a product (dq: S and dP twice,
+# dS K; dkv: S^T, dP^T, P^T dO, dS^T Q); bf16 Q, K, V and dO are TF32
+# already, so one term for the products of two of them and two for dS K,
+# P^T dO and dS^T Q (the fp32 P and dS split). Printed beside the bound,
+# which counts the function's operations only.
+PAIR_TF32 = {torch.float32: (15, 12), torch.bfloat16: (6, 6)}
+
+
+def pair_f64_line(q, k, v, bias, do, kernel, plain, scale, rate, seed,
+                  what):
+    """Head (0, 0) of the whole-row pair's dq, dk, dv, the kernels' and
+    the plain version's, against fp64 (training dropout under
+    downgrade_in_infer: the kernels' Philox mask, kept values unscaled):
+    a measurement, not a check."""
+    from paddle_tpu_torch.kernels import prng_mask as pm
+
+    Q, K, V, DO = (x[0, 0].double() for x in (q, k, v, do))
+    S = Q.shape[0]
+    w = pm.keep_mask(seed, rate, S, S, lead=(1, 1),
+                     device="cuda")[0, 0].double()
+    s = Q @ K.T * scale + bias[0].double()
+    p = torch.softmax(s, -1)
+    dp = DO @ V.T * w
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    ref = (ds @ K * scale, ds.T @ Q * scale, (p * w).T @ DO)
+    f64 = {side: ", ".join(f"{n} {(a[0, 0].double() - r).abs().max():.3e}"
+                           for n, a, r in zip(("dq", "dk", "dv"), got, ref))
+           for side, got in (("kernels", kernel), ("plain", plain))}
+    print(f"{what} head 0 against fp64: kernels {f64['kernels']}; plain "
+          f"version {f64['plain']}")
 
 
 def compare(got, want, kernel, dtype, what):
@@ -1650,7 +1691,7 @@ def kernel_times(fa, fr, main_err, launches):
     return rows
 
 
-def train_kernel_times(fa, fr, sp, err, launches):
+def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
     """Every kernel at the training path's shapes, fp32, training dropout
     0.1: B=32, S=512, H=12, D=64 and R=16384, N=768. Bounds count each
     input read once and each output written once over 3.35 TB/s, and the
@@ -1660,10 +1701,17 @@ def train_kernel_times(fa, fr, sp, err, launches):
     (dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q); its two kernels
     split that bound by the products each owns, dP and dQ to dq, dV and
     dK to dkv (dkv's own dP is recomputation), and the reads in halves, so
-    the two bounds sum to the function's. The backward kernels' times come
-    from CUDA events around each launch in the wrappers' own calls
-    (launch_ms), so the pair's kernels, and the residual row kernel and its
-    sum_partials, are timed apart."""
+    the two bounds sum to the function's; the pair runs on the tensor
+    cores, so its fp32 rows carry those operations as three TF32 terms
+    each (3xTF32) at 495 TFLOP/s and its bf16 rows carry them at 989
+    TFLOP/s bf16; the fp32 CUDA-core bound, and the time of the TF32
+    products the kernels do (PAIR_TF32, recomputation included), are
+    printed beside them. The pair is timed again in bf16 at the BERT
+    AMP path's bf16 activations (its rows' launches are that path's), with
+    scaled_dot_product_attention's bf16 backward beside it. The backward
+    kernels' times come from CUDA events around each launch in the
+    wrappers' own calls (launch_ms), so the pair's kernels, and the
+    residual row kernel and its sum_partials, are timed apart."""
     import torch.nn.functional as F
 
     B, S, H, D, R, N = 32, 512, 12, 64, 32 * 512, 768
@@ -1694,40 +1742,80 @@ def train_kernel_times(fa, fr, sp, err, launches):
                     launches["attention_fwd"], err["attention_fwd"], t_k,
                     t_p, b, t_l))
 
-    t = launch_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do, **kw),
-                  (("flash_attention", "flash_attention_bwd_dq"),
-                   ("flash_attention", "flash_attention_bwd_dkv")))
-    t_dq, t_dkv = t["flash_attention_bwd_dq"], t["flash_attention_bwd_dkv"]
-    t_pair = cuda_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do,
-                                                        **kw),
-                     iters=10, reps=5)
-    t_p = cuda_ms(lambda: fa.reference_qkv_bwd(qkv, H, bias, do, **kw),
-                  iters=2, reps=3)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                         dropout_p=TRAIN_RATE, scale=0.125)
-    do4 = do.view(B, S, H, D).transpose(1, 2)
-    t_l = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
-                                              retain_graph=True),
-                  iters=10, reps=5)
-    head = B * S * H * D * es
-    reads = qkv.numel() * es + head + bias.numel() * 4  # qkv, dO, bias
-    b_pair = bound(reads + 3 * head, 8 * B * H * S * S * D, f32)
-    b_dq = bound(reads / 2 + head, 4 * B * H * S * S * D, f32)
-    b_dkv = bound(reads / 2 + 2 * head, 4 * B * H * S * S * D, f32)
-    print(f"attention bwd: dq kernel {t_dq:.3f} ms (bound {b_dq[0]:.3f}, "
-          f"{b_dq[1]}), dkv kernel {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}, "
-          f"{b_dkv[1]}) (own launches); both through the wrapper "
-          f"{t_pair:.3f} ms "
-          f"(bound {b_pair[0]:.3f}, {b_pair[1]}); plain {t_p:.3f} ms; sdpa "
-          f"backward {t_l:.3f} ms")
-    for which, t, b in (("dq", t_dq, b_dq), ("dkv", t_dkv, b_dkv)):
-        rows.append(row(f"flash_attention_qkv_bwd_{which}", "training",
-                        "flash_attention.cu",
-                        "paddle_tpu/kernels/flash_attention.py:342",
-                        launches[f"attention_bwd_{which}"],
-                        err["attention_bwd"], t, t_p, b, t_l))
-    del qkv, bias, do, q, k, v, qg, kg, vg, out, do4
+    pairs = B * H * S * S
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+        if dtype != f32:  # BERT AMP's bf16 activations
+            qkv, do = qkv.to(dtype), do.to(dtype)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            mask = mask.to(dtype)
+            dqkv, dbias = fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                                     want_dbias=True, **kw)
+            want_q, want_b = fa.reference_qkv_bwd(qkv, H, bias, do, **kw)
+            e_pair = compare(dqkv, want_q, "attention_bwd", dtype,
+                             f"attention bwd dqkv B={B} S={S} {name}")
+            compare(dbias, want_b, "attention_bwd", f32,
+                    f"attention bwd dbias B={B} S={S} {name}")
+            del dqkv, dbias, want_q, want_b
+        else:
+            e_pair = err["attention_bwd"]
+        t = launch_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                                         **kw),
+                      (("flash_attention", "flash_attention_bwd_dq"),
+                       ("flash_attention", "flash_attention_bwd_dkv")))
+        t_dq, t_dkv = (t["flash_attention_bwd_dq"],
+                       t["flash_attention_bwd_dkv"])
+        t_pair = cuda_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                                            **kw),
+                         iters=10, reps=5)
+        t_p = cuda_ms(lambda: fa.reference_qkv_bwd(qkv, H, bias, do, **kw),
+                      iters=2, reps=3)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                             dropout_p=TRAIN_RATE,
+                                             scale=0.125)
+        do4 = do.view(B, S, H, D).transpose(1, 2)
+        t_l = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                                  retain_graph=True),
+                      iters=10, reps=5)
+        esz = qkv.element_size()
+        head = B * S * H * D * esz
+        reads = qkv.numel() * esz + head + bias.numel() * 4  # qkv, dO, bias
+        # the function's 8*B*H*S^2*D split by the products each kernel
+        # owns (dP, dQ to dq; dV, dK to dkv): on the fp32 CUDA cores; the
+        # rows' bound: 3xTF32 on the tensor cores in fp32, bf16's peak in
+        # bf16
+        ops = 4 * pairs * D
+        b_pair = bound(reads + 3 * head, 2 * ops, f32)
+        c_dq = bound(reads / 2 + head, ops, f32)
+        c_dkv = bound(reads / 2 + 2 * head, ops, f32)
+        ops, peak = (3 * ops, "tf32") if dtype == f32 else (ops, dtype)
+        b_dq = bound(reads / 2 + head, ops, peak)
+        b_dkv = bound(reads / 2 + 2 * head, ops, peak)
+        # not a bound: the TF32 products the kernels do at 495 TFLOP/s
+        n_dq, n_dkv = PAIR_TF32[dtype]
+        r_dq, r_dkv = (n * 2 * pairs * D / PEAK_OPS["tf32"] * 1e3
+                       for n in (n_dq, n_dkv))
+        print(f"attention bwd {name}: dq kernel {t_dq:.3f} ms (bound "
+              f"{b_dq[0]:.3f} {b_dq[1]}; fp32 CUDA cores {c_dq[0]:.3f}; "
+              f"its {n_dq} TF32 products {r_dq:.3f}), dkv kernel "
+              f"{t_dkv:.3f} ms (bound {b_dkv[0]:.3f} {b_dkv[1]}; CUDA "
+              f"cores {c_dkv[0]:.3f}; its {n_dkv} TF32 products "
+              f"{r_dkv:.3f}) (own launches); both through the wrapper "
+              f"{t_pair:.3f} ms (bound {b_dq[0] + b_dkv[0]:.3f}; the "
+              f"function on the fp32 CUDA cores {b_pair[0]:.3f}); plain "
+              f"{t_p:.3f} ms; sdpa {name} backward {t_l:.3f} ms "
+              f"({t_pair / t_l:.2f}x)")
+        path = "training" if dtype == f32 else "amp_training"
+        n = launches if dtype == f32 else amp_launches
+        for which, t_k, b in (("dq", t_dq, b_dq), ("dkv", t_dkv, b_dkv)):
+            rows.append(row(f"flash_attention_qkv_bwd_{which}", path,
+                            "flash_attention.cu",
+                            "paddle_tpu/kernels/flash_attention.py:342",
+                            n[f"attention_bwd_{which}"], e_pair, t_k, t_p, b,
+                            t_l))
+        del qg, kg, vg, out, do4
+    del qkv, bias, do, q, k, v, mask
     torch.cuda.empty_cache()
 
     x, y, g, c = res_inputs(R, N, f32, SEED)
@@ -2424,11 +2512,17 @@ def mha_kernel_times(fa, err, train_n, pred_n):
     program hands them; #5 at the predictor's largest bucket (B=8, test
     mode). Bounds: q, k, v (and dO) read once, out (dq, dk, dv) written
     once, the key bias read once, over 3.35 TB/s; 4*B*H*S^2*D operations
-    forward and 8*B*H*S^2*D backward at 67 TFLOP/s fp32. #6's time is the
-    wrapper's (both kernels), the split from CUDA events around each
-    launch (launch_ms).
-    Library: scaled_dot_product_attention (and its autograd backward) on
-    the same tensors."""
+    forward and 8*B*H*S^2*D backward at 67 TFLOP/s fp32; #6 runs on the
+    tensor cores, so its row carries the backward's operations as three
+    TF32 terms each (3xTF32) at 495 TFLOP/s, and the fp32 one and the
+    time of the 27 TF32 products the kernels do (PAIR_TF32,
+    recomputation included) are printed beside it. #6's time is the
+    wrapper's (both kernels), the
+    split from CUDA events around each launch (launch_ms); two launches
+    must give the same bits, and head 0 of the kernels and of the plain
+    version is measured against fp64. Library:
+    scaled_dot_product_attention (and its autograd backward) on the same
+    tensors."""
     import torch.nn.functional as F
 
     B, S, H, D = MHA_B, MHA_S, MHA_H, MHA_D
@@ -2470,16 +2564,34 @@ def mha_kernel_times(fa, err, train_n, pred_n):
     t_l = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                               retain_graph=True),
                   iters=10, reps=5)
-    b = bound(7 * head + bias.numel() * 4, 8 * B * H * S * S * D, f32)
+    pairs = B * H * S * S
+    c = bound(7 * head + bias.numel() * 4, 8 * pairs * D, f32)
+    b = bound(7 * head + bias.numel() * 4, 3 * 8 * pairs * D, "tf32")
+    done = sum(PAIR_TF32[f32]) * 2 * pairs * D / PEAK_OPS["tf32"] * 1e3
+    tflops = 9 * 2 * pairs * D / t_k / 1e9
     print(f"#6 bwd: {t_k:.3f} ms through the wrapper (dq kernel "
           f"{t['flash_attention_bwd_dq']:.3f} ms, dkv kernel "
-          f"{t['flash_attention_bwd_dkv']:.3f} ms), plain {t_p:.3f} ms, sdpa "
-          f"backward {t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+          f"{t['flash_attention_bwd_dkv']:.3f} ms; {tflops:.1f} TFLOP/s of "
+          f"fp32 products, 9 of 2*B*H*S^2*D), plain {t_p:.3f} ms, sdpa "
+          f"backward {t_l:.3f} ms ({t_k / t_l:.2f}x), bound {b[0]:.3f} ms "
+          f"({b[1]}, 3xTF32 tensor cores) / {c[0]:.3f} ms (fp32 CUDA "
+          f"cores); its 27 TF32 products at 495 TFLOP/s {done:.3f} ms")
     rows.append(row("fused_mha_bwd", "mha_training",
                     "flash_attention.cu",
                     "paddle_tpu/kernels/flash_attention.py:175",
                     train_n["mha_bwd_dq"], err["mha_bwd"], t_k, t_p, b, t_l))
-    del q, k, v, qkv, bias, mask, do, qg, kg, vg, out
+    # fixed-order sums, no atomics: two launches give the same bits
+    first = fa.attention_grads(q, k, v, bias, do, **kw)
+    again = fa.attention_grads(q, k, v, bias, do, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "two launches of #6 on the same inputs differ in their bits")
+    print("#6: two launches on the same inputs give the same bits (dq, dk, "
+          "dv, dbias)")
+    pair_f64_line(q, k, v, bias, do, first[:3],
+                  fa.reference_bwd(q, k, v, bias, do, **kw)[:3], 0.125,
+                  TRAIN_RATE, MASK_SEED, "#6")
+    del q, k, v, qkv, bias, mask, do, qg, kg, vg, out, first, again
     torch.cuda.empty_cache()
 
     Bp = MHA_BUCKETS[-1]
@@ -2559,24 +2671,31 @@ def misaligned_views(layout, B, H, Sq, Sk, D, dtype, seed):
     return q, k, v, do
 
 
-def ring_tensor_cores():
-    """#13 and #14 as built: each instance's HMMA (tensor-core)
-    instructions in the SASS of libring_block (cuobjdump -sass; none may
-    lack them), and from the CUDA runtime the blocks of each that fit on
-    one SM with its dynamic shared memory."""
+# the backward pairs on the tensor cores: (library, the pair's kernels, its
+# CUDA-core forward, the library's occupancy entry)
+MMA_PAIRS = (
+    ("flash_attention", ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"),
+     "attn_fwd_kernel", "flash_attention_bwd_occupancy"),
+    ("ring_block", ("ring_dq_kernel", "ring_dkv_kernel"), "ring_fwd_kernel",
+     "ring_block_bwd_occupancy"),
+)
+
+
+def sass_hmma(lib_name, kernels):
+    """{"kernel<dtype, D>": HMMA (tensor-core) instructions} of each
+    instance of the named kernels in the SASS of a kernel library
+    (cuobjdump -sass)."""
     from paddle_tpu_torch.kernels import _build
 
-    lib = _build.load("ring_block")
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build.lib_path("ring_block"))],
+    sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(lib_name))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
+    pattern = re.compile(rf"({'|'.join(kernels)})I(\w+?)Li(\d+)E")
     hmma, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(ring_(?:fwd|dq|dkv)_kernel)I(\w+?)Li(\d+)E",
-                          line)
+            m = pattern.search(line)
             name = None
             if m:
                 dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
@@ -2584,28 +2703,42 @@ def ring_tensor_cores():
                 hmma[name] = 0
         elif name and "HMMA" in line:
             hmma[name] += 1
-    occupancy = lib.ring_block_bwd_occupancy
-    occupancy.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)] * 2
-    occupancy.restype = ctypes.c_int
-    print("== ring backward pair as built: tensor-core instructions, "
-          "blocks an SM")
-    for which, kernel in enumerate(("ring_dq_kernel", "ring_dkv_kernel")):
-        for code, dtype in enumerate(("f32", "bf16")):
-            for D in (32, 64, 128):
-                name = f"{kernel}<{dtype}, {D}>"
-                blocks, smem = ctypes.c_int(), ctypes.c_int()
-                err = occupancy(which, code, D, ctypes.byref(blocks),
-                                ctypes.byref(smem))
-                check(err == 0, f"{name}: occupancy query failed ({err})")
-                n_hmma = hmma.get(name, 0)
-                print(f"  {name}: {n_hmma} HMMA, {blocks.value} blocks an "
-                      f"SM, {smem.value} bytes of shared memory")
-                check(n_hmma > 0 and blocks.value > 0,
-                      f"{name}: no tensor-core instruction in its SASS or "
-                      "no block fits on an SM")
-    fwd = {n: c for n, c in hmma.items() if n.startswith("ring_fwd")}
-    print(f"  ring_fwd_kernel (CUDA cores): HMMA {sorted(set(fwd.values()))}")
+    return hmma
+
+
+def tensor_cores():
+    """The backward pairs as built, #3/#6 (attn_bwd_dq/dkv_kernel) and
+    #13/#14 (ring_dq/dkv_kernel): each instance's HMMA (tensor-core)
+    instructions in its library's SASS (none may lack them), and from the
+    CUDA runtime the blocks of each that fit on one SM with its dynamic
+    shared memory; the CUDA-core forwards' HMMA beside them."""
+    from paddle_tpu_torch.kernels import _build
+
+    print("== backward pairs as built: tensor-core instructions, blocks an "
+          "SM")
+    for lib_name, kernels, fwd, entry in MMA_PAIRS:
+        hmma = sass_hmma(lib_name, kernels + (fwd,))
+        occupancy = getattr(_build.load(lib_name), entry)
+        occupancy.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        occupancy.restype = ctypes.c_int
+        for which, kernel in enumerate(kernels):
+            for code, dtype in enumerate(("f32", "bf16")):
+                for D in (32, 64, 128):
+                    name = f"{kernel}<{dtype}, {D}>"
+                    blocks, smem = ctypes.c_int(), ctypes.c_int()
+                    err = occupancy(which, code, D, ctypes.byref(blocks),
+                                    ctypes.byref(smem))
+                    check(err == 0, f"{name}: occupancy query failed ({err})")
+                    n_hmma = hmma.get(name, 0)
+                    print(f"  {name}: {n_hmma} HMMA, {blocks.value} blocks "
+                          f"an SM, {smem.value} bytes of shared memory")
+                    check(n_hmma > 0 and blocks.value > 0,
+                          f"{name}: no tensor-core instruction in its SASS "
+                          "or no block fits on an SM")
+        on_cores = {n: c for n, c in hmma.items() if n.startswith(fwd)}
+        print(f"  {fwd} (CUDA cores): HMMA "
+              f"{sorted(set(on_cores.values()))}")
 
 
 def ring_parity(rb):
@@ -3119,11 +3252,9 @@ def ring_kernel_times(rb, sp_n):
     # same inputs, dk and dv read and written
     b13 = bound(6 * head + 2 * stats, 4 * D * pairs, torch.float32)
     b14 = bound(8 * head + 2 * stats, 4 * D * pairs, torch.float32)
-    split = 3 * 4 * D * pairs / PEAK_TF32 * 1e3
-    s13 = (max(split, (6 * head + 2 * stats) / HBM_BYTES_PER_S * 1e3),
-           "operations")
-    s14 = (max(split, (8 * head + 2 * stats) / HBM_BYTES_PER_S * 1e3),
-           "operations")
+    # each kernel's 4*D a pair as 3xTF32: six TF32 products of 2*D a pair
+    s13 = bound(6 * head + 2 * stats, 3 * 4 * D * pairs, "tf32")
+    s14 = bound(8 * head + 2 * stats, 3 * 4 * D * pairs, "tf32")
     t13, t14 = t["ring_block_bwd_dq"], t["ring_block_bwd_dkv"]
     tf13 = 3 * 2 * D * pairs / t13 / 1e9
     tf14 = 4 * 2 * D * pairs / t14 / 1e9
@@ -3188,7 +3319,7 @@ def main():
     tiled_err = tiled_parity(ft)
     ln_err = ln_parity(lnk)
     mha_err = mha_parity(fa)
-    ring_tensor_cores()
+    tensor_cores()
     ring_parity(rb)
     ring_schedule(rb, kc)
     routed_attention(fa, ft, kc)
@@ -3202,14 +3333,14 @@ def main():
     gpt_train_n, _ = gpt_train_full(fluid, kc)
     gpt_serve_n = gpt_serving(fluid, kc)
     gpt_train_small(fluid, amp=True)
-    train_full(fluid, layers, kc, amp=True)
+    amp_n = train_full(fluid, layers, kc, amp=True)
     gpt_train_full(fluid, kc, amp=True)
     gpt_ln_n, _ = gpt_train_full(fluid, kc, amp=True, ln_kernels=True)
     mha_train_small(fluid, layers)
     mha_train_n, mha_pred_n, _ = mha_path(fluid, layers, kc)
     sp_n = sp_path(fluid, layers, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
-    rows += train_kernel_times(fa, fr, sp, train_err, train_n)
+    rows += train_kernel_times(fa, fr, sp, train_err, train_n, amp_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n)
     rows += ln_kernel_times(lnk, ln_err, gpt_ln_n)
     rows += mha_kernel_times(fa, mha_err, mha_train_n, mha_pred_n)

@@ -1,7 +1,7 @@
 // Device code shared by the attention kernels of flash_attention.cu (the
 // whole-row kernels: #1/#5 forward, #3/#6 backward) and flash_tiled.cu
 // (#7 forward, #8 dkv, #9 dq): the helpers, the forward body (#1, #5, #7)
-// and the dkv body (the whole-row dkv kernel, #8). The bodies take each
+// and the CUDA-core dkv body (#8). The bodies take each
 // head's rows through base pointers and a row stride, so one body serves
 // the packed projection qkv[B, S, 3*H*D] (section i in {q, k, v}, head h
 // at column i*H*D + h*D) and the 4-D [B, H, S, D] layout alike.
@@ -99,14 +99,16 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
   }
 }
 
-// Keep bytes of the (query rows q0.., keys k0..) tile: byte rr * GROUPS + g
-// holds the keep bits of keys k0 + 8g .. k0 + 8g + 7 for query q0 + rr.
+// Keep bytes of the (NR query rows q0.., 8 NG keys k0..) tile, drawn by
+// NT threads: byte rr * NG + g holds the keep bits of keys k0 + 8g ..
+// k0 + 8g + 7 for query q0 + rr.
+template <int NR = BM, int NG = GROUPS, int NT = THREADS>
 __device__ __forceinline__ void fill_mask(unsigned char* sM, const Dropout& dr,
                                           int q0, int k0, int h, int b,
                                           int tid) {
   if (!dr.use_mask) return;
-  for (int i = tid; i < BM * GROUPS; i += THREADS) {
-    const int rr = i / GROUPS, g = i % GROUPS;
+  for (int i = tid; i < NR * NG; i += NT) {
+    const int rr = i / NG, g = i % NG;
     sM[i] = (unsigned char)philox::keep_byte(
         (uint32_t)((k0 >> 3) + g), (uint32_t)(q0 + rr), (uint32_t)h,
         (uint32_t)b, dr.seed0, dr.seed1, dr.threshold);
@@ -513,6 +515,34 @@ int dispatch(int dtype, int D, const A& a, void* stream) {
       case 64: return run(K<bf, 64>::launch, opt_in_smem<K<bf, 64>>());
       case 128: return run(K<bf, 128>::launch, opt_in_smem<K<bf, 128>>());
     }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The blocks of kernel K (K::threads threads a block) that fit on one SM
+// of the current device, and the dynamic shared memory each takes
+// (K::smem): a report of the build, which no launch reads.
+template <typename K>
+int occupancy_of(int* blocks, int* smem_bytes) {
+  const cudaError_t opt = opt_in_smem<K>();
+  if (opt != cudaSuccess) return (int)opt;
+  *smem_bytes = (int)K::smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, K::fn(), K::threads, K::smem);
+}
+
+// occupancy_of K<T, D> for a dtype code (0 = float32, 1 = bfloat16) and
+// head dim
+template <template <typename, int> class K>
+int occupancy(int dtype, int D, int* blocks, int* smem_bytes) {
+  using bf = __nv_bfloat16;
+  switch (dtype * 1000 + D) {
+    case 32: return occupancy_of<K<float, 32>>(blocks, smem_bytes);
+    case 64: return occupancy_of<K<float, 64>>(blocks, smem_bytes);
+    case 128: return occupancy_of<K<float, 128>>(blocks, smem_bytes);
+    case 1032: return occupancy_of<K<bf, 32>>(blocks, smem_bytes);
+    case 1064: return occupancy_of<K<bf, 64>>(blocks, smem_bytes);
+    case 1128: return occupancy_of<K<bf, 128>>(blocks, smem_bytes);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 // Tensor-core tile code for Hopper (sm_90a): fp32-accurate products on
 // mma.sync TF32 (3xTF32), shared-memory tiles fed by cp.async, and the
 // fragment loads of the m16n8k8 product. The ring-block backward pair
-// (#13, #14, ring_block.cu) is built on it; the other attention kernels'
-// tiles ([B, H, S, D] strided views alike) are meant to reuse it.
+// (#13, #14, ring_block.cu) and the whole-row backward pair (#3/#6,
+// flash_attention.cu) are built on it; the other attention kernels' tiles
+// ([B, H, S, D] strided views alike) are meant to reuse it.
 //
 // The product. A block's warps each own 16 rows of an m16n8k8 TF32 product
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, fp32 accumulators).
@@ -29,8 +30,13 @@
 // (8 rows x 4 columns, or 4 row pairs x 8 columns) is free of bank
 // conflicts in fp32 and bf16. load_tile copies 16 bytes a thread with
 // cp.async (zero-filled past the sequence end) when the caller's rows are
-// 16-byte aligned, else element by element; a caller waits with
-// wait_async<N>() and __syncthreads() in either case.
+// 16-byte aligned (rows_aligned), else element by element; a caller
+// waits with wait_async<N>() and __syncthreads() in either case.
+//
+// The backward pairs. BwdTiles, load_stage, load_floats and tile_products
+// are the parts the two pairs share: the tiles, the stream's loads and
+// the S and dP products of a tile; each kernel keeps its own elementwise
+// step (liveness at offsets, or bias, causal cut and dropout) and store.
 
 #pragma once
 
@@ -233,6 +239,98 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
       for (int e = 0; e < PER; ++e) db[e] = ok ? sb[e] : Bits(0);
     }
   }
+}
+
+// The shared-memory tiles of a backward block on these products: a
+// resident tile of ROWS rows of two operands (dq: Q and dO; dkv: K and V)
+// and STAGES stages of two streamed tiles of BS rows (dq: K and V; dkv: Q
+// and dO), rows LDT elements apart; a kernel's fp32 stage rows (a key
+// bias, lse and delta) and keep masks follow them (smem).
+template <typename T, int D>
+struct BwdTiles {
+  static constexpr int LDT = ldt<T, D>();
+  // rows of a streamed tile: D=128 halves it, so that the S and dP tiles
+  // (BS/2 registers each) fit beside the D/2 (dq) or D (dk and dv) of the
+  // accumulators
+  static constexpr int BS = D > 64 ? 32 : 64;
+  static constexpr int NB = BS / 8;  // 8-column blocks of S and dP
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE = 2 * BS * LDT;  // elements of a stage
+  // bytes with `floats` fp32 values a stage and `extra` bytes after them
+  static constexpr size_t smem(int floats, size_t extra = 0) {
+    return (2 * ROWS * LDT + STAGES * STAGE) * sizeof(T) +
+           STAGES * floats * sizeof(float) + extra;
+  }
+};
+
+// One stage of the stream: rows [r0, r0 + BS) of a (rows a_ss apart) and
+// of b (rows b_ss apart) into stage and stage + BS * LDT (load_tile)
+template <typename T, int D, int BS>
+__device__ __forceinline__ void load_stage(T* stage, const T* a,
+                                           long long a_ss, const T* b,
+                                           long long b_ss, int r0, int S,
+                                           int tid, bool async) {
+  load_tile<T, D, BS>(stage, a, a_ss, r0, S, tid, async);
+  load_tile<T, D, BS>(stage + BS * ldt<T, D>(), b, b_ss, r0, S, tid, async);
+}
+
+// Values [r0, r0 + N) of the fp32 row a, and of b unless it is null, into
+// dst (b's at dst + N) by 4-byte cp.async (any alignment; zeros past S),
+// thread tid copying value tid of the two
+template <int N>
+__device__ __forceinline__ void load_floats(float* dst, const float* a,
+                                            const float* b, int r0, int S,
+                                            int tid) {
+  if (tid >= (b ? 2 : 1) * N) return;
+  const int i = r0 + tid % N;
+  const bool ok = i < S;
+  cp_async4(dst + tid, (tid < N ? a : b) + (ok ? i : 0), ok);
+}
+
+// The two products of one streamed tile for warp w: s = A1 B1^T and
+// dp = A2 B2^T, A1 and A2 the warp's 16 rows (from row 16 w) of the
+// resident tiles, B1 and B2 the NB*8 rows of the stage, each summed from
+// zero over the D columns (dq: S = Q K^T, dP = dO V^T; dkv: S^T = K Q^T,
+// dP^T = V dO^T)
+template <int D, int NB, int LDT, bool EXACT, typename T>
+__device__ __forceinline__ void tile_products(float (&s)[NB][4],
+                                              float (&dp)[NB][4],
+                                              const T* a1, const T* b1,
+                                              const T* a2, const T* b2,
+                                              int w, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    Frag<4, EXACT> f1, f2;
+    load_a<LDT>(f1, a1, w * 16, kk * 8, lane);
+    load_a<LDT>(f2, a2, w * 16, kk * 8, lane);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      Frag<2, EXACT> g1, g2;
+      load_b_nk<LDT>(g1, b1, nb * 8, kk * 8, lane);
+      mma3(s[nb], f1, g1);
+      load_b_nk<LDT>(g2, b2, nb * 8, kk * 8, lane);
+      mma3(dp[nb], f2, g2);
+    }
+  }
+}
+
+// load_tile's async path for a launch: 1 where q, k, v and dout start
+// on a 16-byte boundary and each of the first n_strides element strides
+// (of elem_bytes each) spans a multiple of 16 bytes, so that every head
+// row is aligned; else 0 (a view one element off, an odd row stride).
+inline int rows_aligned(const void* q, const void* k, const void* v,
+                        const void* dout, const long long* strides,
+                        int n_strides, int elem_bytes) {
+  const void* ptrs[] = {q, k, v, dout};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
+  for (int i = 0; i < n_strides; ++i)
+    if (strides[i] * elem_bytes % 16) return 0;
+  return 1;
 }
 
 }  // namespace mma

@@ -224,21 +224,6 @@ __global__ void __launch_bounds__(THREADS) ring_fwd_kernel(RingArgs a) {
 // other operand streamed through two cp.async stages of BS rows.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-struct BwdTiles {
-  static constexpr int LDT = mma::ldt<T, D>();
-  // rows of a streamed tile: D=128 halves it, so that the S and dP tiles
-  // (BS/2 registers each) fit beside the D/2 (dq) or D (dk and dv) of the
-  // accumulators
-  static constexpr int BS = D > 64 ? 32 : 64;
-  static constexpr int STAGES = 2;
-  static constexpr size_t row_bytes = LDT * sizeof(T);
-  // dq: Q and dO resident, K and V streamed
-  static constexpr size_t dq = (2 * mma::ROWS + STAGES * 2 * BS) * row_bytes;
-  // dkv: K and V resident, Q and dO streamed with their lse and delta
-  static constexpr size_t dkv = dq + STAGES * 2 * BS * sizeof(float);
-};
-
 // the two rows' accumulators of one thread (columns 8 nd + 2t, + 1 of rows
 // g and g + 8) times mul, added into the fp32 rows lo and hi
 template <int D>
@@ -273,14 +258,14 @@ __device__ __forceinline__ void add_frags(float* lo, float* hi,
 // heaviest query tiles (the last) start first.
 template <typename T, int D>
 __global__ void __launch_bounds__(mma::THREADS, 2) ring_dq_kernel(RingArgs a) {
-  using Tl = BwdTiles<T, D>;
-  constexpr int LDT = Tl::LDT, BS = Tl::BS, NB = BS / 8, ND = D / 8;
+  using Tl = mma::BwdTiles<T, D>;
+  constexpr int LDT = Tl::LDT, BS = Tl::BS, NB = Tl::NB, ND = D / 8;
   constexpr bool EX = mma::exact_tf32<T>();
 
   extern __shared__ float4 smem4[];
   T* sQ = reinterpret_cast<T*>(smem4);
   T* sDO = sQ + mma::ROWS * LDT;
-  T* sKV = sDO + mma::ROWS * LDT;  // stage s: K, then V, at 2 s BS rows
+  T* sKV = sDO + mma::ROWS * LDT;  // stage s: K, then V, at s STAGE
 
   const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qt * mma::ROWS;
@@ -292,10 +277,8 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dq_kernel(RingArgs a) {
   const T* kb = head_ptr<T>(a.k, a.kv_sb, a.kv_sh);
   const T* vb = head_ptr<T>(a.v, a.kv_sb, a.kv_sh);
   auto load_kv = [&](int kt) {
-    T* st = sKV + (kt & 1) * 2 * BS * LDT;
-    mma::load_tile<T, D, BS>(st, kb, a.kv_ss, kt * BS, a.Sk, tid, async);
-    mma::load_tile<T, D, BS>(st + BS * LDT, vb, a.kv_ss, kt * BS, a.Sk, tid,
-                             async);
+    mma::load_stage<T, D, BS>(sKV + (kt & 1) * Tl::STAGE, kb, a.kv_ss, vb,
+                              a.kv_ss, kt * BS, a.Sk, tid, async);
   };
   mma::load_tile<T, D, mma::ROWS>(sQ, head_ptr<T>(a.q, a.q_sb, a.q_sh),
                                   a.q_ss, q0, a.Sq, tid, async);
@@ -325,28 +308,11 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dq_kernel(RingArgs a) {
     mma::commit_async();  // possibly empty: one group an iteration
     mma::wait_async<1>();
     __syncthreads();
-    const T* sK = sKV + (kt & 1) * 2 * BS * LDT;
+    const T* sK = sKV + (kt & 1) * Tl::STAGE;
     const T* sV = sK + BS * LDT;
 
-    float s[NB][4], dp[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      mma::Frag<4, EX> fq, fdo;
-      mma::load_a<LDT>(fq, sQ, w * 16, kk * 8, lane);
-      mma::load_a<LDT>(fdo, sDO, w * 16, kk * 8, lane);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        mma::Frag<2, EX> fk, fv;
-        mma::load_b_nk<LDT>(fk, sK, nb * 8, kk * 8, lane);
-        mma::mma3(s[nb], fq, fk);
-        mma::load_b_nk<LDT>(fv, sV, nb * 8, kk * 8, lane);
-        mma::mma3(dp[nb], fdo, fv);
-      }
-    }
+    float s[NB][4], dp[NB][4];  // S = Q K^T, dP = dO V^T
+    mma::tile_products<D, NB, LDT, EX>(s, dp, sQ, sK, sDO, sV, w, lane);
     const int k0 = kt * BS;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -374,15 +340,15 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dq_kernel(RingArgs a) {
 // key-major, as the A operands of dV += P^T dO and dK += dS^T Q.
 template <typename T, int D>
 __global__ void __launch_bounds__(mma::THREADS, 2) ring_dkv_kernel(RingArgs a) {
-  using Tl = BwdTiles<T, D>;
-  constexpr int LDT = Tl::LDT, BS = Tl::BS, NB = BS / 8, ND = D / 8;
+  using Tl = mma::BwdTiles<T, D>;
+  constexpr int LDT = Tl::LDT, BS = Tl::BS, NB = Tl::NB, ND = D / 8;
   constexpr bool EX = mma::exact_tf32<T>();
 
   extern __shared__ float4 smem4[];
   T* sK = reinterpret_cast<T*>(smem4);
   T* sV = sK + mma::ROWS * LDT;
-  T* sQD = sV + mma::ROWS * LDT;  // stage s: Q, then dO, at 2 s BS rows
-  float* sStat = reinterpret_cast<float*>(sQD + Tl::STAGES * 2 * BS * LDT);
+  T* sQD = sV + mma::ROWS * LDT;  // stage s: Q, then dO, at s STAGE
+  float* sStat = reinterpret_cast<float*>(sQD + Tl::STAGES * Tl::STAGE);
 
   const int k0 = blockIdx.x * mma::ROWS;
   const int n_qt = (a.Sq + BS - 1) / BS;
@@ -401,16 +367,10 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dkv_kernel(RingArgs a) {
   const float* delta_row = a.delta + head * a.Sq;
   auto load_q = [&](int qt) {
     const int st = (qt - qt0) & 1;
-    T* dst = sQD + st * 2 * BS * LDT;
-    mma::load_tile<T, D, BS>(dst, qb, a.q_ss, qt * BS, a.Sq, tid, async);
-    mma::load_tile<T, D, BS>(dst + BS * LDT, dob, a.do_ss, qt * BS, a.Sq,
-                             tid, async);
-    if (tid < 2 * BS) {  // lse, then delta (4-byte copies: any Sq)
-      const int i = qt * BS + tid % BS;
-      const bool ok = i < a.Sq;
-      const float* src = tid < BS ? lse_row : delta_row;
-      mma::cp_async4(sStat + st * 2 * BS + tid, src + (ok ? i : 0), ok);
-    }
+    mma::load_stage<T, D, BS>(sQD + st * Tl::STAGE, qb, a.q_ss, dob, a.do_ss,
+                              qt * BS, a.Sq, tid, async);
+    mma::load_floats<BS>(sStat + st * 2 * BS, lse_row, delta_row, qt * BS,
+                         a.Sq, tid);  // lse, then delta
   };
   mma::load_tile<T, D, mma::ROWS>(sK, head_ptr<T>(a.k, a.kv_sb, a.kv_sh),
                                   a.kv_ss, k0, a.Sk, tid, async);
@@ -433,30 +393,13 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dkv_kernel(RingArgs a) {
     mma::wait_async<1>();
     __syncthreads();
     const int st = (qt - qt0) & 1;
-    const T* sQ = sQD + st * 2 * BS * LDT;
+    const T* sQ = sQD + st * Tl::STAGE;
     const T* sDO = sQ + BS * LDT;
     const float* sLse = sStat + st * 2 * BS;
     const float* sDelta = sLse + BS;
 
-    float s[NB][4], dp[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      mma::Frag<4, EX> fk, fv;
-      mma::load_a<LDT>(fk, sK, w * 16, kk * 8, lane);
-      mma::load_a<LDT>(fv, sV, w * 16, kk * 8, lane);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        mma::Frag<2, EX> fq, fdo;
-        mma::load_b_nk<LDT>(fq, sQ, nb * 8, kk * 8, lane);
-        mma::mma3(s[nb], fk, fq);
-        mma::load_b_nk<LDT>(fdo, sDO, nb * 8, kk * 8, lane);
-        mma::mma3(dp[nb], fv, fdo);
-      }
-    }
+    float s[NB][4], dp[NB][4];  // S^T = K Q^T, dP^T = V dO^T
+    mma::tile_products<D, NB, LDT, EX>(s, dp, sK, sQ, sV, sDO, w, lane);
     const int q0 = qt * BS;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -485,18 +428,23 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dkv_kernel(RingArgs a) {
 #define RING_KERNEL(NAME, KERNEL, NTHREADS, SMEM)                            \
   template <typename T, int D>                                               \
   struct NAME {                                                              \
+    static constexpr int threads = NTHREADS;                                 \
     static constexpr size_t smem = SMEM;                                     \
     static const void* fn() { return (const void*)KERNEL<T, D>; }            \
     static void launch(dim3 grid, cudaStream_t st, const RingArgs& a) {      \
-      KERNEL<T, D><<<grid, NTHREADS, smem, st>>>(a);                         \
+      KERNEL<T, D><<<grid, threads, smem, st>>>(a);                          \
     }                                                                        \
   };
 
 // dispatch's grid tiles the launch's axis by attn::BM rows
 static_assert(mma::ROWS == BM, "the backward's resident tiles are BM rows");
 RING_KERNEL(Fwd, ring_fwd_kernel, THREADS, Layout<D>::fwd)
-RING_KERNEL(Dq, ring_dq_kernel, mma::THREADS, (BwdTiles<T, D>::dq))
-RING_KERNEL(Dkv, ring_dkv_kernel, mma::THREADS, (BwdTiles<T, D>::dkv))
+// dq: Q and dO resident, K and V streamed; dkv: K and V resident, Q and
+// dO streamed with their lse and delta
+RING_KERNEL(Dq, ring_dq_kernel, mma::THREADS,
+            (mma::BwdTiles<T, D>::smem(0)))
+RING_KERNEL(Dkv, ring_dkv_kernel, mma::THREADS,
+            (mma::BwdTiles<T, D>::smem(2 * mma::BwdTiles<T, D>::BS)))
 
 RingArgs make_args(const void* q, const void* k, const void* v,
                    const void* dout, float* o, float* dk, float* dv,
@@ -508,19 +456,12 @@ RingArgs make_args(const void* q, const void* k, const void* v,
                   s[7], s[8], scale, causal, 0};
 }
 
-// The backward's copy path: 16-byte cp.async where q, k, v and dO start on
-// a 16-byte boundary and each of their nine strides spans a multiple of
-// 16 bytes (every head row is then aligned), else synchronous element
-// copies (a view one element off, an odd row stride).
+// The backward's copy path: 16-byte cp.async where q, k, v and dO and
+// their nine strides keep every head row 16-byte aligned, else
+// synchronous element copies.
 int rows_aligned(const void* q, const void* k, const void* v,
                  const void* dout, const long long* s, int dtype) {
-  const long long es = dtype == 1 ? 2 : 4;
-  const void* ptrs[] = {q, k, v, dout};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
-  for (int i = 0; i < 9; ++i)
-    if (s[i] * es % 16) return 0;
-  return 1;
+  return mma::rows_aligned(q, k, v, dout, s, 9, dtype == 1 ? 2 : 4);
 }
 
 }  // namespace
@@ -569,33 +510,6 @@ extern "C" int ring_block_bwd_dkv(const void* q, const void* k, const void* v,
   a.async_copy = rows_aligned(q, k, v, dout, strides, dtype);
   return dispatch<Dkv>(dtype, D, a, stream);
 }
-
-namespace {
-
-template <typename K>
-int occupancy_of(int* blocks, int* smem_bytes) {
-  const cudaError_t opt = opt_in_smem<K>();
-  if (opt != cudaSuccess) return (int)opt;
-  *smem_bytes = (int)K::smem;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, K::fn(), mma::THREADS, K::smem);
-}
-
-template <template <typename, int> class K>
-int occupancy(int dtype, int D, int* blocks, int* smem_bytes) {
-  using bf = __nv_bfloat16;
-  switch (dtype * 1000 + D) {
-    case 32: return occupancy_of<K<float, 32>>(blocks, smem_bytes);
-    case 64: return occupancy_of<K<float, 64>>(blocks, smem_bytes);
-    case 128: return occupancy_of<K<float, 128>>(blocks, smem_bytes);
-    case 1032: return occupancy_of<K<bf, 32>>(blocks, smem_bytes);
-    case 1064: return occupancy_of<K<bf, 64>>(blocks, smem_bytes);
-    case 1128: return occupancy_of<K<bf, 128>>(blocks, smem_bytes);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // The blocks of a backward kernel (which: 0 = dq, 1 = dkv) that fit on
 // one SM of the current device, and the dynamic shared memory each block

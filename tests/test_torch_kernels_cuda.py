@@ -1197,3 +1197,110 @@ def test_sp_program_on_a_one_rank_nccl_mesh_matches_the_cpu(dev, op):
                                                     before[2] + 2)
     finally:
         mesh.close()
+
+
+# ---------------------------------------------------------------------------
+# the whole-row backward pair (#3/#6) on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _pair_launches():
+    return (fa.attention_grads.launches_dq, fa.attention_grads.launches_dkv,
+            fa.fused_attention_qkv_bwd.launches_dq,
+            fa.fused_attention_qkv_bwd.launches_dkv)
+
+
+def _pair_kw(D, causal=False):
+    return dict(scale=1 / math.sqrt(D), dropout_rate=0.1, is_test=False,
+                causal=causal, seed=SEED)
+
+
+@pytest.mark.parametrize("want_dbias", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [100, 512, 1024])
+def test_attention_backward_pair_matches_its_plain_version(dev, S, D, dtype,
+                                                           causal,
+                                                           want_dbias):
+    """#6's two kernels (3xTF32 products on the tensor cores) on the
+    head-split views of a projection, with training dropout 0.1 and a key
+    bias with padded tails, against the plain version: S = 100 (no
+    multiple of the 64-row tile), 512 (BERT's) and 1024 (the whole-row
+    cap); dbias computed (sum_partials) or not. One launch of each."""
+    q, k, v, _, bias = _heads(dev, 2, S, 3, D, dtype, seed=S + D)
+    g = torch.Generator(device=dev).manual_seed(7)
+    do = torch.randn(2, 3, S, D, generator=g, device=dev).to(dtype)
+    kw = _pair_kw(D, causal)
+    before = _pair_launches()
+    got = fa.attention_grads(q, k, v, bias, do, want_dbias=want_dbias, **kw)
+    assert _pair_launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    want = fa.reference_bwd(q, k, v, bias, do, **kw)
+    for a, w in zip(got[:3], want[:3]):
+        _close(a, w, "attention_bwd", dtype)
+    if want_dbias:
+        _close(got[3], want[3], "attention_bwd", torch.float32)
+    else:
+        assert got[3] is None
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_split",
+                                    "base_off_by_one", "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_pair_reads_every_layout(dev, dtype, layout):
+    """The pair reads its operands in place: the packed projection (#3,
+    rows 3*H*D apart), its head-split views (#6), and views whose rows are
+    not 16-byte aligned (the base one element off, or rows an odd number
+    of elements apart: the kernels' synchronous copy path), causal, with
+    training dropout and dbias, against the plain versions."""
+    B, S, H, D = 2, 200, 3, 64
+    kw = _pair_kw(D, causal=True)
+    g = torch.Generator(device=dev).manual_seed(9)
+    before = _pair_launches()
+    if layout == "packed":
+        qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=8)
+        do = torch.randn(B, S, H * D, generator=g, device=dev).to(dtype)
+        dqkv, dbias = fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                                 want_dbias=True, **kw)
+        assert _pair_launches() == before[:2] + (before[2] + 1,
+                                                 before[3] + 1)
+        want_q, want_b = fa.reference_qkv_bwd(qkv, H, bias, do, **kw)
+        _close(dqkv, want_q, "attention_bwd", dtype)
+        _close(dbias, want_b, "attention_bwd", torch.float32)
+        return
+    if layout == "head_split":
+        q, k, v, _, bias = _heads(dev, B, S, H, D, dtype, seed=8)
+    else:
+        q, k, v = _misaligned(dev, layout, B, H, S, D, dtype, 3, 8)
+        _, bias = _qkv(dev, B, S, H, D, dtype, seed=8)
+        assert q.data_ptr() % 16 or q.stride(2) % 2
+    do = torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+    got = fa.attention_grads(q, k, v, bias, do, **kw)
+    assert _pair_launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    want = fa.reference_bwd(q, k, v, bias, do, **kw)
+    for a, w in zip(got[:3], want[:3]):
+        _close(a, w, "attention_bwd", dtype)
+    _close(got[3], want[3], "attention_bwd", torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_pair_gives_the_same_bits_twice(dev, dtype,
+                                                           layout):
+    """Fixed-order sums and no float atomics: two launches of the pair on
+    the same inputs give the same dq, dk, dv and dbias bits."""
+    B, S, H, D = 2, 700, 3, 64
+    kw = _pair_kw(D)
+    if layout == "packed":
+        qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=10)
+        do = torch.randn(B, S, H * D, device=dev).to(dtype)
+        first, second = (fa.fused_attention_qkv_bwd(qkv, H, bias, do,
+                                                    want_dbias=True, **kw)
+                         for _ in range(2))
+    else:
+        q, k, v, _, bias = _heads(dev, B, S, H, D, dtype, seed=10)
+        do = torch.randn(B, H, S, D, device=dev).to(dtype)
+        first, second = (fa.attention_grads(q, k, v, bias, do, **kw)
+                         for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

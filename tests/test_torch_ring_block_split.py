@@ -1,14 +1,18 @@
-"""The arithmetic of the ring-block backward pair (#13, #14) on the
-tensor cores, through its plain model in paddle_tpu_torch.kernels.
-ring_block: `tf32_round` (the card's cvt.rna.tf32.f32: round to nearest,
-ties away from zero, onto 10 mantissa bits) and `tf32_split` (x = hi + lo,
-both TF32), which csrc/mma_tiles.cuh applies to every fp32 operand of a
-3xTF32 product (lo*hi + hi*lo + hi*hi).
+"""The arithmetic of the backward pairs on the tensor cores, the
+ring-block pair (#13, #14) and the whole-row pair (#3/#6), through their
+plain model in paddle_tpu_torch.kernels.ring_block: `tf32_round` (the
+card's cvt.rna.tf32.f32: round to nearest, ties away from zero, onto 10
+mantissa bits) and `tf32_split` (x = hi + lo, both TF32), which
+csrc/mma_tiles.cuh applies to every fp32 operand of a 3xTF32 product
+(lo*hi + hi*lo + hi*hi).
 
-Why the split exists: one head at S=2048, D=64, causal, the pair's
-products emulated on the CPU (TF32 operands, fp32 sums) against an fp64
-reference. One TF32 product a product misses the card tests' fp32
-tolerance (atol 5e-5) by far; three hold it as plain fp32 does.
+Why the split exists: one head, each pair's products emulated on the CPU
+(TF32 operands, fp32 sums, each tile's product summed from zero and added
+in fp32) against an fp64 reference: the ring pair at S=2048, causal; the
+whole-row pair at BERT's S=512, D=64 with a padded key bias and training
+dropout (the kernels' Philox mask). One TF32 product a product misses the
+card tests' fp32 tolerance (atol 5e-5) by far; three hold it as plain
+fp32 does.
 """
 
 import math
@@ -19,6 +23,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import prng_mask as pm
 from paddle_tpu_torch.kernels import ring_block as rb
 
 F32_MAX = float(np.finfo(np.float32).max)
@@ -165,16 +170,84 @@ def test_3xtf32_holds_the_cards_tolerance_where_1xtf32_does_not():
     assert max(errs[1]) > 5e-5 * 10, errs
 
 
-def test_only_the_ring_block_library_includes_the_mma_tiles(tmp_path):
-    """mma_tiles.cuh is hashed into libring_block's name and no other's:
-    an edit to it rebuilds that library alone."""
+def test_3xtf32_holds_the_whole_row_pair_where_1xtf32_does_not():
+    """dq, dk, dv and dbias of #3/#6 on one head at S=512, D=64, a key
+    bias with a padded tail, dropout 0.1 in training (the port's plain
+    Philox mask), as the card computes them: the dq kernel's two passes
+    over key tiles of 64 (S = Q K^T and dP = dO V^T; the online row max,
+    sum and sum of p dp; then dS = p (dp - delta) and dQ += dS K tile by
+    tile), the dkv kernel's query tiles (dV += (keep . P)^T dO,
+    dK += dS^T Q), every product with TF32 operands and fp32 sums. Against
+    fp64: within the card tests' 5e-5 with the split, past it with one
+    TF32 product."""
+    S, D, T, rate = 512, 64, 64, 0.1
+    scale, dscale = 1 / math.sqrt(D), 1 / (1 - rate)
+    rng = np.random.RandomState(0)
+    q, k, v, do = (rng.randn(S, D).astype(np.float32) for _ in range(4))
+    bias = np.zeros(S, np.float32)
+    bias[S - 100:] = -1e4
+    keep = pm.keep_mask((0x2024ABCD, 0x5EED0001), rate, S, S).numpy()
+    w = keep * dscale  # the multiplier of a kept p and dp
+    Q, K, V, DO = (x.astype(np.float64) for x in (q, k, v, do))
+    s = Q @ K.T * scale + bias[None]
+    p = np.exp(s - s.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    dp = DO @ V.T * w
+    ds = p * (dp - (dp * p).sum(1, keepdims=True))
+    ref = (ds @ K * scale, ds.T @ Q * scale, (p * w).T @ DO, ds.sum(0))
+
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tb, tw = torch.from_numpy(bias), torch.from_numpy(w.astype(np.float32))
+    errs = {}
+    for terms in (1, 3):
+        def scores(rows, cols):
+            return _mm(tq[rows], tk[cols].T, terms) * scale + tb[cols]
+
+        def dps(rows, cols):
+            return _mm(tdo[rows], tv[cols].T, terms) * tw[rows, cols]
+
+        every, tiles = slice(0, S), [slice(t, t + T) for t in range(0, S, T)]
+        m = torch.full((S, 1), -math.inf)
+        l, dsum = torch.zeros(S, 1), torch.zeros(S, 1)
+        for c in tiles:  # dq, pass 1
+            sc, dpc = scores(every, c), dps(every, c)
+            m_new = torch.maximum(m, sc.max(1, keepdim=True).values)
+            e, alpha = torch.exp(sc - m_new), torch.exp(m - m_new)
+            l = l * alpha + e.sum(1, keepdim=True)
+            dsum = dsum * alpha + (e * dpc).sum(1, keepdim=True)
+            m = m_new
+        lse, delta = m + torch.log(l), dsum / l
+        dq, dk, dv = (torch.zeros(S, D) for _ in range(3))
+        for c in tiles:  # dq, pass 2
+            dsc = torch.exp(scores(every, c) - lse) * (dps(every, c) - delta)
+            dq += _mm(dsc, tk[c], terms)
+        db = torch.zeros(S)
+        for r in tiles:  # dkv: query tiles
+            pr = torch.exp(scores(r, every) - lse[r])
+            dsr = pr * (dps(r, every) - delta[r])
+            dv += _mm((pr * tw[r]).T, tdo[r], terms)
+            dk += _mm(dsr.T, tq[r], terms)
+            db += dsr.sum(0)
+        got = (dq * scale, dk * scale, dv, db)
+        errs[terms] = [float(np.abs(g.numpy() - r).max())
+                       for g, r in zip(got, ref)]
+    assert max(errs[3]) <= 5e-5, errs
+    assert min(errs[1]) > 5e-5 * 5, errs
+
+
+def test_the_mma_tiles_rebuild_the_two_libraries_that_include_them(
+        tmp_path):
+    """mma_tiles.cuh is hashed into the names of libflash_attention (#3/#6
+    and #1/#5) and libring_block (#12-#14) and no other's: an edit to it
+    rebuilds those two libraries alone."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    names = [p.name for p in _build._sources("ring_block", csrc)]
-    assert "mma_tiles.cuh" in names and "attn_tiles.cuh" in names
+    for name in ("flash_attention", "ring_block"):
+        names = [p.name for p in _build._sources(name, csrc)]
+        assert "mma_tiles.cuh" in names and "attn_tiles.cuh" in names
     before = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
     header = csrc / "mma_tiles.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
     assert [n for n in _build.SOURCES if after[n] != before[n]] == \
-        ["ring_block"]
+        ["flash_attention", "ring_block"]
