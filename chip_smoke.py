@@ -96,9 +96,10 @@ Phases, each fatal on failure:
    key (o = 0, lse = -1e30 exactly), the backward added into
    accumulators, the backward also on views whose rows are not 16-byte
    aligned (its synchronous copy path); the backward pairs as built, the
-   ring's #13/#14 and the whole-row #3/#6 (run after phase 3's 4-D
-   parity): the tensor-core instructions (HMMA) of each instance in its
-   library's SASS, its blocks an SM and shared memory; the port's ring
+   ring's #13/#14, the whole-row #3/#6 and the KV-tiled #9/#8 (run after
+   phase 3's parity): the tensor-core instructions (HMMA) of each
+   instance in its library's SASS, its blocks an SM and shared memory;
+   the port's ring
    forward
    and backward (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one
    process over an in-process
@@ -118,7 +119,10 @@ Phases, each fatal on failure:
 17. kernel times: each kernel beside its plain version, its bound and one
    PyTorch call, at the serving, the BERT training (the backward pair
    #3 also in bf16 at the BERT AMP path's activations, beside SDPA's bf16
-   backward) and the GPT shapes,
+   backward) and the GPT shapes (the tiled backward pair #9/#8 with its
+   TFLOP/s and the 3xTF32 bound beside the fp32 one, and again in bf16 at
+   the GPT AMP path's activations against the plain version, beside
+   SDPA's bf16 causal backward),
    #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32 line
    printed beside), #5/#6 at the ERNIE-layout path's shapes (#5 also at
    the predictor's bucket 8, test mode; #6 with its TFLOP/s, the 3xTF32
@@ -447,6 +451,10 @@ def bound(nbytes, ops, peak):
 # P^T dO and dS^T Q (the fp32 P and dS split). Printed beside the bound,
 # which counts the function's operations only.
 PAIR_TF32 = {torch.float32: (15, 12), torch.bfloat16: (6, 6)}
+# the same for the KV-tiled pair (#9, #8), which takes the forward's lse
+# and output and recomputes nothing but S (and dP): dq S, dP, dS K; dkv
+# S^T, dP^T, P^T dO, dS^T Q
+TILED_TF32 = {torch.float32: (9, 12), torch.bfloat16: (4, 6)}
 
 
 def pair_f64_line(q, k, v, bias, do, kernel, plain, scale, rate, seed,
@@ -1871,16 +1879,25 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
     return rows
 
 
-def gpt_kernel_times(fa, ft, err, train_n, serve_n):
+def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     """#7-#9 at the GPT training path's shape (B=4, S=2048, H=12, D=64,
     causal, no key bias, fp32, dropout 0.1 in training) and #1 at the GPT
     serving path's full recompute (B=8, S=256, causal, test mode). Bounds
     count the live S(S+1)/2 pairs of each head, two flops per
-    multiply-add, no recomputation; #7 reads qkv and writes out and lse;
-    the backward as a function does 8*B*H*D*pairs flops (dP, dQ to #9; dV,
-    dK to #8) and reads qkv, dO, out and lse once, split in halves between
-    the two kernels, #9 writing dq and #8 dk and dv. #8 and #9 are timed
-    by CUDA events around each launch in the wrapper's calls (launch_ms)."""
+    multiply-add, no recomputation; #7 reads qkv and writes out and lse
+    (fp32 CUDA cores); the backward as a function does 8*B*H*D*pairs flops
+    (dP, dQ to #9; dV, dK to #8) and reads qkv, dO, out and lse once, split
+    in halves between the two kernels, #9 writing dq and #8 dk and dv. The
+    pair runs on the tensor cores, so its fp32 rows carry those operations
+    as three TF32 terms each (3xTF32) at 495 TFLOP/s and its bf16 rows at
+    989 TFLOP/s bf16 (or the bytes, whichever is larger); the fp32
+    CUDA-core bound, the time of the TF32 products the kernels do
+    (TILED_TF32) and their TFLOP/s of products are printed beside them.
+    The pair is timed again in bf16 at the GPT AMP path's bf16 activations
+    (its rows' launches are that path's, flag off), held against the plain
+    version, with scaled_dot_product_attention's bf16 causal backward
+    beside it. #8 and #9 are timed by CUDA events around each launch in the
+    wrapper's calls (launch_ms)."""
     import torch.nn.functional as F
 
     B, S, H, D = GPT_B, GPT_S, 12, 64
@@ -1911,40 +1928,86 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n):
                     "paddle_tpu/kernels/flash_tiled.py:127",
                     train_n["tiled_fwd"], err["tiled_fwd"], t_k, t_p, b, t_l))
 
-    out, lse = ft.flash_tiled_fwd(qkv, None, MASK_SEED, H, D, **kw)
-    t = launch_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
-                                             lse, H, D, **kw),
-                  (("flash_tiled", "flash_tiled_bwd_dq"),
-                   ("flash_tiled", "flash_tiled_bwd_dkv")))
-    t_dq, t_dkv = t["flash_tiled_bwd_dq"], t["flash_tiled_bwd_dkv"]
-    t_pair = cuda_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out,
-                                                lse, H, D, **kw),
-                     iters=10, reps=5)
-    t_p = cuda_ms(lambda: ft.reference_bwd(qkv, None, MASK_SEED, do, out, lse,
-                                           H, D, **kw), iters=2, reps=3)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                        dropout_p=TRAIN_RATE, scale=0.125)
-    do4 = do.view(B, S, H, D).transpose(1, 2)
-    t_l = cuda_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4,
-                                              retain_graph=True),
-                  iters=10, reps=5)
-    reads = qkv.numel() * es + 2 * head + lse_bytes  # qkv, dO, out, lse
-    b_dq = bound(reads / 2 + head, 4 * B * H * D * pairs, f32)
-    b_dkv = bound(reads / 2 + 2 * head, 4 * B * H * D * pairs, f32)
-    print(f"tiled bwd: dq (#9) {t_dq:.3f} ms (bound {b_dq[0]:.3f}, "
-          f"{b_dq[1]}), dkv (#8) {t_dkv:.3f} ms (bound {b_dkv[0]:.3f}, "
-          f"{b_dkv[1]}) (own launches); both through the wrapper "
-          f"{t_pair:.3f} ms; "
-          f"plain {t_p:.3f} ms; sdpa backward {t_l:.3f} ms")
-    for which, src, t_w, b_w in (("dq", 342, t_dq, b_dq),
-                                 ("dkv", 269, t_dkv, b_dkv)):
-        rows.append(row(f"flash_tiled_bwd_{which}", "gpt_training",
-                        "flash_tiled.cu",
-                        f"paddle_tpu/kernels/flash_tiled.py:{src}",
-                        train_n[f"tiled_bwd_{which}"],
-                        err[f"tiled_bwd_{which}"], t_w, t_p, b_w, t_l))
-    del qkv, do, q, k, v, out, lse, qg, kg, vg, o4, do4
+    flops = 2 * B * H * D * pairs  # one product over the live pairs
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+        if dtype != f32:  # GPT AMP's bf16 activations
+            qkv, do = qkv.to(dtype), do.to(dtype)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+        out, lse = ft.flash_tiled_fwd(qkv, None, MASK_SEED, H, D, **kw)
+        if dtype != f32:
+            dqkv, _ = ft.flash_tiled_bwd(qkv, None, MASK_SEED, do, out, lse,
+                                         H, D, **kw)
+            want, _ = ft.reference_bwd(qkv, None, MASK_SEED, do, out, lse, H,
+                                       D, **kw)
+            e_q = compare(dqkv[..., :H * D], want[..., :H * D],
+                          "attention_bwd", dtype, f"tiled dq B={B} S={S} "
+                          f"{name}")
+            e_kv = compare(dqkv[..., H * D:], want[..., H * D:],
+                           "attention_bwd", dtype, f"tiled dkv B={B} S={S} "
+                           f"{name}")
+            del dqkv, want
+        else:
+            e_q, e_kv = err["tiled_bwd_dq"], err["tiled_bwd_dkv"]
+        t = launch_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do,
+                                                 out, lse, H, D, **kw),
+                      (("flash_tiled", "flash_tiled_bwd_dq"),
+                       ("flash_tiled", "flash_tiled_bwd_dkv")))
+        t_dq, t_dkv = t["flash_tiled_bwd_dq"], t["flash_tiled_bwd_dkv"]
+        t_pair = cuda_ms(lambda: ft.flash_tiled_bwd(qkv, None, MASK_SEED, do,
+                                                    out, lse, H, D, **kw),
+                         iters=10, reps=5)
+        t_p = cuda_ms(lambda: ft.reference_bwd(qkv, None, MASK_SEED, do, out,
+                                               lse, H, D, **kw),
+                      iters=2, reps=3)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                            dropout_p=TRAIN_RATE, scale=0.125)
+        do4 = do.view(B, S, H, D).transpose(1, 2)
+        t_l = cuda_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4,
+                                                  retain_graph=True),
+                      iters=10, reps=5)
+        esz = qkv.element_size()
+        head = B * S * H * D * esz
+        reads = qkv.numel() * esz + 2 * head + lse_bytes  # qkv, dO, out, lse
+        # the function's 8*B*H*D*pairs split by the products each kernel
+        # owns (dP, dQ to #9; dV, dK to #8): on the fp32 CUDA cores; the
+        # rows' bound: 3xTF32 on the tensor cores in fp32, bf16's peak in
+        # bf16
+        c_dq = bound(reads / 2 + head, 2 * flops, f32)
+        c_dkv = bound(reads / 2 + 2 * head, 2 * flops, f32)
+        ops, peak = (6 * flops, "tf32") if dtype == f32 else (2 * flops,
+                                                              dtype)
+        b_dq = bound(reads / 2 + head, ops, peak)
+        b_dkv = bound(reads / 2 + 2 * head, ops, peak)
+        # not a bound: the TF32 products the kernels do at 495 TFLOP/s
+        n_dq, n_dkv = TILED_TF32[dtype]
+        r_dq, r_dkv = (n * flops / PEAK_OPS["tf32"] * 1e3
+                       for n in (n_dq, n_dkv))
+        # TFLOP/s of the products done (#9: 3, #8: 4, each of `flops`)
+        f_dq, f_dkv = 3 * flops / t_dq / 1e9, 4 * flops / t_dkv / 1e9
+        f_pair = 7 * flops / t_pair / 1e9
+        print(f"tiled bwd {name}: dq (#9) {t_dq:.3f} ms (bound "
+              f"{b_dq[0]:.3f} {b_dq[1]}; fp32 CUDA cores {c_dq[0]:.3f}; its "
+              f"{n_dq} TF32 products {r_dq:.3f}; {f_dq:.1f} TFLOP/s of "
+              f"products), dkv (#8) {t_dkv:.3f} ms (bound {b_dkv[0]:.3f} "
+              f"{b_dkv[1]}; CUDA cores {c_dkv[0]:.3f}; its {n_dkv} TF32 "
+              f"products {r_dkv:.3f}; {f_dkv:.1f} TFLOP/s) (own launches); "
+              f"both through the wrapper {t_pair:.3f} ms ({f_pair:.1f} "
+              f"TFLOP/s of products, 7 of 2*B*H*D*pairs; bound "
+              f"{b_dq[0] + b_dkv[0]:.3f}); plain {t_p:.3f} ms; sdpa {name} "
+              f"causal backward {t_l:.3f} ms ({t_pair / t_l:.2f}x)")
+        path = "gpt_training" if dtype == f32 else "gpt_amp_training"
+        n = train_n if dtype == f32 else amp_n
+        for which, src, t_w, b_w, e_w in (("dq", 342, t_dq, b_dq, e_q),
+                                          ("dkv", 269, t_dkv, b_dkv, e_kv)):
+            rows.append(row(f"flash_tiled_bwd_{which}", path,
+                            "flash_tiled.cu",
+                            f"paddle_tpu/kernels/flash_tiled.py:{src}",
+                            n[f"tiled_bwd_{which}"], e_w, t_w, t_p, b_w,
+                            t_l))
+        del qg, kg, vg, o4, do4, out, lse
+    del qkv, do, q, k, v
     torch.cuda.empty_cache()
 
     Bs, Ss = GEN_BATCH, GEN_MAX
@@ -2676,6 +2739,8 @@ def misaligned_views(layout, B, H, Sq, Sk, D, dtype, seed):
 MMA_PAIRS = (
     ("flash_attention", ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"),
      "attn_fwd_kernel", "flash_attention_bwd_occupancy"),
+    ("flash_tiled", ("tiled_dq_kernel", "tiled_dkv_kernel"),
+     "tiled_fwd_kernel", "flash_tiled_bwd_occupancy"),
     ("ring_block", ("ring_dq_kernel", "ring_dkv_kernel"), "ring_fwd_kernel",
      "ring_block_bwd_occupancy"),
 )
@@ -2707,8 +2772,9 @@ def sass_hmma(lib_name, kernels):
 
 
 def tensor_cores():
-    """The backward pairs as built, #3/#6 (attn_bwd_dq/dkv_kernel) and
-    #13/#14 (ring_dq/dkv_kernel): each instance's HMMA (tensor-core)
+    """The backward pairs as built, #3/#6 (attn_bwd_dq/dkv_kernel), #9/#8
+    (tiled_dq/dkv_kernel) and #13/#14 (ring_dq/dkv_kernel): each
+    instance's HMMA (tensor-core)
     instructions in its library's SASS (none may lack them), and from the
     CUDA runtime the blocks of each that fit on one SM with its dynamic
     shared memory; the CUDA-core forwards' HMMA beside them."""
@@ -3334,14 +3400,15 @@ def main():
     gpt_serve_n = gpt_serving(fluid, kc)
     gpt_train_small(fluid, amp=True)
     amp_n = train_full(fluid, layers, kc, amp=True)
-    gpt_train_full(fluid, kc, amp=True)
+    gpt_amp_n, _ = gpt_train_full(fluid, kc, amp=True)
     gpt_ln_n, _ = gpt_train_full(fluid, kc, amp=True, ln_kernels=True)
     mha_train_small(fluid, layers)
     mha_train_n, mha_pred_n, _ = mha_path(fluid, layers, kc)
     sp_n = sp_path(fluid, layers, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n, amp_n)
-    rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n)
+    rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n,
+                             gpt_amp_n)
     rows += ln_kernel_times(lnk, ln_err, gpt_ln_n)
     rows += mha_kernel_times(fa, mha_err, mha_train_n, mha_pred_n)
     rows += ring_kernel_times(rb, sp_n)

@@ -1,10 +1,12 @@
 // Device code shared by the attention kernels of flash_attention.cu (the
-// whole-row kernels: #1/#5 forward, #3/#6 backward) and flash_tiled.cu
-// (#7 forward, #8 dkv, #9 dq): the helpers, the forward body (#1, #5, #7)
-// and the CUDA-core dkv body (#8). The bodies take each
-// head's rows through base pointers and a row stride, so one body serves
-// the packed projection qkv[B, S, 3*H*D] (section i in {q, k, v}, head h
-// at column i*H*D + h*D) and the 4-D [B, H, S, D] layout alike.
+// whole-row kernels: #1/#5 forward, #3/#6 backward), flash_tiled.cu (#7
+// forward, #8 dkv, #9 dq) and ring_block.cu (#12-#14): the helpers (the
+// keep mask, scores, row reductions, launch dispatch) and the CUDA-core
+// forward body (#1, #5, #7). The backward bodies on the tensor cores are
+// attn_mma.cuh's. The forward body takes each head's rows through base
+// pointers and a row stride, so one body serves the packed projection
+// qkv[B, S, 3*H*D] (section i in {q, k, v}, head h at column i*H*D + h*D)
+// and the 4-D [B, H, S, D] layout alike.
 //
 // Per batch b and head h:
 //
@@ -14,13 +16,12 @@
 //   out  = drop_scale * (keep . p) v   (keep: the Philox mask of
 //                                       philox.cuh, or all ones)
 //
-// The bodies here run one block of THREADS threads over one tile of BM
-// query rows (forward, dq) or BN keys (dkv). Four threads own one row:
-// each scores BN/4 keys of a tile and accumulates D/4 output columns; the
-// row's max and sum are combined with two warp shuffles. Key or query
-// tiles stream through shared memory as fp32; all arithmetic is fp32 on
-// the CUDA cores. Tiles wholly above the causal diagonal are never
-// visited.
+// The forward body runs one block of THREADS threads over one tile of BM
+// query rows. Four threads own one row: each scores BN/4 keys of a tile
+// and accumulates D/4 output columns; the row's max and sum are combined
+// with two warp shuffles. Key tiles stream through shared memory as fp32;
+// all arithmetic is fp32 on the CUDA cores. Tiles wholly above the causal
+// diagonal are never visited.
 
 #pragma once
 
@@ -40,7 +41,6 @@ constexpr int TPR = 4;          // threads per (query or key) row
 constexpr int THREADS = BM * TPR;
 constexpr int GROUPS = BN / 8;  // Philox blocks per tile row
 constexpr float NEG_INF = -1e30f;
-static_assert(BM == BN, "the backward's tiles are square");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -77,13 +77,6 @@ struct Layout {
   static constexpr size_t mask_bytes = BM * GROUPS;
   static constexpr size_t fwd =
       sizeof(float) * (size_t)(BM * LD + 2 * BN * LD + BM * PLD) + mask_bytes;
-  static constexpr size_t dq =
-      sizeof(float) * (size_t)(2 * BM * LD + 2 * BN * LD + BM * PLD) +
-      mask_bytes;
-  static constexpr size_t dkv =
-      sizeof(float) * (size_t)(2 * BM * LD + 2 * BN * LD + 2 * BN * PLD +
-                               2 * BM) +
-      mask_bytes;
 };
 
 // Load rows [r0, r0 + ROWS) of one head's D columns into shared memory as
@@ -217,9 +210,9 @@ __device__ __forceinline__ float row_sum4(float v) {
 // [B, H, S, D] views sharing their (batch, head, row) strides in_*; out
 // (the forward's output, or dq), dk and dv share out_*. The packed
 // projection qkv[B, S, 3*H*D] is the view with k = q + H*D,
-// v = q + 2*H*D, in_sh = D, in_ss = 3*H*D. The bodies below take the
-// pointers again as __restrict__ parameters, as the kernels did before
-// they shared them: the tensors never overlap.
+// v = q + 2*H*D, in_sh = D, in_ss = 3*H*D. The forward body takes the
+// pointers again as __restrict__ parameters: the tensors never overlap.
+// The backward bodies (attn_mma.cuh) read the fields by name.
 struct Args {
   const void* q;
   const void* k;
@@ -239,6 +232,7 @@ struct Args {
   float scale;
   int causal;
   Dropout dr;
+  int async_copy;  // backward: every row it copies is 16-byte aligned
 };
 
 // ---------------------------------------------------------------------------
@@ -334,112 +328,8 @@ __device__ __forceinline__ void fwd_block(float* smem,
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward, dkv: one block per (key tile, head, batch) loops over the query
-// tiles with the rows' lse and delta: dv = (keep . p)^T dO * drop_scale,
-// dk = scale * dS^T q, and, when asked, the per-head column sums of dS, a
-// [B, H, S] partial that a second deterministic pass sums over heads. As
-// for the forward, the caller resolves the layout: qb, kb, vb (rows in_ss
-// apart), dob (rows do_ss apart), dkb and dvb (rows d_ss apart) point at
-// row 0 of this block's head; stats, dstats and part_row at its [S] rows of
-// the fp32 [B, H, S] lse, delta and dbias partial (part_row may be null).
-// ---------------------------------------------------------------------------
-
-template <typename T, int D, typename A>
-__device__ __forceinline__ void dkv_block(
-    float* smem, const T* __restrict__ qb, const T* __restrict__ kb,
-    const T* __restrict__ vb, long long in_ss, const T* __restrict__ dob,
-    long long do_ss, const float* __restrict__ brow, T* __restrict__ dkb,
-    T* __restrict__ dvb, long long d_ss, const float* __restrict__ stats,
-    const float* __restrict__ dstats, float* __restrict__ part_row,
-    const A& a) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int PLD = Layout<D>::PLD;
-  constexpr int IPT = BM / TPR;  // queries per thread per query tile
-  constexpr int CHUNKS = D / (4 * TPR);
-
-  float* sK = smem;
-  float* sV = sK + BN * LD;
-  float* sQ = sV + BN * LD;
-  float* sDO = sQ + BM * LD;
-  float* sP = sDO + BM * LD;      // [key][query]: kept, scaled p
-  float* sS = sP + BN * PLD;      // [key][query]: dS
-  float* sLse = sS + BN * PLD;
-  float* sDelta = sLse + BM;
-  unsigned char* sM = reinterpret_cast<unsigned char*>(sDelta + BM);
-
-  const int S = a.S;
-  const int k0 = blockIdx.x * BN;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;  // key row within the tile
-  const int t = tid % TPR;
-  const int j = k0 + r;
-  const Dropout& dr = a.dr;
-
-  load_rows<T, D, BN>(sK, kb, in_ss, k0, S, tid);
-  load_rows<T, D, BN>(sV, vb, in_ss, k0, S, tid);
-  const float bj = (brow && j < S) ? brow[j] : 0.f;
-
-  float dk[4 * CHUNKS], dv[4 * CHUNKS];
-#pragma unroll
-  for (int i = 0; i < 4 * CHUNKS; ++i) dk[i] = dv[i] = 0.f;
-  float db = 0.f;
-
-  const int n_qt = (S + BM - 1) / BM;
-  // causal: query tiles wholly above key k0 see none of this tile's keys
-  const int qt0 = a.causal ? k0 / BM : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_rows<T, D, BM>(sQ, qb, in_ss, q0, S, tid);
-    load_rows<T, D, BM>(sDO, dob, do_ss, q0, S, tid);
-    for (int i = tid; i < BM; i += THREADS) {
-      const bool ok = q0 + i < S;
-      // rows past the end: p = exp(s - inf) = 0, so they add nothing
-      sLse[i] = ok ? stats[q0 + i] : INFINITY;
-      sDelta[i] = ok ? dstats[q0 + i] : 0.f;
-    }
-    fill_mask(sM, dr, q0, k0, h, b, tid);
-    __syncthreads();
-
-    float sc[IPT], dpv[IPT];
-    row_dots<D, IPT>(sc, sK + r * LD, sQ, t);
-    row_dots<D, IPT>(dpv, sV + r * LD, sDO, t);
-#pragma unroll
-    for (int ii = 0; ii < IPT; ++ii) {
-      const int il = t + TPR * ii;
-      const int i = q0 + il;
-      float s;
-      if (j >= S) {
-        s = -INFINITY;
-      } else {
-        s = sc[ii] * a.scale + bj;
-        if (a.causal && j > i) s = NEG_INF;
-      }
-      const float p = expf(s - sLse[il]);
-      const bool keep = kept(sM, dr.use_mask, il, r);
-      const float ds = p * ((keep ? dpv[ii] * dr.scale : 0.f) - sDelta[il]);
-      sP[r * PLD + il] = keep ? p * dr.scale : 0.f;
-      sS[r * PLD + il] = ds;
-      db += ds;
-    }
-    __syncwarp();
-    accumulate_rows<D>(dv, sP + r * PLD, sDO, t);
-    accumulate_rows<D>(dk, sS + r * PLD, sQ, t);
-  }
-
-  db = row_sum4(db);
-  if (j < S) {
-    store_cols<T, D>(dkb + (long long)j * d_ss, dk, a.scale, t);
-    store_cols<T, D>(dvb + (long long)j * d_ss, dv, 1.f, t);
-    if (part_row && t == 0) part_row[j] = db;
-  }
-}
-
-// The tiled kernels' callers of the two bodies (#7 forward, #8 dkv), on
-// the [B, H, S, D] views of Args: head h of batch b at b*sb + h*sh.
+// The tiled forward's (#7) caller of the body, on the [B, H, S, D] views
+// of Args: head h of batch b at b*sb + h*sh.
 template <typename T, int D>
 __device__ __forceinline__ void view_fwd(float* smem, const Args& a,
                                          float* lse) {
@@ -453,23 +343,6 @@ __device__ __forceinline__ void view_fwd(float* smem, const Args& a,
                   a.bias ? a.bias + (long long)b * a.S : nullptr, ob,
                   a.out_ss,
                   lse ? lse + ((long long)b * a.H + h) * a.S : nullptr, a);
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void view_dkv(float* smem, const Args& a) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long head = ((long long)b * a.H + h) * a.S;
-  const long long in = (long long)b * a.in_sb + (long long)h * a.in_sh;
-  const long long out = (long long)b * a.out_sb + (long long)h * a.out_sh;
-  dkv_block<T, D>(smem, static_cast<const T*>(a.q) + in,
-                  static_cast<const T*>(a.k) + in,
-                  static_cast<const T*>(a.v) + in, a.in_ss,
-                  static_cast<const T*>(a.dout) + (long long)b * a.do_sb +
-                      (long long)h * a.do_sh,
-                  a.do_ss, a.bias ? a.bias + (long long)b * a.S : nullptr,
-                  static_cast<T*>(a.dk) + out, static_cast<T*>(a.dv) + out,
-                  a.out_ss, a.lse + head, a.delta + head,
-                  a.dbias_part ? a.dbias_part + head : nullptr, a);
 }
 
 // Above 48 KB a block's shared memory must be opted into, per kernel and

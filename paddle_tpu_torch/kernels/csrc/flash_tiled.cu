@@ -27,16 +27,39 @@
 // Tiles wholly above the causal diagonal are skipped in all three. The
 // dropout mask is philox.cuh's, keyed by (b, h, row, col), so the three
 // kernels, the whole-row kernels and the plain versions all draw one mask
-// whatever their tiling. bf16 inputs are widened to fp32 in shared memory,
-// so the exp tail runs in fp32 for both dtypes.
+// whatever their tiling. The forward widens bf16 inputs to fp32 in shared
+// memory; the backward keeps its tiles in the input dtype and widens each
+// fragment as it loads it; the exp tail runs in fp32 for both dtypes.
 //
-// What bounds it on the H100: at B=4, S=2048, H=12, D=64, causal, each
-// kernel owns 25.8 GFLOP of products against ~0.1 GB of bytes, 250 flops
-// a byte: bounded by operations (0.385 ms at 67 TFLOP/s fp32). This first
-// version runs fp32 on the CUDA cores; tensor cores (wgmma), TMA and warp
-// specialisation are later work.
+// What bounds it on the H100: at B=4, S=2048, H=12, D=64, causal
+// (1.007e8 live pairs), the forward owns 2 products of 2*D*pairs flops
+// (25.8 GFLOP) against ~0.1 GB of bytes, 250 flops a byte: bounded by
+// operations (0.385 ms at 67 TFLOP/s fp32 on the CUDA cores, where it
+// runs: fwd_block, fp32 in either dtype). The backward as a function does
+// 4 products (dP, dQ to dq; dV, dK to dkv), each kernel 2: on the tensor
+// cores in the 3xTF32 split, 3 x 25.8 GFLOP at 495 TFLOP/s = 0.156 ms a
+// kernel in fp32; in bf16 about 0.026 ms of operations at 989 TFLOP/s.
+//
+// The backward pair runs on the tensor cores, on the bodies it shares
+// with the whole-row pair #3/#6 (attn_mma.cuh, over mma_tiles.cuh's
+// mma.sync m16n8k8 TF32, 3xTF32 for fp32 operands, cp.async tiles):
+// tiled_dq_kernel is dq_mma_block<SAVED = true>, one pass over the key
+// tiles (S, dP, dS K: 3 products, 9 TF32 terms in fp32, 4 in bf16 where
+// Q, K, V and dO are TF32 already), with lse from the forward and delta
+// from the saved output staged before the stream; tiled_dkv_kernel is
+// dkv_mma_block<SAVED = true> (S^T, dP^T, P^T dO, dS^T Q: 4 products, 12
+// TF32 terms in fp32, 6 in bf16). P and dS stay fp32 and are split, as
+// the plain version keeps them. delta comes from the saved output, not
+// from dp's own row sum, so dkv sums S^T and dP^T from zero 8 columns at
+// a time and adds them in fp32 (mma::tile_products<STEPWISE>): a chain of
+// mma's over D truncates toward zero, and dbias would add that bias up.
+// Under the causal mask both kernels hand out their heaviest tiles of
+// every head first (block_tile). Both take 128 threads, two cp.async
+// stages and, where a view's rows are not 16-byte aligned, the
+// synchronous copy path (the C entries decide with mma::rows_aligned).
+// Wgmma with TMA and pre-split hi/lo tiles are later work.
 
-#include "attn_tiles.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -48,161 +71,34 @@ __global__ void __launch_bounds__(THREADS) tiled_fwd_kernel(Args a) {
   view_fwd<T, D>(reinterpret_cast<float*>(smem4), a, a.lse);
 }
 
-// ---------------------------------------------------------------------------
-// dq: given each row's lse and delta, one pass over the key tiles
-// recomputes p = exp(s - lse), forms dS = p (dp - delta) (dp = dO v^T,
-// masked and scaled as the forward scaled p) and accumulates
-// dq = scale * dS k into acc. sQ and sDO hold the block's query rows; kb
-// and vb point at row 0 of the block's head in k and v.
-// ---------------------------------------------------------------------------
-
+// #9: dq and delta from the saved output and lse, one pass
 template <typename T, int D>
-__device__ __forceinline__ void dq_pass(float* acc, float* smem,
-                                        const T* __restrict__ kb,
-                                        const T* __restrict__ vb,
-                                        const float* __restrict__ bias,
-                                        const Args& a, float lse,
-                                        float delta) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int PLD = Layout<D>::PLD;
-  constexpr int JPT = BN / TPR;
-  constexpr int CHUNKS = D / (4 * TPR);
-
-  float* sQ = smem;
-  float* sDO = sQ + BM * LD;
-  float* sK = sDO + BM * LD;
-  float* sV = sK + BN * LD;
-  float* sP = sV + BN * LD;
-  unsigned char* sM = reinterpret_cast<unsigned char*>(sP + BM * PLD);
-
-  const int S = a.S;
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int t = tid % TPR;
-  const int row = q0 + r;
-  const Dropout& dr = a.dr;
-  const float* brow = bias ? bias + (long long)b * S : nullptr;
-
-#pragma unroll
-  for (int i = 0; i < 4 * CHUNKS; ++i) acc[i] = 0.f;
-  const int n_tiles = key_tiles(q0, S, a.causal);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_rows<T, D, BN>(sK, kb, a.in_ss, k0, S, tid);
-    load_rows<T, D, BN>(sV, vb, a.in_ss, k0, S, tid);
-    fill_mask(sM, dr, q0, k0, h, b, tid);
-    __syncthreads();
-
-    float sc[JPT], dpv[JPT];
-    row_dots<D, JPT>(sc, sQ + r * LD, sK, t);
-    row_dots<D, JPT>(dpv, sDO + r * LD, sV, t);
-#pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      const int jl = t + TPR * jj;
-      const float p = expf(
-          score(sc[jj], a.scale, brow, row, k0 + jl, S, a.causal) - lse);
-      const float dp = kept(sM, dr.use_mask, r, jl) ? dpv[jj] * dr.scale : 0.f;
-      sP[r * PLD + jl] = p * (dp - delta);
-    }
-    __syncwarp();
-    accumulate_rows<D>(acc, sP + r * PLD, sK, t);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void dq_block(
-    float* smem, const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ bias,
-    const T* __restrict__ dout, const T* __restrict__ fwd_out,
-    const float* __restrict__ lse_in, T* __restrict__ dq,
-    float* __restrict__ delta_out, const Args& a) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int CHUNKS = D / (4 * TPR);
-
-  float* sQ = smem;
-  float* sDO = sQ + BM * LD;
-
-  const int S = a.S, H = a.H;
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int t = tid % TPR;
-  const int row = q0 + r;
-
-  const long long in = (long long)b * a.in_sb + (long long)h * a.in_sh;
-  load_rows<T, D, BM>(sQ, q + in, a.in_ss, q0, S, tid);
-  load_rows<T, D, BM>(sDO, dout + (long long)b * a.do_sb +
-                               (long long)h * a.do_sh,
-                      a.do_ss, q0, S, tid);
-  __syncthreads();
-
-  // delta = rowsum(dO . out) from the saved output; rows past the end get
-  // lse = inf, so p = 0 there
-  float lse = INFINITY, part = 0.f;
-  if (row < S) {
-    const T* orow = fwd_out + (long long)b * a.fo_sb +
-                    (long long)row * a.fo_ss + (long long)h * a.fo_sh;
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int c = (k * TPR + t) * 4 + u;
-        part = fmaf(sDO[r * LD + c], to_f(orow[c]), part);
-      }
-    }
-    lse = lse_in[((long long)b * H + h) * S + row];
-  }
-  const float delta = row_sum4(part);
-
-  float acc[4 * CHUNKS];
-  dq_pass<T, D>(acc, smem, k + in, v + in, bias, a, lse, delta);
-
-  if (row < S) {
-    T* drow = dq + (long long)b * a.out_sb + (long long)row * a.out_ss +
-              (long long)h * a.out_sh;
-    store_cols<T, D>(drow, acc, a.scale, t);
-    if (t == 0) delta_out[((long long)b * H + h) * S + row] = delta;
-  }
-}
-
-// two blocks to an SM: capped at 128 registers (a few spill), the dq kernel
-// runs faster than uncapped, one block to an SM
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2) tiled_dq_kernel(Args a) {
+__global__ void __launch_bounds__(mma::THREADS, 2) tiled_dq_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  dq_block<T, D>(reinterpret_cast<float*>(smem4),
-                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                 static_cast<const T*>(a.v), a.bias,
-                 static_cast<const T*>(a.dout),
-                 static_cast<const T*>(a.fwd_out), a.lse,
-                 static_cast<T*>(a.out), a.delta, a);
+  dq_mma_block<T, D, true>(smem4, a);
 }
 
+// #8: dk, dv and the per-head dbias partial from lse and delta
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) tiled_dkv_kernel(Args a) {
+__global__ void __launch_bounds__(mma::THREADS, 2) tiled_dkv_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  view_dkv<T, D>(reinterpret_cast<float*>(smem4), a);
+  dkv_view<T, D, true>(smem4, a);
 }
 
-#define TILED_KERNEL(NAME, KERNEL, SMEM)                                     \
+#define TILED_KERNEL(NAME, KERNEL, THREADS_, SMEM)                          \
   template <typename T, int D>                                               \
   struct NAME {                                                              \
-    static constexpr size_t smem = Layout<D>::SMEM;                          \
+    static constexpr int threads = THREADS_;                                 \
+    static constexpr size_t smem = SMEM;                                     \
     static const void* fn() { return (const void*)KERNEL<T, D>; }            \
     static void launch(dim3 grid, cudaStream_t st, const Args& a) {          \
-      KERNEL<T, D><<<grid, THREADS, smem, st>>>(a);                          \
+      KERNEL<T, D><<<grid, threads, smem, st>>>(a);                          \
     }                                                                        \
   };
 
-TILED_KERNEL(Fwd, tiled_fwd_kernel, fwd)
-TILED_KERNEL(Dq, tiled_dq_kernel, dq)
-TILED_KERNEL(Dkv, tiled_dkv_kernel, dkv)
+TILED_KERNEL(Fwd, tiled_fwd_kernel, THREADS, Layout<D>::fwd)
+TILED_KERNEL(Dq, tiled_dq_kernel, mma::THREADS, (BwdSmem<T, D>::dq))
+TILED_KERNEL(Dkv, tiled_dkv_kernel, mma::THREADS, (BwdSmem<T, D>::dkv))
 
 Args make_args(const void* q, const void* k, const void* v,
                const float* bias, const void* dout, const void* fwd_out,
@@ -214,7 +110,19 @@ Args make_args(const void* q, const void* k, const void* v,
   return Args{q, k, v, bias, dout, fwd_out, out, dk, dv, lse, delta,
               dbias_part, B, S, H, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
               s[7], s[8], s[9], s[10], s[11], scale, causal,
-              make_dropout(use_mask, seed0, seed1, threshold, drop_scale)};
+              make_dropout(use_mask, seed0, seed1, threshold, drop_scale),
+              0};
+}
+
+// The backward's copy path: 16-byte cp.async where q, k, v and dout and
+// their six strides, and the saved output (dq) and its three, keep every
+// head row 16-byte aligned, else synchronous element copies (the outputs
+// are stored element by element either way).
+int rows_aligned(const Args& a, const long long* strides, int dtype) {
+  const int es = dtype == 1 ? 2 : 4;
+  const void* o = a.fwd_out;
+  return mma::rows_aligned(a.q, a.k, a.v, a.dout, strides, 6, es) &&
+         (!o || mma::rows_aligned(o, o, o, o, strides + 9, 3, es));
 }
 
 }  // namespace
@@ -249,10 +157,11 @@ extern "C" int flash_tiled_bwd_dq(
     float* delta, int B, int S, int H, int D, const long long* strides,
     float scale, float drop_scale, int causal, int use_mask, unsigned seed0,
     unsigned seed1, unsigned threshold, int dtype, void* stream) {
-  const Args a = make_args(q, k, v, bias, dout, fwd_out, dq, nullptr,
-                           nullptr, const_cast<float*>(lse), delta, nullptr,
-                           B, S, H, strides, scale, drop_scale, causal,
-                           use_mask, seed0, seed1, threshold);
+  Args a = make_args(q, k, v, bias, dout, fwd_out, dq, nullptr, nullptr,
+                     const_cast<float*>(lse), delta, nullptr, B, S, H,
+                     strides, scale, drop_scale, causal, use_mask, seed0,
+                     seed1, threshold);
+  a.async_copy = rows_aligned(a, strides, dtype);
   return dispatch<Dq>(dtype, D, a, stream);
 }
 
@@ -263,9 +172,20 @@ extern "C" int flash_tiled_bwd_dkv(
     const long long* strides, float scale, float drop_scale, int causal,
     int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
     int dtype, void* stream) {
-  const Args a = make_args(q, k, v, bias, dout, nullptr, nullptr, dk, dv,
-                           const_cast<float*>(lse), const_cast<float*>(delta),
-                           dbias_part, B, S, H, strides, scale, drop_scale,
-                           causal, use_mask, seed0, seed1, threshold);
+  Args a = make_args(q, k, v, bias, dout, nullptr, nullptr, dk, dv,
+                     const_cast<float*>(lse), const_cast<float*>(delta),
+                     dbias_part, B, S, H, strides, scale, drop_scale, causal,
+                     use_mask, seed0, seed1, threshold);
+  a.async_copy = rows_aligned(a, strides, dtype);
   return dispatch<Dkv>(dtype, D, a, stream);
+}
+
+// The blocks of a backward kernel (which: 0 = dq, 1 = dkv) that fit on
+// one SM of the current device, and the dynamic shared memory each block
+// takes, for a dtype code and head dim: a report of the build, which no
+// launch reads.
+extern "C" int flash_tiled_bwd_occupancy(int which, int dtype, int D,
+                                         int* blocks, int* smem_bytes) {
+  return which == 0 ? occupancy<Dq>(dtype, D, blocks, smem_bytes)
+                    : occupancy<Dkv>(dtype, D, blocks, smem_bytes);
 }

@@ -1,9 +1,10 @@
 // Tensor-core tile code for Hopper (sm_90a): fp32-accurate products on
 // mma.sync TF32 (3xTF32), shared-memory tiles fed by cp.async, and the
-// fragment loads of the m16n8k8 product. The ring-block backward pair
-// (#13, #14, ring_block.cu) and the whole-row backward pair (#3/#6,
-// flash_attention.cu) are built on it; the other attention kernels' tiles
-// ([B, H, S, D] strided views alike) are meant to reuse it.
+// fragment loads of the m16n8k8 product. The three backward pairs are
+// built on it: the ring-block pair (#13, #14, ring_block.cu), and the
+// whole-row (#3/#6, flash_attention.cu) and KV-tiled (#9/#8,
+// flash_tiled.cu) pairs through the bodies they share (attn_mma.cuh); the
+// forward kernels (#1/#5, #7, #12) still run on the CUDA cores.
 //
 // The product. A block's warps each own 16 rows of an m16n8k8 TF32 product
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, fp32 accumulators).
@@ -34,9 +35,10 @@
 // waits with wait_async<N>() and __syncthreads() in either case.
 //
 // The backward pairs. BwdTiles, load_stage, load_floats and tile_products
-// are the parts the two pairs share: the tiles, the stream's loads and
-// the S and dP products of a tile; each kernel keeps its own elementwise
-// step (liveness at offsets, or bias, causal cut and dropout) and store.
+// are the parts the pairs share: the tiles, the stream's loads and the S
+// and dP products of a tile; the ring pair and attn_mma.cuh's bodies each
+// keep their own elementwise step (liveness at offsets, or bias, causal
+// cut and dropout) and store.
 
 #pragma once
 
@@ -289,10 +291,21 @@ __device__ __forceinline__ void load_floats(float* dst, const float* a,
 
 // The two products of one streamed tile for warp w: s = A1 B1^T and
 // dp = A2 B2^T, A1 and A2 the warp's 16 rows (from row 16 w) of the
-// resident tiles, B1 and B2 the NB*8 rows of the stage, each summed from
-// zero over the D columns (dq: S = Q K^T, dP = dO V^T; dkv: S^T = K Q^T,
-// dP^T = V dO^T)
-template <int D, int NB, int LDT, bool EXACT, typename T>
+// resident tiles, B1 and B2 the NB*8 rows of the stage (dq: S = Q K^T,
+// dP = dO V^T; dkv: S^T = K Q^T, dP^T = V dO^T). By default each is one
+// chain of mma's over the D columns, summed from zero: an mma truncates
+// into its accumulator (it drops the bits below the last place of its
+// result), so the chain's 3 D / 8 steps (fp32 operands) bias s and dp
+// toward zero by up to a unit in the last place each. Where delta is
+// dp's own row sum (the whole-row pair's pass 1) the bias cancels in
+// dp - delta; where delta comes from the saved output (the tiled pair),
+// dS keeps it and dbias, a sum of dS over the rows, adds it up (7e-5 at
+// D = 128, S = 1100). STEPWISE sums each 8-column step from zero on the
+// tensor cores and adds it in fp32 (round to nearest) instead: about a
+// tenth of the error, for 4 more adds a step and block of 8 columns and
+// more live registers (the tiled dkv kernel, PERF.md).
+template <int D, int NB, int LDT, bool EXACT, bool STEPWISE = false,
+          typename T>
 __device__ __forceinline__ void tile_products(float (&s)[NB][4],
                                               float (&dp)[NB][4],
                                               const T* a1, const T* b1,
@@ -310,10 +323,23 @@ __device__ __forceinline__ void tile_products(float (&s)[NB][4],
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       Frag<2, EXACT> g1, g2;
-      load_b_nk<LDT>(g1, b1, nb * 8, kk * 8, lane);
-      mma3(s[nb], f1, g1);
-      load_b_nk<LDT>(g2, b2, nb * 8, kk * 8, lane);
-      mma3(dp[nb], f2, g2);
+      if constexpr (STEPWISE) {
+        float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+        load_b_nk<LDT>(g1, b1, nb * 8, kk * 8, lane);
+        mma3(t1, f1, g1);
+        load_b_nk<LDT>(g2, b2, nb * 8, kk * 8, lane);
+        mma3(t2, f2, g2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nb][e] += t1[e];
+          dp[nb][e] += t2[e];
+        }
+      } else {
+        load_b_nk<LDT>(g1, b1, nb * 8, kk * 8, lane);
+        mma3(s[nb], f1, g1);
+        load_b_nk<LDT>(g2, b2, nb * 8, kk * 8, lane);
+        mma3(dp[nb], f2, g2);
+      }
     }
   }
 }

@@ -30,7 +30,8 @@ the CUDA cores) streams key tiles through shared memory with an online
 softmax; the backward splits into a per-query-tile kernel (row
 statistics, delta, dq) and a per-key-tile kernel (dk, dv, per-head dbias
 partials), both on the tensor cores (csrc/mma_tiles.cuh: mma.sync TF32
-in a 3xTF32 split, so their products hold fp32's accuracy). Both
+in a 3xTF32 split, so their products hold fp32's accuracy), on bodies
+the KV-tiled pair shares (csrc/attn_mma.cuh). Both
 layouts launch the same three kernels, which read q, k and v as
 [B, H, S, D] views through their strides: the packed projection is the
 view whose k and v sections lie H*D and 2*H*D columns on, so it is read

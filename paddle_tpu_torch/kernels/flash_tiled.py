@@ -27,12 +27,15 @@ their tiling. (The JAX kernels reseed the TPU's PRNG per tile.)
 
 What bounds it on the H100: at GPT-small's S=2048 (B=4, H=12, D=64,
 causal) each kernel owns 25.8 GFLOP of products against ~0.1 GB of
-bytes: operations. The design (csrc/flash_tiled.cu, on the device code
-of csrc/attn_tiles.cuh) keeps every [S, S] tile out of device memory:
-one block per (query tile, head, batch) for the forward and dq, one per
-(key tile, head, batch) for dkv, tiles above the causal diagonal
-skipped, fp32 on the CUDA cores. dbias partials per head are summed by
-sum_partials in a fixed order.
+bytes: operations. The design (csrc/flash_tiled.cu) keeps every [S, S]
+tile out of device memory: one block per (query tile, head, batch) for
+the forward and dq, one per (key tile, head, batch) for dkv, tiles above
+the causal diagonal skipped. The forward runs fp32 on the CUDA cores
+(csrc/attn_tiles.cuh's body); the backward pair runs its products on the
+tensor cores (mma.sync TF32, 3xTF32 for fp32 operands) on the bodies it
+shares with the whole-row pair (csrc/attn_mma.cuh over
+csrc/mma_tiles.cuh). dbias partials per head are summed by sum_partials
+in a fixed order.
 
 Dispatch: a CUDA tensor goes to the kernels, or raises if they do not
 take it; a CPU tensor goes to the plain version; a meta tensor (shape

@@ -1304,3 +1304,107 @@ def test_attention_backward_pair_gives_the_same_bits_twice(dev, dtype,
                          for _ in range(2))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the KV-tiled backward pair (#9 dq, #8 dkv) on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _tiled_kw(D, training=True):
+    return dict(scale=1 / math.sqrt(D), rate=0.1, is_test=not training,
+                causal=True)
+
+
+@pytest.mark.parametrize("layout", ["packed", "four_d", "base_off_by_one",
+                                    "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_backward_pair_reads_every_layout(dev, dtype, layout):
+    """#9 and #8 (3xTF32 products on the tensor cores) read their operands
+    in place: the packed projection (flash_tiled_bwd, rows 3*H*D apart),
+    the 4-D op's head-split views past S=1024 (attention_grads), and views
+    whose rows are not 16-byte aligned (the base one element off, or rows
+    an odd number of elements apart: the kernels' synchronous copy path);
+    S=1100 (no multiple of the 64-row tile), causal, training dropout and
+    dbias, against the plain tiled versions. One launch of each."""
+    B, S, H, D = 2, 1100, 3, 64
+    kw = _tiled_kw(D)
+    g = torch.Generator(device=dev).manual_seed(11)
+    if layout == "packed":
+        qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=12)
+        do = torch.randn(B, S, H * D, generator=g, device=dev).to(dtype)
+        out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, H, D, **kw)
+        before = _tiled_counts()
+        dqkv, dbias = ft.flash_tiled_bwd(qkv, bias, SEED, do, out, lse, H,
+                                         D, want_dbias=True, **kw)
+        assert _tiled_counts() == (before[0], before[1] + 1, before[2] + 1)
+        want_q, want_b = ft.reference_bwd(qkv, bias, SEED, do, out, lse, H,
+                                          D, **kw)
+        _close(dqkv, want_q, "attention_bwd", dtype)
+        _close(dbias, want_b, "attention_bwd", torch.float32)
+        return
+    if layout == "four_d":
+        q, k, v, _, bias = _heads(dev, B, S, H, D, dtype, seed=12)
+        do = torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+    else:
+        q, k, v = _misaligned(dev, layout, B, H, S, D, dtype, 3, 12)
+        do, = _misaligned(dev, layout, B, H, S, D, dtype, 1, 13)
+        _, bias = _qkv(dev, B, S, H, D, dtype, seed=12)
+        assert q.data_ptr() % 16 or q.stride(2) % 2
+    fkw = dict(scale=kw["scale"], dropout_rate=kw["rate"], is_test=False,
+               causal=True, seed=SEED)
+    out = fa.fused_attention(q, k, v, bias, **fkw)
+    before = _tiled_counts()
+    got = fa.attention_grads(q, k, v, bias, do, **fkw)
+    # the 4-D op saves no lse: its backward runs #7 once more
+    assert _tiled_counts() == tuple(n + 1 for n in before)
+    _, lse = ft.reference_fwd4(q, k, v, bias, SEED, **kw)
+    want = ft.reference_bwd4(q, k, v, bias, SEED, do, out, lse, **kw)
+    for a, w in zip(got[:3], want[:3]):
+        _close(a, w, "attention_bwd", dtype)
+    _close(got[3], want[3], "attention_bwd", torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["packed", "four_d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_backward_pair_gives_the_same_bits_twice(dev, dtype, layout):
+    """Fixed-order sums and no float atomics: two launches of #9/#8 on the
+    same inputs give the same dq, dk, dv and dbias bits."""
+    B, S, H, D = 2, 1300, 3, 64
+    kw = _tiled_kw(D)
+    if layout == "packed":
+        qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=14)
+        do = torch.randn(B, S, H * D, device=dev).to(dtype)
+        out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, H, D, **kw)
+        first, second = (ft.flash_tiled_bwd(qkv, bias, SEED, do, out, lse,
+                                            H, D, want_dbias=True, **kw)
+                         for _ in range(2))
+    else:
+        q, k, v, _, bias = _heads(dev, B, S, H, D, dtype, seed=14)
+        do = torch.randn(B, H, S, D, device=dev).to(dtype)
+        fkw = dict(scale=kw["scale"], dropout_rate=kw["rate"],
+                   is_test=False, causal=True, seed=SEED)
+        first, second = (fa.attention_grads(q, k, v, bias, do, **fkw)
+                         for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 128])
+def test_tiled_kernels_take_every_head_dim_in_bf16(dev, D, causal):
+    """#7-#9 at S=1100 with D=32 and D=128 (#9/#8 stream tiles of 32 rows
+    at D=128) on bf16 inputs, training dropout and dbias, against the
+    plain tiled versions."""
+    qkv, bias = _qkv(dev, 2, 1100, 2, D, torch.bfloat16, seed=D + 1)
+    do = torch.randn(2, 1100, 2 * D, device=dev).to(torch.bfloat16)
+    kw = dict(scale=D ** -0.5, rate=0.2, is_test=False, causal=causal)
+    out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, 2, D, **kw)
+    dqkv, dbias = ft.flash_tiled_bwd(qkv, bias, SEED, do, out, lse, 2, D,
+                                     want_dbias=True, **kw)
+    want_o, _ = ft.reference_fwd(qkv, bias, SEED, 2, D, **kw)
+    want_q, want_b = ft.reference_bwd(qkv, bias, SEED, do, out, lse, 2, D,
+                                      **kw)
+    _close(out, want_o, "attention", torch.bfloat16)
+    _close(dqkv, want_q, "attention_bwd", torch.bfloat16)
+    _close(dbias, want_b, "attention_bwd", torch.float32)

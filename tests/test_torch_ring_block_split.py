@@ -1,7 +1,8 @@
 """The arithmetic of the backward pairs on the tensor cores, the
-ring-block pair (#13, #14) and the whole-row pair (#3/#6), through their
-plain model in paddle_tpu_torch.kernels.ring_block: `tf32_round` (the
-card's cvt.rna.tf32.f32: round to nearest, ties away from zero, onto 10
+ring-block pair (#13, #14), the whole-row pair (#3/#6) and the KV-tiled
+pair (#9/#8), through their plain model in
+paddle_tpu_torch.kernels.ring_block: `tf32_round` (the card's
+cvt.rna.tf32.f32: round to nearest, ties away from zero, onto 10
 mantissa bits) and `tf32_split` (x = hi + lo, both TF32), which
 csrc/mma_tiles.cuh applies to every fp32 operand of a 3xTF32 product
 (lo*hi + hi*lo + hi*hi).
@@ -10,9 +11,10 @@ Why the split exists: one head, each pair's products emulated on the CPU
 (TF32 operands, fp32 sums, each tile's product summed from zero and added
 in fp32) against an fp64 reference: the ring pair at S=2048, causal; the
 whole-row pair at BERT's S=512, D=64 with a padded key bias and training
-dropout (the kernels' Philox mask). One TF32 product a product misses the
-card tests' fp32 tolerance (atol 5e-5) by far; three hold it as plain
-fp32 does.
+dropout (the kernels' Philox mask); the tiled pair at GPT's S=2048,
+causal, with training dropout, from the saved lse and output. One TF32
+product a product misses the card tests' fp32 tolerance (atol 5e-5) by
+far; three hold it as plain fp32 does.
 """
 
 import math
@@ -235,19 +237,83 @@ def test_3xtf32_holds_the_whole_row_pair_where_1xtf32_does_not():
     assert min(errs[1]) > 5e-5 * 5, errs
 
 
-def test_the_mma_tiles_rebuild_the_two_libraries_that_include_them(
+def test_3xtf32_holds_the_tiled_pair_where_1xtf32_does_not():
+    """dq, dk, dv of the KV-tiled pair #9/#8 on one head at GPT's S=2048,
+    D=64, causal, dropout 0.1 in training (the port's plain Philox mask),
+    from the fp64 reference's saved lse and output rounded to fp32, as the
+    card computes them: #9 in one pass over key tiles of 64 (S = Q K^T,
+    dP = dO V^T, dS = p (dp - delta) with delta = rowsum(dO . out), and
+    dQ += dS K tile by tile), #8 over the query tiles from its key tile's
+    diagonal (dV += (keep . P)^T dO, dK += dS^T Q), every product with
+    TF32 operands and fp32 sums. Against fp64: within the card tests' 5e-5
+    with the split, past it with one TF32 product."""
+    S, D, T, rate = 2048, 64, 64, 0.1
+    scale, dscale = 1 / math.sqrt(D), 1 / (1 - rate)
+    rng = np.random.RandomState(0)
+    q, k, v, do = (rng.randn(S, D).astype(np.float32) for _ in range(4))
+    keep = pm.keep_mask((0x2024ABCD, 0x5EED0001), rate, S, S).numpy()
+    w = keep * dscale  # the multiplier of a kept p and dp
+    vis = np.tril(np.ones((S, S), bool))
+    Q, K, V, DO = (x.astype(np.float64) for x in (q, k, v, do))
+    s = np.where(vis, Q @ K.T * scale, -np.inf)
+    m = s.max(1, keepdims=True)
+    lse = m + np.log(np.exp(s - m).sum(1, keepdims=True))
+    p = np.exp(s - lse)
+    out = (p * w) @ V
+    dp = DO @ V.T * w
+    ds = p * (dp - (DO * out).sum(1, keepdims=True))
+    ref = (ds @ K * scale, ds.T @ Q * scale, (p * w).T @ DO)
+
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    t_lse = torch.from_numpy(lse.astype(np.float32))
+    t_out = torch.from_numpy(out.astype(np.float32))
+    tw = torch.from_numpy(w.astype(np.float32))
+    t_vis = torch.from_numpy(vis)
+    delta = (tdo * t_out).sum(1, keepdim=True)  # #9, from the saved out
+    tiles = [slice(t, t + T) for t in range(0, S, T)]
+    errs = {}
+    for terms in (1, 3):
+        def probs(rows, cols):
+            sc = _mm(tq[rows], tk[cols].T, terms) * scale
+            sc = torch.where(t_vis[rows, cols], sc, rb.NEG_INF)
+            return torch.exp(sc - t_lse[rows])
+
+        def dss(rows, cols):
+            dpc = _mm(tdo[rows], tv[cols].T, terms) * tw[rows, cols]
+            return probs(rows, cols) * (dpc - delta[rows])
+
+        dq, dk, dv = (torch.zeros(S, D) for _ in range(3))
+        for r in tiles:  # #9: query tile r, its key tiles up to the diagonal
+            for c in tiles[:r.start // T + 1]:
+                dq[r] += _mm(dss(r, c), tk[c], terms)
+        for c in tiles:  # #8: key tile c, its query tiles from the diagonal
+            for r in tiles[c.start // T:]:
+                dv[c] += _mm((probs(r, c) * tw[r, c]).T, tdo[r], terms)
+                dk[c] += _mm(dss(r, c).T, tq[r], terms)
+        got = (dq * scale, dk * scale, dv)
+        errs[terms] = [float(np.abs(g.numpy() - r).max())
+                       for g, r in zip(got, ref)]
+    assert max(errs[3]) <= 5e-5, errs
+    assert min(errs[1]) > 5e-5 * 10, errs
+
+
+def test_the_mma_tiles_rebuild_the_three_libraries_that_include_them(
         tmp_path):
     """mma_tiles.cuh is hashed into the names of libflash_attention (#3/#6
-    and #1/#5) and libring_block (#12-#14) and no other's: an edit to it
-    rebuilds those two libraries alone."""
+    and #1/#5), libflash_tiled (#9/#8 and #7, through attn_mma.cuh, the
+    backward bodies they share) and libring_block (#12-#14) and no
+    other's: an edit to it rebuilds those three libraries alone."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    for name in ("flash_attention", "ring_block"):
+    for name in ("flash_attention", "flash_tiled", "ring_block"):
         names = [p.name for p in _build._sources(name, csrc)]
         assert "mma_tiles.cuh" in names and "attn_tiles.cuh" in names
+    for name in ("flash_attention", "flash_tiled"):
+        assert "attn_mma.cuh" in [p.name
+                                  for p in _build._sources(name, csrc)]
     before = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
     header = csrc / "mma_tiles.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
     assert [n for n in _build.SOURCES if after[n] != before[n]] == \
-        ["flash_attention", "ring_block"]
+        ["flash_attention", "flash_tiled", "ring_block"]
