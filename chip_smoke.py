@@ -95,11 +95,12 @@ Phases, each fatal on failure:
    (row0, col0), causal and not, fp32 and bf16 inputs, rows that see no
    key (o = 0, lse = -1e30 exactly), the backward added into
    accumulators, the backward also on views whose rows are not 16-byte
-   aligned (its synchronous copy path); the backward pairs as built, the
-   ring's #13/#14, the whole-row #3/#6 and the KV-tiled #9/#8 (run after
-   phase 3's parity): the tensor-core instructions (HMMA) of each
-   instance in its library's SASS, its blocks an SM and shared memory;
-   the port's ring
+   aligned (its synchronous copy path); the kernels on the tensor cores
+   as built, the backward pairs #13/#14, #3/#6 and #9/#8 and the
+   forwards #1/#5 and #12 (run after phase 3's parity): the tensor-core
+   instructions (HMMA) of each instance in its library's SASS, its
+   blocks an SM and shared memory, and none in the KV-tiled forward #7,
+   still on the CUDA cores; the port's ring
    forward
    and backward (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one
    process over an in-process
@@ -117,21 +118,23 @@ Phases, each fatal on failure:
    two steps on the card (NCCL) and on the CPU (a 1-rank gloo mesh) from
    one state, under phase 5's tolerances;
 17. kernel times: each kernel beside its plain version, its bound and one
-   PyTorch call, at the serving, the BERT training (the backward pair
-   #3 also in bf16 at the BERT AMP path's activations, beside SDPA's bf16
-   backward) and the GPT shapes (the tiled backward pair #9/#8 with its
-   TFLOP/s and the 3xTF32 bound beside the fp32 one, and again in bf16 at
-   the GPT AMP path's activations against the plain version, beside
-   SDPA's bf16 causal backward),
-   #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32 line
-   printed beside), #5/#6 at the ERNIE-layout path's shapes (#5 also at
-   the predictor's bucket 8, test mode; #6 with its TFLOP/s, the 3xTF32
-   bound beside the fp32 one, two launches that give the same bits, and
-   head 0 against fp64), and #12-#14 at the SP path's
-   [1, 12, 8192, 64] fp32, causal (scaled_dot_product_attention causal
-   as the yardstick; #13/#14 with their TFLOP/s, the fp32 CUDA-core
-   bound beside the bound of their 3xTF32 arithmetic, and two launches
-   that give the same bits).
+   PyTorch call, at the serving, the BERT training (#1 and the backward
+   pair #3 also in bf16 at the BERT AMP path's activations, beside
+   SDPA's bf16 forward and backward) and the GPT shapes (#7 also in bf16
+   at the GPT AMP path's activations beside SDPA's bf16 causal forward;
+   the tiled backward pair #9/#8 with its TFLOP/s and the 3xTF32 bound
+   beside the fp32 one, and again in bf16 at the GPT AMP path's
+   activations against the plain version, beside SDPA's bf16 causal
+   backward), #10/#11 at the GPT AMP path's [8192, 768] in bf16 (an fp32
+   line printed beside), #5/#6 at the ERNIE-layout path's shapes (#5
+   also at the predictor's bucket 8, test mode, fp32 and bf16; #6 with
+   its TFLOP/s, the 3xTF32 bound beside the fp32 one, two launches that
+   give the same bits, and head 0 against fp64), and #12-#14 at the SP
+   path's [1, 12, 8192, 64] fp32, causal (scaled_dot_product_attention
+   causal as the yardstick; #13/#14 with two launches that give the same
+   bits). The kernels on the tensor cores, the forwards #1/#5 and #12
+   and the backward pairs, carry their TFLOP/s of products and the bound
+   of their 3xTF32 arithmetic, with the fp32 CUDA-core bound beside it.
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -417,6 +420,8 @@ def live_pairs(S, causal):
 
 
 def attn_bound(qkv, bias, H, causal=False):
+    """fwd_bound of the whole-row forward on the packed qkv (read once,
+    out written once, the key bias read once), with its operations."""
     B, S, three_hd = qkv.shape
     D = three_hd // 3 // H
     es = qkv.element_size()
@@ -425,7 +430,18 @@ def attn_bound(qkv, bias, H, causal=False):
         nbytes += bias.numel() * 4
     # q k^T and p v over the live pairs, two flops per product
     ops = 4 * B * H * D * live_pairs(S, causal)
-    return bound(nbytes, ops, qkv.dtype)
+    return (*fwd_bound(nbytes, ops, qkv.dtype), ops)
+
+
+def fwd_bound(nbytes, ops, dtype):
+    """(bound, fp32 CUDA-core bound) of a forward on the tensor cores
+    (#1/#5, #12): its two products' `ops` as three TF32 terms each
+    (3xTF32) at 495 TFLOP/s in fp32, at 989 TFLOP/s bf16 in bf16, or the
+    bytes where they take longer; beside it the same function on the fp32
+    CUDA cores (67 TFLOP/s), where the forwards ran before."""
+    if dtype == torch.float32:
+        return bound(nbytes, 3 * ops, "tf32"), bound(nbytes, ops, dtype)
+    return bound(nbytes, ops, dtype), bound(nbytes, ops, torch.float32)
 
 
 def res_bound(x, N):
@@ -1669,9 +1685,11 @@ def kernel_times(fa, fr, main_err, launches):
         t_p = cuda_ms(lambda: fa.reference_qkv(qkv, 12, bias, **kw))
         t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=0.125))
-        b = attn_bound(qkv, bias, 12)
-        print(f"attention {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"sdpa {t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        b, c, ops = attn_bound(qkv, bias, 12)
+        print(f"attention {name}: kernel {t_k:.4f} ms ({ops / t_k / 1e9:.1f} "
+              f"TFLOP/s of products), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}, tensor cores) / {c[0]:.4f} ms "
+              "(fp32 CUDA cores)")
         if dtype == torch.float32:
             rows.append(row("flash_attention_qkv_fwd", "serving",
                             "flash_attention.cu",
@@ -1705,7 +1723,12 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
     input read once and each output written once over 3.35 TB/s, and the
     fp32 arithmetic of the function (two flops per multiply-add; the
     backward's recomputation and the Philox integer work not counted)
-    over 67 TFLOP/s. The attention backward as a function does 8*B*H*S^2*D
+    over 67 TFLOP/s; the attention forward (#1) runs its two products on
+    the tensor cores, so its fp32 row carries them as three TF32 terms
+    each at 495 TFLOP/s (fwd_bound), and it is timed again in bf16 at the
+    BERT AMP path's activations (held against the plain version; its
+    row's launches are that path's), beside SDPA's bf16 forward with
+    dropout. The attention backward as a function does 8*B*H*S^2*D
     (dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q); its two kernels
     split that bound by the products each owns, dP and dQ to dq, dV and
     dK to dkv (dkv's own dP is recomputation), and the reads in halves, so
@@ -1734,21 +1757,36 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
                qkv.view(B, S, 3, H, D).permute(2, 0, 3, 1, 4))
     mask = bias[:, None, None, :]
     es, rows = 4, []
-    t_k = cuda_ms(lambda: fa.fused_attention_qkv(qkv, H, bias, **kw),
-                  iters=10, reps=5)
-    t_p = cuda_ms(lambda: fa.reference_qkv(qkv, H, bias, **kw), iters=3,
-                  reps=3)
-    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, dropout_p=TRAIN_RATE, scale=0.125),
-        iters=10, reps=5)
-    b = attn_bound(qkv, bias, H)
-    print(f"attention fwd: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
-          f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
-    rows.append(row("flash_attention_qkv_fwd", "training",
-                    "flash_attention.cu",
-                    "paddle_tpu/kernels/flash_attention.py:329",
-                    launches["attention_fwd"], err["attention_fwd"], t_k,
-                    t_p, b, t_l))
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+        x, m4 = qkv.to(dtype), mask.to(dtype)
+        q4, k4, v4 = (t.to(dtype) for t in (q, k, v))
+        if dtype == f32:
+            e_fwd = err["attention_fwd"]
+        else:  # BERT AMP's bf16 activations
+            e_fwd = compare(fa.fused_attention_qkv(x, H, bias, **kw),
+                            fa.reference_qkv(x, H, bias, **kw), "attention",
+                            dtype, f"attention fwd B={B} S={S} {name}")
+        t_k = cuda_ms(lambda: fa.fused_attention_qkv(x, H, bias, **kw),
+                      iters=10, reps=5)
+        t_p = cuda_ms(lambda: fa.reference_qkv(x, H, bias, **kw), iters=3,
+                      reps=3)
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, dropout_p=TRAIN_RATE, scale=0.125),
+            iters=10, reps=5)
+        b, c, ops = attn_bound(x, bias, H)
+        print(f"attention fwd {name}: kernel {t_k:.3f} ms "
+              f"({ops / t_k / 1e9:.1f} TFLOP/s of products), plain "
+              f"{t_p:.3f} ms, sdpa {name} {t_l:.3f} ms ({t_k / t_l:.2f}x), "
+              f"bound {b[0]:.3f} ms ({b[1]}, tensor cores) / {c[0]:.3f} ms "
+              "(fp32 CUDA cores)")
+        path, n = (("training", launches) if dtype == f32
+                   else ("amp_training", amp_launches))
+        rows.append(row("flash_attention_qkv_fwd", path,
+                        "flash_attention.cu",
+                        "paddle_tpu/kernels/flash_attention.py:329",
+                        n["attention_fwd"], e_fwd, t_k, t_p, b, t_l))
+        del x, m4, q4, k4, v4
 
     pairs = B * H * S * S
     for dtype in (f32, torch.bfloat16):
@@ -1897,7 +1935,10 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     (its rows' launches are that path's, flag off), held against the plain
     version, with scaled_dot_product_attention's bf16 causal backward
     beside it. #8 and #9 are timed by CUDA events around each launch in the
-    wrapper's calls (launch_ms)."""
+    wrapper's calls (launch_ms). #7 is timed again in bf16 at the GPT AMP
+    path's activations (its row's launches are that path's), held against
+    the plain version, beside SDPA's bf16 causal forward; #1's row
+    carries its two products as 3xTF32 (fwd_bound)."""
     import torch.nn.functional as F
 
     B, S, H, D = GPT_B, GPT_S, 12, 64
@@ -1927,6 +1968,33 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     rows.append(row("flash_tiled_fwd", "gpt_training", "flash_tiled.cu",
                     "paddle_tpu/kernels/flash_tiled.py:127",
                     train_n["tiled_fwd"], err["tiled_fwd"], t_k, t_p, b, t_l))
+    # at GPT AMP's bf16 activations (still fp32 arithmetic on the CUDA
+    # cores; the bound at bf16's peak, as every bf16 row's)
+    bf = torch.bfloat16
+    xb = qkv.to(bf)
+    qb, kb, vb = (t.to(bf) for t in (q, k, v))
+    out_b, lse_b = ft.flash_tiled_fwd(xb, None, MASK_SEED, H, D, **kw)
+    want_o, want_l = ft.reference_fwd(xb, None, MASK_SEED, H, D, **kw)
+    e_b = compare(out_b, want_o, "attention", bf,
+                  f"tiled fwd B={B} S={S} bfloat16")
+    compare(lse_b, want_l, "lse", f32, f"tiled fwd lse B={B} S={S} bfloat16")
+    del out_b, lse_b, want_o, want_l
+    t_k = cuda_ms(lambda: ft.flash_tiled_fwd(xb, None, MASK_SEED, H, D, **kw),
+                  iters=10, reps=5)
+    t_p = cuda_ms(lambda: ft.reference_fwd(xb, None, MASK_SEED, H, D, **kw),
+                  iters=2, reps=3)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=True, dropout_p=TRAIN_RATE, scale=0.125),
+        iters=10, reps=5)
+    b = bound(xb.numel() * 2 + head // 2 + lse_bytes,
+              4 * B * H * D * pairs, bf)
+    print(f"tiled fwd (#7) bfloat16: kernel {t_k:.3f} ms, plain {t_p:.3f} "
+          f"ms, sdpa bfloat16 causal {t_l:.3f} ms ({t_k / t_l:.2f}x), bound "
+          f"{b[0]:.3f} ms ({b[1]})")
+    rows.append(row("flash_tiled_fwd", "gpt_amp_training", "flash_tiled.cu",
+                    "paddle_tpu/kernels/flash_tiled.py:127",
+                    amp_n["tiled_fwd"], e_b, t_k, t_p, b, t_l))
+    del xb, qb, kb, vb
 
     flops = 2 * B * H * D * pairs  # one product over the live pairs
     for dtype in (f32, torch.bfloat16):
@@ -2024,9 +2092,11 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     t_p = cuda_ms(lambda: fa.reference_qkv(qkv, H, **skw))
     t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=0.125))
-    b = attn_bound(qkv, None, H, causal=True)
-    print(f"attention (#1): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
-          f"{t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    b, c, ops = attn_bound(qkv, None, H, causal=True)
+    print(f"attention (#1): kernel {t_k:.4f} ms ({ops / t_k / 1e9:.1f} "
+          f"TFLOP/s of products), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]}, tensor cores) / {c[0]:.4f} ms "
+          "(fp32 CUDA cores)")
     rows.append(row("flash_attention_qkv", "gpt_serving",
                     "flash_attention.cu",
                     "paddle_tpu/kernels/flash_attention.py:329",
@@ -2564,20 +2634,20 @@ def mha_path(fluid, layers, kc):
     pred_counts, pred = mha_predictor(fluid, main, prob, scope, cfg, kc)
     del exe, scope
     torch.cuda.empty_cache()
-    return train_counts, pred_counts["fp32"], dict(train=stats,
-                                                   checkpoint=ckpt,
-                                                   predictor=pred)
+    return train_counts, pred_counts, dict(train=stats, checkpoint=ckpt,
+                                           predictor=pred)
 
 
 def mha_kernel_times(fa, err, train_n, pred_n):
     """#5 and #6 at the training path's shape (B=32, S=512, H=12, D=64,
     fp32, key bias, dropout 0.1 in training), on the head-split views the
     program hands them; #5 at the predictor's largest bucket (B=8, test
-    mode). Bounds: q, k, v (and dO) read once, out (dq, dk, dv) written
-    once, the key bias read once, over 3.35 TB/s; 4*B*H*S^2*D operations
-    forward and 8*B*H*S^2*D backward at 67 TFLOP/s fp32; #6 runs on the
-    tensor cores, so its row carries the backward's operations as three
-    TF32 terms each (3xTF32) at 495 TFLOP/s, and the fp32 one and the
+    mode, fp32 and the bf16 predictor's bf16 q, k, v). Bounds: q, k, v
+    (and dO) read once, out (dq, dk, dv) written once, the key bias read
+    once, over 3.35 TB/s; 4*B*H*S^2*D operations forward and 8*B*H*S^2*D
+    backward; both run on the tensor cores, so their fp32 rows carry them
+    as three TF32 terms each (3xTF32) at 495 TFLOP/s (bf16: 989 TFLOP/s),
+    with the fp32 CUDA-core bound (67 TFLOP/s) beside them, and the
     time of the 27 TF32 products the kernels do (PAIR_TF32,
     recomputation included) are printed beside it. #6's time is the
     wrapper's (both kernels), the
@@ -2603,9 +2673,12 @@ def mha_kernel_times(fa, err, train_n, pred_n):
     t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, dropout_p=TRAIN_RATE, scale=0.125),
         iters=10, reps=5)
-    b = bound(4 * head + bias.numel() * 4, 4 * B * H * S * S * D, f32)
-    print(f"#5 fwd: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
-          f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    ops = 4 * B * H * S * S * D
+    b, c = fwd_bound(4 * head + bias.numel() * 4, ops, f32)
+    print(f"#5 fwd: kernel {t_k:.3f} ms ({ops / t_k / 1e9:.1f} TFLOP/s of "
+          f"fp32 products), plain {t_p:.3f} ms, sdpa {t_l:.3f} ms "
+          f"({t_k / t_l:.2f}x), bound {b[0]:.3f} ms ({b[1]}, 3xTF32 tensor "
+          f"cores) / {c[0]:.3f} ms (fp32 CUDA cores)")
     rows.append(row("fused_mha_fwd", "mha_training",
                     "flash_attention.cu",
                     "paddle_tpu/kernels/flash_attention.py:165",
@@ -2658,26 +2731,35 @@ def mha_kernel_times(fa, err, train_n, pred_n):
     torch.cuda.empty_cache()
 
     Bp = MHA_BUCKETS[-1]
-    q, k, v, _, bias = mha_inputs(Bp, S, H, D, f32, SEED + 1)
-    mask = bias[:, None, None, :]
+    q32, k32, v32, _, bias = mha_inputs(Bp, S, H, D, f32, SEED + 1)
     pkw = dict(scale=0.125, dropout_rate=TRAIN_RATE, is_test=True)
-    got = fa.fused_attention(q, k, v, bias, **pkw)
-    e_p = compare(got, fa.reference(q, k, v, bias, **pkw), "attention", f32,
-                  f"mha fwd predictor B={Bp} S={S} test mode")
-    t_k = cuda_ms(lambda: fa.fused_attention(q, k, v, bias, **pkw))
-    t_p = cuda_ms(lambda: fa.reference(q, k, v, bias, **pkw), iters=5,
-                  reps=3)
-    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=0.125))
-    b = bound(4 * Bp * H * S * D * es + bias.numel() * 4,
-              4 * Bp * H * S * S * D, f32)
-    print(f"#5 fwd, predictor bucket {Bp}, test mode: kernel {t_k:.4f} ms, "
-          f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b[0]:.4f} ms "
-          f"({b[1]})")
-    rows.append(row("fused_mha_fwd", "mha_predictor",
-                    "flash_attention.cu",
-                    "paddle_tpu/kernels/flash_attention.py:165",
-                    pred_n["mha_fwd"], e_p, t_k, t_p, b, t_l))
+    ops = 4 * Bp * H * S * S * D
+    # the predictor's fp32 program, and enable_bf16()'s bf16 q, k, v
+    for dtype, mode, path in ((f32, "fp32", "mha_predictor"),
+                              (torch.bfloat16, "bf16", "mha_predictor_bf16")):
+        name = str(dtype)[6:]
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        mask = bias[:, None, None, :].to(dtype)
+        got = fa.fused_attention(q, k, v, bias, **pkw)
+        e_p = compare(got, fa.reference(q, k, v, bias, **pkw), "attention",
+                      dtype, f"mha fwd predictor B={Bp} S={S} test mode "
+                      f"{name}")
+        t_k = cuda_ms(lambda: fa.fused_attention(q, k, v, bias, **pkw))
+        t_p = cuda_ms(lambda: fa.reference(q, k, v, bias, **pkw), iters=5,
+                      reps=3)
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=0.125))
+        b, c = fwd_bound(4 * Bp * H * S * D * q.element_size()
+                         + bias.numel() * 4, ops, dtype)
+        print(f"#5 fwd {name}, predictor bucket {Bp}, test mode: kernel "
+              f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TFLOP/s of products), "
+              f"plain {t_p:.4f} ms, sdpa {name} {t_l:.4f} ms "
+              f"({t_k / t_l:.2f}x), bound {b[0]:.4f} ms ({b[1]}, tensor "
+              f"cores) / {c[0]:.4f} ms (fp32 CUDA cores)")
+        rows.append(row("fused_mha_fwd", path, "flash_attention.cu",
+                        "paddle_tpu/kernels/flash_attention.py:165",
+                        pred_n[mode]["mha_fwd"], e_p, t_k, t_p, b, t_l))
+        del q, k, v, mask, got
     return rows
 
 
@@ -2734,16 +2816,22 @@ def misaligned_views(layout, B, H, Sq, Sk, D, dtype, seed):
     return q, k, v, do
 
 
-# the backward pairs on the tensor cores: (library, the pair's kernels, its
-# CUDA-core forward, the library's occupancy entry)
-MMA_PAIRS = (
+# the kernels on the tensor cores: (library, kernels, the library's
+# occupancy entry: a backward pair's takes which = 0 (dq) or 1 (dkv)
+# before the dtype code, a forward's the dtype code alone), and the
+# library's kernels still on the CUDA cores, which must have no HMMA
+MMA_KERNELS = (
     ("flash_attention", ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"),
-     "attn_fwd_kernel", "flash_attention_bwd_occupancy"),
+     "flash_attention_bwd_occupancy"),
+    ("flash_attention", ("attn_fwd_kernel",),
+     "flash_attention_fwd_occupancy"),
     ("flash_tiled", ("tiled_dq_kernel", "tiled_dkv_kernel"),
-     "tiled_fwd_kernel", "flash_tiled_bwd_occupancy"),
-    ("ring_block", ("ring_dq_kernel", "ring_dkv_kernel"), "ring_fwd_kernel",
+     "flash_tiled_bwd_occupancy"),
+    ("ring_block", ("ring_dq_kernel", "ring_dkv_kernel"),
      "ring_block_bwd_occupancy"),
+    ("ring_block", ("ring_fwd_kernel",), "ring_block_fwd_occupancy"),
 )
+CUDA_CORE_KERNELS = (("flash_tiled", "tiled_fwd_kernel"),)
 
 
 def sass_hmma(lib_name, kernels):
@@ -2772,20 +2860,23 @@ def sass_hmma(lib_name, kernels):
 
 
 def tensor_cores():
-    """The backward pairs as built, #3/#6 (attn_bwd_dq/dkv_kernel), #9/#8
-    (tiled_dq/dkv_kernel) and #13/#14 (ring_dq/dkv_kernel): each
-    instance's HMMA (tensor-core)
-    instructions in its library's SASS (none may lack them), and from the
-    CUDA runtime the blocks of each that fit on one SM with its dynamic
-    shared memory; the CUDA-core forwards' HMMA beside them."""
+    """The kernels on the tensor cores as built: the backward pairs #3/#6
+    (attn_bwd_dq/dkv_kernel), #9/#8 (tiled_dq/dkv_kernel) and #13/#14
+    (ring_dq/dkv_kernel) and the forwards #1/#5 (attn_fwd_kernel) and #12
+    (ring_fwd_kernel): each instance's HMMA (tensor-core) instructions in
+    its library's SASS (none may lack them), and from the CUDA runtime the
+    blocks of each that fit on one SM with its dynamic shared memory; the
+    KV-tiled forward #7 (tiled_fwd_kernel), still on the CUDA cores, must
+    have none."""
     from paddle_tpu_torch.kernels import _build
 
-    print("== backward pairs as built: tensor-core instructions, blocks an "
-          "SM")
-    for lib_name, kernels, fwd, entry in MMA_PAIRS:
-        hmma = sass_hmma(lib_name, kernels + (fwd,))
+    print("== kernels on the tensor cores as built: tensor-core "
+          "instructions, blocks an SM")
+    for lib_name, kernels, entry in MMA_KERNELS:
+        hmma = sass_hmma(lib_name, kernels)
         occupancy = getattr(_build.load(lib_name), entry)
-        occupancy.argtypes = [ctypes.c_int] * 3 + [
+        pair = len(kernels) == 2
+        occupancy.argtypes = [ctypes.c_int] * (3 if pair else 2) + [
             ctypes.POINTER(ctypes.c_int)] * 2
         occupancy.restype = ctypes.c_int
         for which, kernel in enumerate(kernels):
@@ -2793,7 +2884,8 @@ def tensor_cores():
                 for D in (32, 64, 128):
                     name = f"{kernel}<{dtype}, {D}>"
                     blocks, smem = ctypes.c_int(), ctypes.c_int()
-                    err = occupancy(which, code, D, ctypes.byref(blocks),
+                    head = (which, code) if pair else (code,)
+                    err = occupancy(*head, D, ctypes.byref(blocks),
                                     ctypes.byref(smem))
                     check(err == 0, f"{name}: occupancy query failed ({err})")
                     n_hmma = hmma.get(name, 0)
@@ -2802,9 +2894,13 @@ def tensor_cores():
                     check(n_hmma > 0 and blocks.value > 0,
                           f"{name}: no tensor-core instruction in its SASS "
                           "or no block fits on an SM")
-        on_cores = {n: c for n, c in hmma.items() if n.startswith(fwd)}
-        print(f"  {fwd} (CUDA cores): HMMA "
-              f"{sorted(set(on_cores.values()))}")
+    for lib_name, kernel in CUDA_CORE_KERNELS:
+        hmma = sass_hmma(lib_name, (kernel,))
+        print(f"  {kernel} (CUDA cores): {len(hmma)} instances, HMMA "
+              f"{sorted(set(hmma.values()))}")
+        check(len(hmma) == 6 and not any(hmma.values()),
+              f"{kernel}: HMMA in a kernel on the CUDA cores, or an "
+              f"instance missing: {hmma}")
 
 
 def ring_parity(rb):
@@ -3233,12 +3329,13 @@ def ring_kernel_times(rb, sp_n):
     output written once (the accumulators read and written) over 3.35
     TB/s, and 4*D operations a live pair for each kernel (the forward's
     q k^T and p v; the backward's 8*D split between the two) over 67
-    TFLOP/s fp32 on the CUDA cores; #13 and #14 run those operations on
-    the tensor cores as three TF32 products each (3xTF32), so their rows
+    TFLOP/s fp32 on the CUDA cores; all three run those operations on the
+    tensor cores as three TF32 products each (3xTF32), so their rows
     carry the bound of that arithmetic, 3 * 4*D a pair over 495 TFLOP/s
     TF32, and the fp32 one is printed beside it. Achieved TFLOP/s: the
-    products each kernel does (#13: S, dP, dQ; #14: S, dP, dV, dK), 2*D
-    operations a live pair each, over its time. #13 and #14 timed apart
+    products each kernel does (#12: S, P V; #13: S, dP, dQ; #14: S, dP,
+    dV, dK), 2*D operations a live pair each, over its time. #13 and #14
+    timed apart
     by CUDA events around each launch (launch_ms), and two launches of
     the pair on the same inputs must give the same bits; head 0 of both
     sides is measured against fp64. Library:
@@ -3299,7 +3396,7 @@ def ring_kernel_times(rb, sp_n):
                   iters=2, reps=3)
     l12 = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale), iters=10, reps=5)
-    b12 = bound(4 * head + stats, 4 * D * pairs, torch.float32)
+    s12, b12 = fwd_bound(4 * head + stats, 4 * D * pairs, torch.float32)
     t = launch_ms(lambda: rb.ring_block_bwd(q, k, v, do, lse, delta, 0, 0,
                                             True, scale, *zeros),
                   (("ring_block", "ring_block_bwd_dq"),
@@ -3324,8 +3421,11 @@ def ring_kernel_times(rb, sp_n):
     t13, t14 = t["ring_block_bwd_dq"], t["ring_block_bwd_dkv"]
     tf13 = 3 * 2 * D * pairs / t13 / 1e9
     tf14 = 4 * 2 * D * pairs / t14 / 1e9
-    print(f"#12 fwd: kernel {t12:.3f} ms, plain {p12:.3f} ms, sdpa causal "
-          f"{l12:.3f} ms, bound {b12[0]:.3f} ms ({b12[1]})")
+    print(f"#12 fwd: kernel {t12:.3f} ms ({4 * D * pairs / t12 / 1e9:.1f} "
+          f"TFLOP/s of fp32 products), plain {p12:.3f} ms, sdpa causal "
+          f"{l12:.3f} ms ({t12 / l12:.2f}x), bound {s12[0]:.3f} ms "
+          f"({s12[1]}, 3xTF32 tensor cores) / {b12[0]:.3f} ms (fp32 CUDA "
+          "cores)")
     print(f"#13 dq: kernel {t13:.3f} ms ({tf13:.1f} TFLOP/s of fp32 "
           f"products), plain {p13:.3f} ms, bound {b13[0]:.3f} ms "
           f"({b13[1]}, fp32 CUDA cores) / {s13[0]:.3f} ms (3xTF32 tensor "
@@ -3338,7 +3438,7 @@ def ring_kernel_times(rb, sp_n):
         n = sp_n[op]
         rows.append(row("ring_fwd", path, "ring_block.cu",
                         "paddle_tpu/kernels/ring_block.py:85",
-                        n["ring_fwd"], err_f, t12, p12, b12, l12))
+                        n["ring_fwd"], err_f, t12, p12, s12, l12))
         rows.append(row("ring_dq", path, "ring_block.cu",
                         "paddle_tpu/kernels/ring_block.py:199",
                         n["ring_bwd_dq"], err_q, t13, p13, s13, l_bwd))

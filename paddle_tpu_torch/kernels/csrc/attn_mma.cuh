@@ -1,10 +1,13 @@
-// The attention backward bodies on the tensor cores, shared by the
-// whole-row pair (#3/#6, flash_attention.cu: attn_bwd_dq_kernel,
+// The attention bodies on the tensor cores: the backward bodies, shared
+// by the whole-row pair (#3/#6, flash_attention.cu: attn_bwd_dq_kernel,
 // attn_bwd_dkv_kernel) and the KV-tiled pair (#9/#8, flash_tiled.cu:
-// tiled_dq_kernel, tiled_dkv_kernel): mma_tiles.cuh's 3xTF32 products,
-// 4 warps of 16 rows over a resident tile of mma::ROWS rows, the other
-// side streamed through two cp.async stages of BS rows; attn_tiles.cuh's
-// keep mask, scores and row reductions.
+// tiled_dq_kernel, tiled_dkv_kernel), and the forward body fwd_mma_block,
+// shared by the whole-row forward (#1/#5, flash_attention.cu:
+// attn_fwd_kernel, policy WholeRow) and the ring-block forward (#12,
+// ring_block.cu: ring_fwd_kernel, policy RingFwd): mma_tiles.cuh's
+// 3xTF32 products, 4 warps of 16 rows over a resident tile of mma::ROWS
+// rows, the other side streamed through two cp.async stages of BS rows;
+// attn_tiles.cuh's keep mask and row reductions.
 //
 // dq_mma_block and dkv_view take a launch's [B, H, S, D] views by the
 // fields HeadArgs (flash_attention.cu) and Args (attn_tiles.cuh) share:
@@ -32,6 +35,13 @@
 // columns at a time (tile_products<STEPWISE>), as dbias adds dS up over
 // the rows. dq's sum weights dS by the keys, whose signs vary, so its
 // chain's bias does not add up there.
+//
+// fwd_mma_block streams the key tiles once with an online softmax: S =
+// Q K^T (mma::tile_product), the policy's score (scale, key bias, causal
+// cut, sequence end; or liveness at the ring's offsets), the row max and
+// sum in registers, O rescaled and O += P V (mma::add_product). A bf16 P
+// would change the plain version's arithmetic, so P stays fp32 and is
+// split; bf16 K and V are TF32 already (1 product for S, 2 for P V).
 
 #pragma once
 
@@ -67,9 +77,10 @@ __device__ __forceinline__ T* head_of(void* p, long long sb, long long sh,
 // key tile), and with GLOBAL rank r = index / (B H) takes tile r of every
 // head before any head's tile r + 1: heaviest first within each head
 // alone leaves the last heads' heaviest tiles to run on after the rest
-// of a deep grid is done. The tiled pair (causal GPT) takes GLOBAL; the
-// whole-row pair keeps the order within each head, as the global branch
-// made its non-causal kernels (BERT, ERNIE) slower (PERF.md, PR 9).
+// of a deep grid is done. The tiled pair (causal GPT) and the forwards
+// (FWD_GLOBAL) take GLOBAL; the whole-row pair keeps the order within
+// each head, as the global branch made its non-causal kernels (BERT,
+// ERNIE) slower (PERF.md).
 struct BlockTile {
   unsigned tile, h, b;
 };
@@ -131,11 +142,7 @@ __device__ __forceinline__ void dq_mma_block(void* smem, const A& a) {
   const BlockTile bt = block_tile<true, SAVED>(a.causal);
   const int q0 = bt.tile * mma::ROWS;
   const int h = bt.h, b = bt.b;
-  // key tiles of this query tile: under the causal mask, those whose first
-  // key is at or below its last row (the others add exp(-1e30 - m) = 0)
-  int n_tiles = (S + BS - 1) / BS;
-  if (a.causal)
-    n_tiles = min(n_tiles, (min(q0 + mma::ROWS, S) - 1) / BS + 1);
+  const int n_tiles = key_tiles<BS>(q0, S, a.causal);
   // the stream: the key tiles once (SAVED), else twice (pass 1, pass 2)
   const int n_stream = SAVED ? n_tiles : 2 * n_tiles;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -437,6 +444,192 @@ __device__ __forceinline__ void dkv_view(void* smem, const A& a) {
       a.lse + head, a.delta + head,
       a.dbias_part ? a.dbias_part + head : nullptr, a, a.async_copy != 0,
       bt);
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (query tile, head, batch), Q resident, the key
+// tiles streamed with an online softmax in registers
+// ---------------------------------------------------------------------------
+
+// The forwards' order of query tiles under the causal mask (block_tile):
+// the heaviest first, tile rank r of every head before any head's rank
+// r + 1, which on the H100 took #12 at [1, 12, 8192, 64] from 3.77 to
+// 3.16 ms and #1 at GPT's recompute [8, 12, 256, 64] from 0.055 to 0.039
+// ms against the order within each head (PERF.md)
+constexpr bool FWD_GLOBAL = true;
+
+// The forward's shared memory: the resident Q tile, two stages of K and V
+// (BwdTiles' stream), a stage's fp32 key bias, and the keep bytes of one
+// (64 query rows x BS keys) tile
+template <typename T, int D>
+struct FwdSmem {
+  using Tl = mma::BwdTiles<T, D>;
+  static constexpr size_t bytes =
+      (mma::ROWS * Tl::LDT + Tl::STAGES * Tl::STAGE) * sizeof(T) +
+      Tl::STAGES * Tl::BS * sizeof(float) + mma::ROWS * Tl::NB;
+};
+
+// The whole-row forward's elementwise step (#1/#5): the scale, the key
+// bias of the batch, the causal cut (j > i at NEG_INF) and the sequence
+// end (j >= S at -inf: no weight at all); training dropout's Philox keep
+// mask; out = drop_scale * (keep . e) v / l. Every row sees key 0, so its
+// max is finite from the first tile on.
+struct WholeRow {
+  const float* bias;  // the batch's fp32 key bias [S], or null
+  int S, causal;
+  float scale;
+  Dropout dr;
+  int h, b;
+  __device__ int rows() const { return S; }
+  __device__ int keys() const { return S; }
+  __device__ const float* key_bias() const { return bias; }
+  __device__ bool masked() const { return dr.use_mask != 0; }
+  template <int BS>
+  __device__ int key_tiles(int q0) const {
+    return attn::key_tiles<BS>(q0, S, causal);
+  }
+  template <int NB>
+  __device__ void fill(unsigned char* sM, int q0, int k0, int tid) const {
+    fill_mask<mma::ROWS, NB, mma::THREADS>(sM, dr, q0, k0, h, b, tid);
+  }
+  __device__ float m0() const { return -INFINITY; }
+  __device__ float score(float dot, int i, int j, float bias_j) const {
+    if (j >= S) return -INFINITY;
+    const float s = dot * scale + bias_j;
+    return (causal && j > i) ? NEG_INF : s;
+  }
+  __device__ float weigh(float e, int, int) const { return e; }
+  __device__ float out_mul(float l) const { return dr.scale / l; }
+  __device__ float lse(float m, float l) const { return m + logf(l); }
+};
+
+// The forward of one query tile on the tensor cores, shared by the
+// whole-row forward (#1/#5, policy WholeRow) and the ring-block forward
+// (#12, ring_block.cu's RingFwd). Warp w owns query rows q0 + 16w .. + 15;
+// a thread holds rows g and g + 8 of them (lane = 4g + t) at the
+// accumulator columns 8 nb + 2t, + 1 of each key tile. Per key tile:
+// S = Q K^T in registers (mma::tile_product), the policy's score and
+// weight at the fragment's coordinates, the row max and sum over the
+// row's four lanes, O rescaled by exp(m - m_new) and O += P V with P the A
+// operand as it lies (mma::add_product: the tile's product summed from
+// zero, added in fp32). The row sum counts every e, kept or dropped; a
+// dropped one is zeroed before P V. The caller resolves the layout: qb,
+// kb, vb point at row 0 of the block's head (Q rows q_ss apart, K and V
+// rows kv_ss apart), ob at row 0 of its output head (rows out_ss apart,
+// stored element by element from the accumulators, so any view), lse_row
+// at its [rows] fp32 logsumexp row or null. P supplies the rows and keys,
+// the key bias (or null), the key tiles a query tile needs, the keep
+// mask, the score, the weight, the output's multiplier and the lse.
+template <typename T, int D, typename TO, typename P>
+__device__ __forceinline__ void fwd_mma_block(
+    void* smem, const T* __restrict__ qb, const T* __restrict__ kb,
+    const T* __restrict__ vb, long long q_ss, long long kv_ss,
+    TO* __restrict__ ob, long long out_ss, float* __restrict__ lse_row,
+    int q0, bool async, const P& pol) {
+  using Tl = mma::BwdTiles<T, D>;
+  constexpr int LDT = Tl::LDT, BS = Tl::BS, NB = Tl::NB, ND = D / 8;
+  constexpr bool EX = mma::exact_tf32<T>();
+
+  T* sQ = static_cast<T*>(smem);
+  T* sKV = sQ + mma::ROWS * LDT;  // stage s: K, then V, at s STAGE
+  float* sBias = reinterpret_cast<float*>(sKV + Tl::STAGES * Tl::STAGE);
+  unsigned char* sM = reinterpret_cast<unsigned char*>(
+      sBias + Tl::STAGES * BS);  // [mma::ROWS][NB]
+
+  const int Sq = pol.rows(), Sk = pol.keys();
+  const float* brow = pol.key_bias();
+  const int n_tiles = pol.template key_tiles<BS>(q0);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  auto load_kv = [&](int i) {
+    mma::load_stage<T, D, BS>(sKV + (i & 1) * Tl::STAGE, kb, kv_ss, vb,
+                              kv_ss, i * BS, Sk, tid, async);
+    if (brow)
+      mma::load_floats<BS>(sBias + (i & 1) * BS, brow, nullptr, i * BS, Sk,
+                           tid);
+  };
+  if (n_tiles > 0) {
+    mma::load_tile<T, D, mma::ROWS>(sQ, qb, q_ss, q0, Sq, tid, async);
+    load_kv(0);
+    mma::commit_async();
+  }
+
+  const int rows[2] = {q0 + w * 16 + g, q0 + w * 16 + g + 8};
+  const int local[2] = {w * 16 + g, w * 16 + g + 8};
+  float m[2] = {pol.m0(), pol.m0()}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * BS;
+    if (i + 1 < n_tiles) load_kv(i + 1);
+    mma::commit_async();  // possibly empty: one group an iteration
+    if (pol.masked()) pol.template fill<NB>(sM, q0, k0, tid);
+    mma::wait_async<1>();
+    __syncthreads();
+    const T* sK = sKV + (i & 1) * Tl::STAGE;
+    const T* sV = sK + BS * LDT;
+    const float* sB = sBias + (i & 1) * BS;
+
+    float s[NB][4];  // S = Q K^T, then the tile's weights
+    mma::tile_product<D, NB, LDT, EX>(s, sQ, sK, w, lane);
+    // key j = k0 + 8 nb + 2t + (e & 1) of row rows[e >> 1]
+    float mx[2] = {pol.m0(), pol.m0()};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, jl = nb * 8 + 2 * t + (e & 1);
+        s[nb][e] = pol.score(s[nb][e], rows[r], k0 + jl,
+                             brow ? sB[jl] : 0.f);
+        mx[r] = fmaxf(mx[r], s[nb][e]);
+      }
+    float m_new[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], row_max4(mx[r]));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const unsigned keep[2] = {
+          pol.masked() ? (unsigned)sM[local[0] * NB + nb] : 0xFFu,
+          pol.masked() ? (unsigned)sM[local[1] * NB + nb] : 0xFFu};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, jl = nb * 8 + 2 * t + (e & 1);
+        const float ex =
+            pol.weigh(expf(s[nb][e] - m_new[r]), rows[r], k0 + jl);
+        ps[r] += ex;  // the row sum counts every e, dropped or not
+        s[nb][e] = ((keep[r] >> (jl & 7)) & 1) ? ex : 0.f;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = expf(m[r] - m_new[r]);
+      l[r] = l[r] * alpha[r] + row_sum4(ps[r]);
+      m[r] = m_new[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+    mma::add_product<D, NB, LDT, EX>(acc, s, sV, lane);  // O += P V
+    __syncthreads();  // every warp is done with the stage loaded next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Sq) continue;
+    const float mul = pol.out_mul(l[r]);
+    TO* orow = ob + (long long)rows[r] * out_ss;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        orow[nd * 8 + 2 * t + c] = from_f<TO>(acc[nd][2 * r + c] * mul);
+    if (lse_row && t == 0) lse_row[rows[r]] = pol.lse(m[r], l[r]);
+  }
 }
 
 }  // namespace attn

@@ -1,12 +1,16 @@
 // Device code shared by the attention kernels of flash_attention.cu (the
 // whole-row kernels: #1/#5 forward, #3/#6 backward), flash_tiled.cu (#7
 // forward, #8 dkv, #9 dq) and ring_block.cu (#12-#14): the helpers (the
-// keep mask, scores, row reductions, launch dispatch) and the CUDA-core
-// forward body (#1, #5, #7). The backward bodies on the tensor cores are
-// attn_mma.cuh's. The forward body takes each head's rows through base
-// pointers and a row stride, so one body serves the packed projection
-// qkv[B, S, 3*H*D] (section i in {q, k, v}, head h at column i*H*D + h*D)
-// and the 4-D [B, H, S, D] layout alike.
+// keep mask, row reductions, launch dispatch and occupancy reports) and
+// the CUDA-core forward body fwd_block of the KV-tiled forward (#7). Every
+// other kernel runs on the tensor cores on attn_mma.cuh's bodies (#1/#5
+// and #12 share its fwd_mma_block) or the ring pair's own (#13/#14). When
+// #7 moves to fwd_mma_block, fwd_block and its own helpers (Layout,
+// load_rows, row_dots, accumulate_rows, store_cols, kept) go. The forward
+// bodies take each head's rows through base pointers and a row stride,
+// so one body serves the packed projection qkv[B, S, 3*H*D] (section i in
+// {q, k, v}, head h at column i*H*D + h*D) and the 4-D [B, H, S, D]
+// layout alike.
 //
 // Per batch b and head h:
 //
@@ -16,9 +20,9 @@
 //   out  = drop_scale * (keep . p) v   (keep: the Philox mask of
 //                                       philox.cuh, or all ones)
 //
-// The forward body runs one block of THREADS threads over one tile of BM
-// query rows. Four threads own one row: each scores BN/4 keys of a tile
-// and accumulates D/4 output columns; the row's max and sum are combined
+// fwd_block runs one block of THREADS threads over one tile of BM query
+// rows. Four threads own one row: each scores BN/4 keys of a tile and
+// accumulates D/4 output columns; the row's max and sum are combined
 // with two warp shuffles. Key tiles stream through shared memory as fp32;
 // all arithmetic is fp32 on the CUDA cores. Tiles wholly above the causal
 // diagonal are never visited.
@@ -186,11 +190,13 @@ __device__ __forceinline__ float score(float dot, float scale,
   return (causal && j > row) ? NEG_INF : s;
 }
 
-// number of key tiles a block of query rows [q0, q0 + BM) needs: tiles
-// wholly above the diagonal for every row add exp(NEG_INF - m) == 0
+// number of key tiles of COLS keys a block of query rows [q0, q0 + BM)
+// needs: tiles wholly above the diagonal for every row add
+// exp(NEG_INF - m) == 0
+template <int COLS = BN>
 __device__ __forceinline__ int key_tiles(int q0, int S, int causal) {
-  int n = (S + BN - 1) / BN;
-  if (causal) n = min(n, (min(q0 + BM, S) - 1) / BN + 1);
+  int n = (S + COLS - 1) / COLS;
+  if (causal) n = min(n, (min(q0 + BM, S) - 1) / COLS + 1);
   return n;
 }
 

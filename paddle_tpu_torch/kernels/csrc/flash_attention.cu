@@ -31,9 +31,10 @@
 //     v = q + 2*H*D, sh = D, ss = 3*H*D; out [B, S, H*D] has sh = D,
 //     ss = H*D; dq, dk and dv are the three sections of one packed dqkv.
 //
-//   attn_fwd_kernel: attn_tiles.cuh's fwd_block, one block per (query
-//     tile, head, batch); the keys stream through shared memory in tiles
-//     with an online softmax, so every [S, S] tile stays on chip.
+//   attn_fwd_kernel: attn_mma.cuh's fwd_mma_block with the whole-row
+//     policy (WholeRow), one block per (query tile, head, batch); the keys
+//     stream through shared memory in tiles with an online softmax in
+//     registers, so every [S, S] tile stays on chip.
 //   attn_bwd_dq_kernel: one block per (query tile, head, batch), on
 //     attn_mma.cuh's dq_mma_block<SAVED = false>; pass 1 recomputes the
 //     row max and sum online with delta_i = sum_j p_ij dp_ij (dp = dO v^T,
@@ -50,15 +51,24 @@
 //
 // What bounds it on the H100: at B=32, H=12, S=512, D=64 the forward does
 // 4*S*D flops per query row and head against 16*D bytes of q, k, v and out,
-// ~S/4 flop a byte: above the fp32 CUDA-core balance point (67 TFLOP/s over
-// 3.35 TB/s = 20), so bounded by operations (0.385 ms). The forward is
-// fp32 on the CUDA cores in either dtype.
+// ~S/4 flop a byte: bounded by operations, 0.385 ms on the fp32 CUDA cores
+// (67 TFLOP/s), 0.156 ms for its two products as three TF32 terms each at
+// 495 TFLOP/s (3xTF32), 0.026 ms in bf16 at 989 TFLOP/s.
 //
-// The backward pair runs its products on the tensor cores, on
-// mma_tiles.cuh, with bodies it shares with the KV-tiled pair #8/#9
-// (flash_tiled.cu; attn_mma.cuh): mma.sync m16n8k8 TF32 in the 3xTF32
-// split (an fp32 operand x = hi + lo, a product lo.hi + hi.lo + hi.hi),
-// as the ring-block pair #13/#14 does. The function needs 4 products of
+// Both directions run their products on the tensor cores, on
+// mma_tiles.cuh: mma.sync m16n8k8 TF32 in the 3xTF32 split (an fp32
+// operand x = hi + lo, a product lo.hi + hi.lo + hi.hi), as the
+// ring-block kernels #12-#14 do. The forward shares its body with #12
+// (attn_mma.cuh's fwd_mma_block): 4 warps of 16 query rows over a
+// resident 64-row Q tile, K and V through two cp.async stages of BS rows
+// (64, 32 at D = 128), S = Q K^T in registers, the scale, key bias,
+// causal cut, sequence end and keep mask at the accumulators' fragment
+// coordinates, the row max and sum over the row's four lanes, and
+// O += P V from P as it lies in the registers (each tile's product summed
+// from zero and added in fp32). In bf16, Q, K and V are TF32 already: 1
+// product for S, 2 for P V (P is fp32 and split), against 6 in fp32. The
+// backward pair shares its bodies with the KV-tiled pair #8/#9
+// (flash_tiled.cu; attn_mma.cuh). The function needs 4 products of
 // 2*B*H*S^2*D flops (dP, dQ, dV, dK; S is the forward's): at BERT's
 // shape, three TF32 terms each in fp32, 0.312 ms at 495 TFLOP/s dense
 // TF32, and in bf16 0.052 ms at 989 TFLOP/s. The op saves neither the
@@ -90,21 +100,25 @@
 //   - dkv keeps keys as the M rows, so a key's dbias partial is a row sum
 //     of the warp's dS^T tile: summed by each thread over its columns,
 //     tile after tile, then over the row's four lanes, in a fixed order;
-//   - under the causal mask dq starts its heaviest query tiles first, and
-//     tiles wholly above the diagonal are never visited;
+//   - under the causal mask dq and the forward start their heaviest query
+//     tiles first, and tiles wholly above the diagonal are never visited;
 //   - a view whose rows are not 16-byte aligned (a base one element off,
 //     an odd row stride) takes the same kernels' synchronous copy path,
 //     chosen by the C entries from the pointers and strides
 //     (mma::rows_aligned); the outputs are stored element by element from
 //     the accumulators, so they take any view.
-// As built for the H100 (ptxas -v; flash_attention_bwd_occupancy), fp32 /
-// bf16, D = 32, 64, 128:
+// As built for the H100 (ptxas -v; flash_attention_fwd_occupancy and
+// flash_attention_bwd_occupancy), fp32 / bf16, D = 32, 64, 128:
+//   attn_fwd_kernel: 137 / 124, 187 / 161, 226 / 219 registers, no
+//     spills; 3 / 4, 2 / 3, 2 / 2 blocks an SM (46, 86, 99.5 KB of shared
+//     memory in fp32; 26, 46, 51.5 KB in bf16);
 //   attn_bwd_dq_kernel: 163 / 168, 191 / 193, 211 / 214 registers, no
 //     spills; 3 / 3, 2 / 2, 1 / 2 blocks an SM (55, 103, 132.5 KB of
 //     shared memory in fp32; 31, 55, 68.5 KB in bf16);
 //   attn_bwd_dkv_kernel: 197 / 183, 238 / 237, 255 / 255 registers, D=128
 //     spilling 44-52 / 44-48 bytes; 2 / 2, 2 / 2, 1 / 2 blocks an SM.
-// At [32, 12, 512, 64] fp32 with training dropout the pair takes about 12x
+// At [32, 12, 512, 64] fp32 with training dropout the forward takes about
+// 5.5x its 3xTF32 bound (0.86 ms, 0.78x SDPA's) and the pair about 12x
 // the function's 3xTF32 bound and 5.4x the time of the 27 TF32 products it
 // does (PERF.md); the Philox mask is drawn three times a pair.
 // Pre-split hi/lo tiles, wgmma with TMA, and bf16 products on rounded P
@@ -139,17 +153,20 @@ struct HeadArgs {
   int async_copy;  // backward: q, k, v and dout rows 16-byte aligned
 };
 
+// #1/#5: attn_mma.cuh's forward body with the whole-row policy
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) attn_fwd_kernel(HeadArgs a) {
+__global__ void __launch_bounds__(mma::THREADS, 2)
+attn_fwd_kernel(HeadArgs a) {
   extern __shared__ float4 smem4[];
-  const unsigned h = blockIdx.y, b = blockIdx.z;
-  fwd_block<T, D>(reinterpret_cast<float*>(smem4),
-                  head_of<T>(a.q, a.in_sb, a.in_sh, b, h),
-                  head_of<T>(a.k, a.in_sb, a.in_sh, b, h),
-                  head_of<T>(a.v, a.in_sb, a.in_sh, b, h), a.in_ss,
-                  a.bias ? a.bias + (long long)b * a.S : nullptr,
-                  head_of<T>(a.out, a.out_sb, a.out_sh, b, h), a.out_ss,
-                  nullptr, a);
+  const BlockTile bt = block_tile<true, FWD_GLOBAL>(a.causal);
+  const WholeRow pol{a.bias ? a.bias + (long long)bt.b * a.S : nullptr, a.S,
+                     a.causal, a.scale, a.dr, (int)bt.h, (int)bt.b};
+  fwd_mma_block<T, D, T>(
+      smem4, head_of<T>(a.q, a.in_sb, a.in_sh, bt.b, bt.h),
+      head_of<T>(a.k, a.in_sb, a.in_sh, bt.b, bt.h),
+      head_of<T>(a.v, a.in_sb, a.in_sh, bt.b, bt.h), a.in_ss, a.in_ss,
+      head_of<T>(a.out, a.out_sb, a.out_sh, bt.b, bt.h), a.out_ss, nullptr,
+      (int)bt.tile * mma::ROWS, a.async_copy != 0, pol);
 }
 
 // backward pair (#3/#6) on the tensor cores: attn_mma.cuh's bodies, the
@@ -170,10 +187,11 @@ attn_bwd_dkv_kernel(HeadArgs a) {
 
 template <typename T, int D>
 struct Fwd {
-  static constexpr size_t smem = Layout<D>::fwd;
+  static constexpr int threads = mma::THREADS;
+  static constexpr size_t smem = FwdSmem<T, D>::bytes;
   static const void* fn() { return (const void*)attn_fwd_kernel<T, D>; }
   static void launch(dim3 grid, cudaStream_t st, const HeadArgs& a) {
-    attn_fwd_kernel<T, D><<<grid, THREADS, smem, st>>>(a);
+    attn_fwd_kernel<T, D><<<grid, threads, smem, st>>>(a);
   }
 };
 
@@ -233,10 +251,14 @@ extern "C" int flash_attention_fwd(
     int B, int S, int H, int D, const long long* strides, float scale,
     float drop_scale, int causal, int use_mask, unsigned seed0,
     unsigned seed1, unsigned threshold, int dtype, void* stream) {
-  const HeadArgs a = make_args(q, k, v, bias, nullptr, out, nullptr, nullptr,
-                               nullptr, nullptr, nullptr, B, S, H, strides,
-                               scale, drop_scale, causal, use_mask, seed0,
-                               seed1, threshold);
+  HeadArgs a = make_args(q, k, v, bias, nullptr, out, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, B, S, H, strides, scale,
+                         drop_scale, causal, use_mask, seed0, seed1,
+                         threshold);
+  // q, k and v (their three strides) decide the copy path; out is stored
+  // element by element
+  a.async_copy = mma::rows_aligned(q, k, v, q, strides, 3,
+                                   dtype == 1 ? 2 : 4);
   return dispatch<Fwd>(dtype, D, a, stream);
 }
 
@@ -274,4 +296,10 @@ extern "C" int flash_attention_bwd_occupancy(int which, int dtype, int D,
                                              int* blocks, int* smem_bytes) {
   return which == 0 ? occupancy<BwdDq>(dtype, D, blocks, smem_bytes)
                     : occupancy<BwdDkv>(dtype, D, blocks, smem_bytes);
+}
+
+// The same report for the forward kernel (#1/#5)
+extern "C" int flash_attention_fwd_occupancy(int dtype, int D, int* blocks,
+                                             int* smem_bytes) {
+  return occupancy<Fwd>(dtype, D, blocks, smem_bytes);
 }

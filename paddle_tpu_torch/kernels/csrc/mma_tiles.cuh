@@ -1,10 +1,11 @@
 // Tensor-core tile code for Hopper (sm_90a): fp32-accurate products on
 // mma.sync TF32 (3xTF32), shared-memory tiles fed by cp.async, and the
-// fragment loads of the m16n8k8 product. The three backward pairs are
-// built on it: the ring-block pair (#13, #14, ring_block.cu), and the
-// whole-row (#3/#6, flash_attention.cu) and KV-tiled (#9/#8,
-// flash_tiled.cu) pairs through the bodies they share (attn_mma.cuh); the
-// forward kernels (#1/#5, #7, #12) still run on the CUDA cores.
+// fragment loads of the m16n8k8 product. Built on it: the ring-block
+// backward pair (#13, #14, ring_block.cu), and through the bodies of
+// attn_mma.cuh the whole-row (#3/#6, flash_attention.cu) and KV-tiled
+// (#9/#8, flash_tiled.cu) backward pairs and the forward body that the
+// whole-row forward (#1/#5) and the ring-block forward (#12) share. The
+// KV-tiled forward (#7) still runs on the CUDA cores (attn_tiles.cuh).
 //
 // The product. A block's warps each own 16 rows of an m16n8k8 TF32 product
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, fp32 accumulators).
@@ -34,11 +35,12 @@
 // 16-byte aligned (rows_aligned), else element by element; a caller
 // waits with wait_async<N>() and __syncthreads() in either case.
 //
-// The backward pairs. BwdTiles, load_stage, load_floats and tile_products
-// are the parts the pairs share: the tiles, the stream's loads and the S
+// The bodies. BwdTiles, load_stage, load_floats and tile_products are the
+// parts the backward pairs share: the tiles, the stream's loads and the S
 // and dP products of a tile; the ring pair and attn_mma.cuh's bodies each
 // keep their own elementwise step (liveness at offsets, or bias, causal
-// cut and dropout) and store.
+// cut and dropout) and store. The forward body streams its K and V
+// through BwdTiles' stages too, with the one product of tile_product.
 
 #pragma once
 
@@ -340,6 +342,32 @@ __device__ __forceinline__ void tile_products(float (&s)[NB][4],
         load_b_nk<LDT>(g2, b2, nb * 8, kk * 8, lane);
         mma3(dp[nb], f2, g2);
       }
+    }
+  }
+}
+
+// The one product of a streamed tile for warp w in the forward:
+// s = A B^T, A the warp's 16 rows (from row 16 w) of the resident tile,
+// B the NB*8 rows of the stage (S = Q K^T), one chain of mma's over the D
+// columns summed from zero as tile_products' default (the forward's
+// scores feed exp(s - m), where a chain's bias of a few units in the last
+// place shifts the row alike and stays within fp32's tolerance).
+template <int D, int NB, int LDT, bool EXACT, typename T>
+__device__ __forceinline__ void tile_product(float (&s)[NB][4], const T* a,
+                                             const T* b, int w, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    Frag<4, EXACT> f;
+    load_a<LDT>(f, a, w * 16, kk * 8, lane);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      Frag<2, EXACT> g;
+      load_b_nk<LDT>(g, b, nb * 8, kk * 8, lane);
+      mma3(s[nb], f, g);
     }
   }
 }

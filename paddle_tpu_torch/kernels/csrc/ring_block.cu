@@ -32,55 +32,65 @@
 // are never visited; inside a live tile each entry is masked by its own
 // coordinates, so a row may be wholly masked (and adds exactly 0).
 //
-// The forward's helpers (tile loads, row dot products, the float4
-// accumulation, the shuffles) are attn_tiles.cuh's, shared with #1-#11's
-// attention kernels, and it runs fp32 on the CUDA cores; the backward
-// pair is built on mma_tiles.cuh; both share attn_tiles.cuh's
-// shared-memory opt-in and dtype/head-dim dispatch. bf16 inputs are
-// widened to fp32 (TF32 exactly, in the backward); every output is fp32.
+// All three kernels run their products on the tensor cores, on
+// mma_tiles.cuh; the forward is attn_mma.cuh's fwd_mma_block, the body it
+// shares with the whole-row forward #1/#5, with the ring's policy
+// (RingFwd: liveness at the offsets). All share attn_tiles.cuh's
+// shared-memory opt-in and dtype/head-dim dispatch. bf16 inputs widen to
+// TF32 exactly; every output is fp32.
 //
 // What bounds it on the H100: at B=1, H=12, S=8192, D=64, causal, offsets
 // (0, 0), each kernel does 4*D flops for each of the 4.03e8 live pairs
 // (the backward's 8*D split between #13 and #14), 1.03e11 operations
 // against ~8 MB of bytes: operations (1.54 ms each at 67 TFLOP/s fp32 on
-// the CUDA cores). The backward pair's first design, on the forward's
-// helpers, was bound by shared-memory traffic (one float4 read from
-// shared memory for every 4 FMAs) at 16-17% of that peak; it now runs its
+// the CUDA cores). The first design of all three, fp32 on the CUDA cores
+// with one float4 read from shared memory for every 4 FMAs, was bound by
+// shared-memory traffic at 16-17% of that peak; they now run their
 // products on the tensor cores: mma.sync m16n8k8 TF32 in the 3xTF32 split
 // (mma_tiles.cuh), three TF32 products for each fp32 one, so the bound of
-// the arithmetic it does is 0.625 ms each at 495 TFLOP/s dense TF32. What
+// the arithmetic each does is 0.625 ms at 495 TFLOP/s dense TF32. What
 // the design does:
 //   - 4 warps a block (mma::THREADS = 128), each owning 16 rows of the
-//     block's resident 64-row tile (dq: Q and dO; dkv: K and V), held in
-//     shared memory in the input dtype; the other side streams through
-//     two cp.async stages of BS rows (64, or 32 at D=128 to keep the S and
-//     dP register tiles beside the accumulators), so the next tile's copy
-//     overlaps this tile's products;
+//     block's resident 64-row tile (fwd: Q; dq: Q and dO; dkv: K and V),
+//     held in shared memory in the input dtype; the other side streams
+//     through two cp.async stages of BS rows (64, or 32 at D=128 to keep
+//     the S and dP register tiles beside the accumulators), so the next
+//     tile's copy overlaps this tile's products;
 //   - S and dP (dkv: S^T = K Q^T and dP^T = V dO^T, key-major) stay in
 //     registers; P and dS are formed there and become the A operand of
-//     the next product without leaving them (mma::c_to_a), so #14 no
-//     longer round-trips P and dS through shared memory;
-//   - each tile's dS K (P^T dO, dS^T Q) is summed from zero on the tensor
-//     cores and added to the accumulators in fp32 (mma::add_product): an
-//     mma's own sum truncates, and one chain over a whole sequence (8192
-//     rows) drifted past the fp32 tolerance; summed by tiles, the pair
-//     stays as close to an fp64 reference as the fp32 plain versions;
+//     the next product without leaving them (mma::c_to_a), so neither #12
+//     nor #14 round-trips P through shared memory; #12 keeps the row max
+//     and sum in registers, over the row's four lanes;
+//   - each tile's P V (dS K, P^T dO, dS^T Q) is summed from zero on the
+//     tensor cores and added to the accumulators in fp32
+//     (mma::add_product): an mma's own sum truncates, and one chain over a
+//     whole sequence (8192 rows) drifted past the fp32 tolerance; summed
+//     by tiles, the kernels stay as close to an fp64 reference as the fp32
+//     plain versions;
 //   - the fragment reads are free of bank conflicts (rows padded by 16
 //     bytes), and a bf16 tile widens exactly, so its lo terms are not
-//     computed (2 products of 3 remain for dS K and P^T dO, 1 for S, dP);
-//   - under the causal mask #13 starts its heaviest query tiles first;
+//     computed (2 products of 3 remain for P V, dS K and P^T dO, 1 for S,
+//     dP);
+//   - under the causal mask #12 and #13 start their heaviest query tiles
+//     first;
 //   - a view whose rows are not 16-byte aligned (a base one element off,
 //     an odd row stride) takes the same kernels' synchronous copy path,
 //     chosen by the entry points from the pointers and strides.
-// As built for the H100 (ptxas -v; ring_block_bwd_occupancy), fp32 / bf16:
+// As built for the H100 (ptxas -v; ring_block_fwd_occupancy and
+// ring_block_bwd_occupancy), fp32 / bf16:
+//   ring_fwd_kernel D=64: 203 / 194 registers, no spills, 86 / 46 KB of
+//     shared memory, 2 / 2 blocks an SM; D=32: 207 / 168, 2 / 3 blocks;
+//     D=128 (BS = 32): 233 / 225, 2 / 2 blocks;
 //   ring_dq_kernel  D=64: 181 / 151 registers, no spills, 102 / 54 KB of
 //     shared memory, 2 / 3 blocks an SM; D=32: 155 / 133, 3 / 3 blocks;
 //     D=128 (BS = 32): 209 / 206, 1 / 2 blocks;
 //   ring_dkv_kernel D=64: 218 / 228 registers, no spills, 103 / 55 KB,
 //     2 / 2 blocks an SM; D=32: 176 / 162, 2 / 3 blocks; D=128: 255 with
 //     a few bytes of spills, 1 / 2 blocks.
-// At [1, 12, 8192, 64] fp32 causal the pair takes about a third of its
-// first design's time (PERF.md), 8-10x the 0.625 ms bound; which of
+// At [1, 12, 8192, 64] fp32 causal the forward takes about 5x its
+// 0.625 ms bound (3.16 ms, a third of its first design's, 0.88x SDPA's
+// causal forward) and the pair about a third of its first design's time
+// (PERF.md), 8-10x the 0.625 ms bound; which of
 // latency (8 warps an SM), issue slots or the tensor pipe holds it there
 // is not measured.
 // wgmma with TMA, and one fused kernel (5 products instead of 7, but
@@ -88,8 +98,7 @@
 
 #include <stdint.h>
 
-#include "attn_tiles.cuh"
-#include "mma_tiles.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -116,7 +125,7 @@ struct RingArgs {
   long long do_sb, do_sh, do_ss;
   float scale;
   int causal;
-  int async_copy;  // backward: q, k, v and dO rows 16-byte aligned
+  int async_copy;  // q, k, v (and dO) rows 16-byte aligned
 };
 
 template <typename T>
@@ -129,7 +138,7 @@ __device__ __forceinline__ const T* head_ptr(const void* p, long long sb,
 // key tiles of COLS a block of query rows [q0, q0 + ROWS) needs: under
 // the causal mask, those whose first key is at or below the block's last
 // row
-template <int ROWS = BM, int COLS = BN>
+template <int ROWS, int COLS>
 __device__ __forceinline__ int live_key_tiles(const RingArgs& a, int q0) {
   int n = (a.Sk + COLS - 1) / COLS;
   if (a.causal) {
@@ -143,79 +152,53 @@ __device__ __forceinline__ bool live(const RingArgs& a, int i, int j) {
   return i < a.Sq && j < a.Sk && (!a.causal || a.col0 + j <= a.row0 + i);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) ring_fwd_kernel(RingArgs a) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int PLD = Layout<D>::PLD;
-  constexpr int JPT = BN / TPR;
-  constexpr int CHUNKS = D / (4 * TPR);
-
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BM * LD;
-  float* sV = sK + BN * LD;
-  float* sP = sV + BN * LD;
-
-  const int q0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int t = tid % TPR;
-  const int row = q0 + r;
-  const T* kb = head_ptr<T>(a.k, a.kv_sb, a.kv_sh);
-  const T* vb = head_ptr<T>(a.v, a.kv_sb, a.kv_sh);
-  load_rows<T, D, BM>(sQ, head_ptr<T>(a.q, a.q_sb, a.q_sh), a.q_ss, q0, a.Sq,
-                      tid);
-
-  float acc[4 * CHUNKS];
-#pragma unroll
-  for (int i = 0; i < 4 * CHUNKS; ++i) acc[i] = 0.f;
+// #12's elementwise step for attn_mma.cuh's fwd_mma_block: liveness in
+// global coordinates (live), a dead entry weighing exactly 0; no bias, no
+// dropout. A row with no live key keeps m = NEG_INF and l = 0 and writes
+// o = 0 and lse = NEG_INF.
+struct RingFwd {
+  const RingArgs& a;
+  __device__ int rows() const { return a.Sq; }
+  __device__ int keys() const { return a.Sk; }
+  __device__ const float* key_bias() const { return nullptr; }
+  __device__ bool masked() const { return false; }
+  template <int BS>
+  __device__ int key_tiles(int q0) const {
+    return live_key_tiles<mma::ROWS, BS>(a, q0);
+  }
+  template <int NB>
+  __device__ void fill(unsigned char*, int, int, int) const {}
   // m starts finite: a row whose keys are all masked keeps m = NEG_INF
   // and alpha = exp(0) = 1 instead of exp(-inf - -inf) = NaN
-  float m = NEG_INF, l = 0.f;
-
-  const int n_tiles = live_key_tiles(a, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_rows<T, D, BN>(sK, kb, a.kv_ss, k0, a.Sk, tid);
-    load_rows<T, D, BN>(sV, vb, a.kv_ss, k0, a.Sk, tid);
-    __syncthreads();
-
-    float sc[JPT];
-    row_dots<D, JPT>(sc, sQ + r * LD, sK, t);
-    float tile_max = NEG_INF;
-#pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      sc[jj] = live(a, row, k0 + t + TPR * jj) ? sc[jj] * a.scale : NEG_INF;
-      tile_max = fmaxf(tile_max, sc[jj]);
-    }
-    const float m_new = fmaxf(m, row_max4(tile_max));
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      const int jl = t + TPR * jj;
-      // a masked entry weighs 0 even where the whole row is masked
-      // (m_new == NEG_INF, where exp(s - m_new) would be 1)
-      const float p = live(a, row, k0 + jl) ? expf(sc[jj] - m_new) : 0.f;
-      psum += p;
-      sP[r * PLD + jl] = p;
-    }
-    l = l * alpha + row_sum4(psum);
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < 4 * CHUNKS; ++i) acc[i] *= alpha;
-    __syncwarp();  // the row's P values, written by its own warp
-    accumulate_rows<D>(acc, sP + r * PLD, sV, t);
+  __device__ float m0() const { return NEG_INF; }
+  __device__ float score(float dot, int i, int j, float) const {
+    return live(a, i, j) ? dot * a.scale : NEG_INF;
   }
-
-  if (row < a.Sq) {
-    const long long head = (long long)blockIdx.z * a.H + blockIdx.y;
-    const bool any = l > 0.f;
-    store_cols<float, D>(a.o + (head * a.Sq + row) * D, acc,
-                         any ? 1.f / l : 0.f, t);
-    if (t == 0) a.lse[head * a.Sq + row] = any ? m + logf(l) : NEG_INF;
+  // a masked entry weighs 0 even where the whole row is masked
+  // (m_new == NEG_INF, where exp(s - m_new) would be 1)
+  __device__ float weigh(float e, int i, int j) const {
+    return live(a, i, j) ? e : 0.f;
   }
+  __device__ float out_mul(float l) const { return l > 0.f ? 1.f / l : 0.f; }
+  __device__ float lse(float m, float l) const {
+    return l > 0.f ? m + logf(l) : NEG_INF;
+  }
+};
+
+// #12: the forward body with the ring policy into the contiguous fp32 o
+// and lse
+template <typename T, int D>
+__global__ void __launch_bounds__(mma::THREADS, 2)
+ring_fwd_kernel(RingArgs a) {
+  extern __shared__ float4 smem4[];
+  const BlockTile bt = block_tile<true, FWD_GLOBAL>(a.causal);
+  const long long head = (long long)bt.b * a.H + bt.h;
+  fwd_mma_block<T, D, float>(
+      smem4, head_of<T>(a.q, a.q_sb, a.q_sh, bt.b, bt.h),
+      head_of<T>(a.k, a.kv_sb, a.kv_sh, bt.b, bt.h),
+      head_of<T>(a.v, a.kv_sb, a.kv_sh, bt.b, bt.h), a.q_ss, a.kv_ss,
+      a.o + head * a.Sq * D, D, a.lse + head * a.Sq,
+      (int)bt.tile * mma::ROWS, a.async_copy != 0, RingFwd{a});
 }
 
 // ---------------------------------------------------------------------------
@@ -436,9 +419,8 @@ __global__ void __launch_bounds__(mma::THREADS, 2) ring_dkv_kernel(RingArgs a) {
     }                                                                        \
   };
 
-// dispatch's grid tiles the launch's axis by attn::BM rows
-static_assert(mma::ROWS == BM, "the backward's resident tiles are BM rows");
-RING_KERNEL(Fwd, ring_fwd_kernel, THREADS, Layout<D>::fwd)
+// Q resident, K and V streamed (attn_mma.cuh)
+RING_KERNEL(Fwd, ring_fwd_kernel, mma::THREADS, (FwdSmem<T, D>::bytes))
 // dq: Q and dO resident, K and V streamed; dkv: K and V resident, Q and
 // dO streamed with their lse and delta
 RING_KERNEL(Dq, ring_dq_kernel, mma::THREADS,
@@ -456,9 +438,9 @@ RingArgs make_args(const void* q, const void* k, const void* v,
                   s[7], s[8], scale, causal, 0};
 }
 
-// The backward's copy path: 16-byte cp.async where q, k, v and dO and
-// their nine strides keep every head row 16-byte aligned, else
-// synchronous element copies.
+// The copy path: 16-byte cp.async where q, k, v and dO (the forward
+// passes q again) and their nine strides keep every head row 16-byte
+// aligned, else synchronous element copies.
 int rows_aligned(const void* q, const void* k, const void* v,
                  const void* dout, const long long* s, int dtype) {
   return mma::rows_aligned(q, k, v, dout, s, 9, dtype == 1 ? 2 : 4);
@@ -477,9 +459,10 @@ extern "C" int ring_block_fwd(const void* q, const void* k, const void* v,
                               int Sk, int D, int row0, int col0,
                               const long long* strides, float scale,
                               int causal, int dtype, void* stream) {
-  const RingArgs a = make_args(q, k, v, nullptr, o, nullptr, nullptr, lse,
-                               nullptr, B, H, Sq, Sk, row0, col0, strides,
-                               scale, causal);
+  RingArgs a = make_args(q, k, v, nullptr, o, nullptr, nullptr, lse,
+                         nullptr, B, H, Sq, Sk, row0, col0, strides, scale,
+                         causal);
+  a.async_copy = rows_aligned(q, k, v, q, strides, dtype);
   return dispatch<Fwd>(dtype, D, a, stream);
 }
 
@@ -519,4 +502,10 @@ extern "C" int ring_block_bwd_occupancy(int which, int dtype, int D,
                                         int* blocks, int* smem_bytes) {
   return which == 0 ? occupancy<Dq>(dtype, D, blocks, smem_bytes)
                     : occupancy<Dkv>(dtype, D, blocks, smem_bytes);
+}
+
+// The same report for the forward kernel (#12)
+extern "C" int ring_block_fwd_occupancy(int dtype, int D, int* blocks,
+                                        int* smem_bytes) {
+  return occupancy<Fwd>(dtype, D, blocks, smem_bytes);
 }

@@ -25,13 +25,14 @@ What bounds it on the H100: at BERT shapes (S=128..512, D=64) each
 query row and head does 4*S*D flops forward (about 9*S*D backward)
 against 12*D input bytes, ~S/3 flop per byte, so the kernels are bound
 by operations. The kernels (csrc/flash_attention.cu) keep every [S, S]
-tile out of device memory: the forward (on csrc/attn_tiles.cuh, fp32 on
-the CUDA cores) streams key tiles through shared memory with an online
-softmax; the backward splits into a per-query-tile kernel (row
+tile out of device memory, and every kernel runs its products on the
+tensor cores (csrc/mma_tiles.cuh: mma.sync TF32 in a 3xTF32 split, so
+the products hold fp32's accuracy): the forward streams key tiles
+through shared memory with an online softmax in registers, on the body
+it shares with the ring-block forward #12 (csrc/attn_mma.cuh's
+fwd_mma_block); the backward splits into a per-query-tile kernel (row
 statistics, delta, dq) and a per-key-tile kernel (dk, dv, per-head dbias
-partials), both on the tensor cores (csrc/mma_tiles.cuh: mma.sync TF32
-in a 3xTF32 split, so their products hold fp32's accuracy), on bodies
-the KV-tiled pair shares (csrc/attn_mma.cuh). Both
+partials), on bodies the KV-tiled pair shares (csrc/attn_mma.cuh). Both
 layouts launch the same three kernels, which read q, k and v as
 [B, H, S, D] views through their strides: the packed projection is the
 view whose k and v sections lie H*D and 2*H*D columns on, so it is read

@@ -34,12 +34,13 @@ What bounds it on the H100: at B=1, H=12, S=8192, D=64, causal, offsets
 pairs forward and 8*D backward, against a few MB: operations. The kernels
 (csrc/ring_block.cu) skip tiles wholly above the causal diagonal in
 global coordinates, and add into the accumulators instead of writing a
-contribution the caller would add in another pass. The forward (#12, on
-csrc/attn_tiles.cuh's helpers) runs fp32 on the CUDA cores; the backward
-pair (#13, #14, on csrc/mma_tiles.cuh) runs its products on the tensor
-cores as 3xTF32 (`tf32_split` below: each fp32 operand is hi + lo, both
-TF32, and a product is lo*hi + hi*lo + hi*hi, within about 2^-21 of
-fp32's), its tiles fed by cp.async.
+contribution the caller would add in another pass. All three run their
+products on the tensor cores (csrc/mma_tiles.cuh) as 3xTF32 (`tf32_split`
+below: each fp32 operand is hi + lo, both TF32, and a product is
+lo*hi + hi*lo + hi*hi, within about 2^-21 of fp32's), their tiles fed by
+cp.async; the forward (#12) on the body it shares with the whole-row
+forward #1/#5 (csrc/attn_mma.cuh's fwd_mma_block), with the ring's
+liveness at the offsets.
 
 Dispatch: a CUDA tensor goes to the kernels, or raises if they do not
 take it (`ring_supports`); a CPU tensor goes to the plain version. The
@@ -168,7 +169,7 @@ def tf32_round(x):
     away from zero, as the card's cvt.rna.tf32.f32 rounds: integer
     operations on the fp32 bits (add half a unit of the 13 dropped bits,
     clear them). A value past TF32's largest rounds to infinity; inf and
-    NaN pass through. The plain model of the backward pair's split, for
+    NaN pass through. The plain model of the kernels' split, for
     tests."""
     bits = x.to(torch.float32).contiguous().view(torch.int32)
     finite = (bits & 0x7F800000) != 0x7F800000
@@ -178,7 +179,7 @@ def tf32_round(x):
 
 def tf32_split(x):
     """(hi, lo), both TF32, with hi + lo = x within 2^-22 |x|: the split
-    of each fp32 operand of the backward pair's 3xTF32 products."""
+    of each fp32 operand of the kernels' 3xTF32 products."""
     hi = tf32_round(x)
     return hi, tf32_round(x.to(torch.float32) - hi)
 

@@ -510,11 +510,19 @@ def test_tiled_kernels_take_every_head_dim(dev, D):
 
 
 def test_tiled_kernels_draw_the_whole_row_kernels_mask(dev):
-    """One seed, S=512 (both paths take it): #7's output equals #1's bit
-    for bit (one device function), and the dv of one query row from #8 is
-    zero exactly where #3's is and where the plain mask drops."""
+    """One seed, S=512 (both paths take it): #7's output (CUDA cores)
+    equals #1's (tensor cores) bit for bit, and the dv of one query row
+    from #8 is zero exactly where #3's is and where the plain mask drops.
+    With q = 0 every live key weighs exp(0) = 1 and v holds small
+    integers, so each output is a sum of kept integers times drop_scale
+    over the live count, exact in any order of the sums: the two kernels
+    agree in their bits exactly when they draw one mask."""
     B, S, H, D, rate = 2, 512, 2, 64, 0.25
     qkv, bias = _qkv(dev, B, S, H, D, torch.float32, seed=9)
+    g = torch.Generator(device=dev).manual_seed(9)
+    qkv[..., :H * D] = 0.0
+    qkv[..., 2 * H * D:] = torch.randint(-8, 9, (B, S, H * D), generator=g,
+                                         device=dev).float()
     kw = dict(scale=1 / 8, is_test=False, causal=False)
     out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, H, D, rate=rate, **kw)
     whole = fa.fused_attention_qkv(qkv, H, bias, dropout_rate=rate, seed=SEED,
@@ -1127,6 +1135,59 @@ def test_ring_block_backward_at_s8192_matches_the_plain_version(dev, dtype):
         _close(a, w, "attention_bwd", torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_forward_at_s8192_matches_the_plain_version(dev, dtype):
+    """#12 on two heads at the SP path's S=8192, D=64, causal, at offsets
+    (0, 0) and (4096, 0): an online softmax over up to 8192 keys, each
+    tile's P V summed from zero on the tensor cores and added in fp32,
+    against the plain version at the forward's fp32 tolerance and lse
+    1e-5 (fp32 outputs from either input dtype)."""
+    g = torch.Generator(device=dev).manual_seed(8193)
+    q, k, v = (torch.randn(1, 2, 8192, 64, generator=g, device=dev)
+               .to(dtype) for _ in range(3))
+    for row0, col0 in [(0, 0), (4096, 0)]:
+        args = (row0, col0, True, 0.125)
+        o, lse = rb.ring_block_fwd(q, k, v, *args)
+        o_ref, lse_ref = rb.shard_fwd_ref(q, k, v, *args)
+        _close(o, o_ref, "attention", torch.float32)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["base_off_by_one", "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_forward_reads_misaligned_views(dev, dtype, layout):
+    """Views whose rows are not 16-byte aligned take #12's synchronous
+    copy path: it agrees with the plain version (rows that see no key at
+    o = 0, lse = -1e30 exactly) and counts one launch a call."""
+    q, = _misaligned(dev, layout, 2, 3, 200, 64, dtype, 1, 5)
+    k, v = _misaligned(dev, layout, 2, 3, 130, 64, dtype, 2, 6)
+    assert q.data_ptr() % 16 or q.stride(2) % 2
+    for row0, col0 in [(40, 100), (0, 0), (0, 512)]:
+        args = (row0, col0, True, 0.125)
+        before = rb.ring_block_fwd.launches
+        o, lse = rb.ring_block_fwd(q, k, v, *args)
+        assert rb.ring_block_fwd.launches == before + 1
+        o_ref, lse_ref = rb.shard_fwd_ref(q, k, v, *args)
+        _close(o, o_ref, "attention", torch.float32)
+        dead = lse_ref == rb.NEG_INF
+        assert torch.equal(lse[dead], lse_ref[dead]) and not o[dead].any()
+        torch.testing.assert_close(lse[~dead], lse_ref[~dead], atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_forward_gives_the_same_bits_twice(dev, dtype):
+    """#12 sums in a fixed order: two launches on the same inputs give
+    the same o and lse bits."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 3, 700, 64, generator=g, device=dev)
+               .to(dtype) for _ in range(3))
+    first, second = (rb.ring_block_fwd(q, k, v, 40, 100, True, 0.125)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_ring_block_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q, k, v, do, acc = _ring_inputs(dev, 64, torch.float32)
     before = (rb.ring_block_fwd.launches, rb.ring_block_bwd.launches_dq)
@@ -1304,6 +1365,86 @@ def test_attention_backward_pair_gives_the_same_bits_twice(dev, dtype,
                          for _ in range(2))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the whole-row forward (#1/#5) on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _fwd_launches():
+    return fa.fused_attention_qkv.launches, fa.fused_attention.launches
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_split",
+                                    "packed_base_off_by_one",
+                                    "base_off_by_one", "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_forward_reads_every_layout(dev, dtype, layout):
+    """The forward reads its operands in place: the packed projection
+    (#1), its head-split views (#5), and views whose rows are not 16-byte
+    aligned (a projection one element off, 4-D views one element off or
+    rows an odd number of elements apart: the kernel's synchronous copy
+    path), causal, with training dropout, against the plain versions;
+    one launch a call."""
+    B, S, H, D = 2, 200, 3, 64
+    kw = dict(scale=0.125, dropout_rate=0.2, is_test=False, seed=SEED,
+              causal=True)
+    before = _fwd_launches()
+    _, bias = _qkv(dev, B, S, H, D, dtype, seed=11)
+    if layout.startswith("packed"):
+        qkv, _ = _qkv(dev, B, S, H, D, dtype, seed=11)
+        if layout == "packed_base_off_by_one":
+            buf = torch.empty(1 + qkv.numel(), device=dev, dtype=dtype)
+            qkv = buf[1:].view(qkv.shape).copy_(qkv)
+            assert qkv.data_ptr() % 16
+        got = fa.fused_attention_qkv(qkv, H, bias, **kw)
+        assert _fwd_launches() == (before[0] + 1, before[1])
+        _close(got, fa.reference_qkv(qkv, H, bias, **kw), "attention", dtype)
+        return
+    if layout == "head_split":
+        q, k, v, _, _ = _heads(dev, B, S, H, D, dtype, seed=11)
+    else:
+        q, k, v = _misaligned(dev, layout, B, H, S, D, dtype, 3, 11)
+        assert q.data_ptr() % 16 or q.stride(2) % 2
+    got = fa.fused_attention(q, k, v, bias, **kw)
+    assert _fwd_launches() == (before[0], before[1] + 1)
+    _close(got, fa.reference(q, k, v, bias, **kw), "attention", dtype)
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_forward_gives_the_same_bits_twice(dev, dtype, layout):
+    """Two launches of the forward on the same inputs give the same bits
+    (each output element is summed by one thread in a fixed order)."""
+    B, S, H, D = 2, 700, 3, 64
+    kw = dict(scale=0.125, dropout_rate=0.1, is_test=False, seed=SEED,
+              causal=True)
+    if layout == "packed":
+        qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=12)
+        first, second = (fa.fused_attention_qkv(qkv, H, bias, **kw)
+                         for _ in range(2))
+    else:
+        q, k, v, _, bias = _heads(dev, B, S, H, D, dtype, seed=12)
+        first, second = (fa.fused_attention(q, k, v, bias, **kw)
+                         for _ in range(2))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 130])
+def test_attention_forward_takes_every_sequence_length(dev, S, D, dtype):
+    """S below one 64-row tile, at it, one past it and not a multiple of
+    it, every head dim, both dtypes: test mode without a mask, and
+    causal with training dropout, against the plain version."""
+    H = 2
+    qkv, bias = _qkv(dev, 2, S, H, D, dtype, seed=S)
+    for kw in (dict(scale=1 / math.sqrt(D), dropout_rate=0.1, is_test=True),
+               dict(scale=1 / math.sqrt(D), dropout_rate=0.2, is_test=False,
+                    seed=SEED, causal=True)):
+        got = fa.fused_attention_qkv(qkv, H, bias, **kw)
+        _close(got, fa.reference_qkv(qkv, H, bias, **kw), "attention", dtype)
 
 
 # ---------------------------------------------------------------------------
