@@ -95,16 +95,15 @@ Phases, each fatal on failure:
    (row0, col0), causal and not, fp32 and bf16 inputs, rows that see no
    key (o = 0, lse = -1e30 exactly), the backward added into
    accumulators, the backward also on views whose rows are not 16-byte
-   aligned (its synchronous copy path); the kernels on the tensor cores
-   as built, the backward pairs #13/#14, #3/#6 and #9/#8 and the
-   forwards #1/#5 and #12 (run after phase 3's parity): the tensor-core
-   instructions (HMMA) of each instance in its library's SASS, its
-   blocks an SM and shared memory, and none in the KV-tiled forward #7,
-   still on the CUDA cores; the port's ring
-   forward
-   and backward (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one
-   process over an in-process
-   exchange (drive_lockstep), against dense attention, each kernel
+   aligned (its synchronous copy path); the attention kernels as built,
+   every one on the tensor cores, the backward pairs #13/#14, #3/#6 and
+   #9/#8 and the forwards #1/#5, #7 and #12 (run after phase 3's
+   parity): the tensor-core instructions (HMMA) of each instance in its
+   library's SASS, its blocks an SM and shared memory, and the residual
+   backward #4's blocks an SM; the port's ring forward and backward
+   (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one process over
+   an in-process exchange (drive_lockstep), against dense attention, each
+   kernel
    launched once per live shard (1 + 2 + 3 + 4); the attention shapes the
    4-D op takes only routed: S > 1024 on #7-#9 (4-D views), D=48 on
    heads zero-padded to 64, fp16 on the plain version with no launch;
@@ -285,8 +284,8 @@ def read_counts(kc):
 
 def ptxas_usage(report):
     """[(kernel, registers, spill line)] from ptxas -v output: each entry
-    function's name (with its dtype and head dim where it is a template),
-    its spills and its registers."""
+    function's name (with its dtype, its head dim or chunk count, and #4's
+    copy path where it is a template), its spills and its registers."""
     out, kernel, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"entry function '.*?\d+([a-z_]+_kernel)(I\w*)?",
@@ -297,7 +296,11 @@ def ptxas_usage(report):
             if args:
                 dtype = "bf16" if "bfloat16" in args else "f32"
                 dim = re.search(r"Li(\d+)E", args)
-                kernel += f"<{dtype}{', ' + dim.group(1) if dim else ''}>"
+                # #4's copy path: 16-byte vectors or element by element
+                vec = re.search(r"Lb([01])E", args)
+                tags = [dtype] + ([dim.group(1)] if dim else []) + (
+                    [("elem", "vec")[int(vec.group(1))]] if vec else [])
+                kernel += f"<{', '.join(tags)}>"
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and kernel:
@@ -435,7 +438,7 @@ def attn_bound(qkv, bias, H, causal=False):
 
 def fwd_bound(nbytes, ops, dtype):
     """(bound, fp32 CUDA-core bound) of a forward on the tensor cores
-    (#1/#5, #12): its two products' `ops` as three TF32 terms each
+    (#1/#5, #7, #12): its two products' `ops` as three TF32 terms each
     (3xTF32) at 495 TFLOP/s in fp32, at 989 TFLOP/s bf16 in bf16, or the
     bytes where they take longer; beside it the same function on the fp32
     CUDA cores (67 TFLOP/s), where the forwards ran before."""
@@ -1133,7 +1136,7 @@ KINDS = (
     ("layer_norm fwd/bwd (ours)", ("ln_row_fwd_kernel",
                                    "ln_row_bwd_kernel")),
     ("residual fwd/bwd + sum_partials (ours)",
-     ("ln_fwd_kernel", "ln_bwd_kernel", "sum_partials_kernel")),
+     ("ln_fwd_kernel", "ln_bwd_kernel", "sum_partials_")),
     ("matmul (cuBLAS)", ("gemm", "sgemm", "cutlass", "xmma", "sm90_",
                          "nvjet")),
     ("index/scatter", ("index", "scatter", "gather", "sort", "radix")),
@@ -1742,7 +1745,13 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
     scaled_dot_product_attention's bf16 backward beside it. The backward
     kernels' times come from CUDA events around each launch in the
     wrappers' own calls (launch_ms), so the pair's kernels, and the
-    residual row kernel and its sum_partials, are timed apart."""
+    residual row kernel and its sum_partials, are timed apart. The
+    residual backward (#4) is timed in fp32 and again at the BERT AMP
+    path's bf16 activations (x, y and dO bf16, scale and bias fp32; its
+    row's launches are that path's), each beside F.layer_norm(x + y)'s
+    backward (whose scale and bias take x's dtype); its row groups
+    (fr.bwd_groups) are printed, and sum_partials is timed at that
+    count."""
     import torch.nn.functional as F
 
     B, S, H, D, R, N = 32, 512, 12, 64, 32 * 512, 768
@@ -1879,34 +1888,64 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
                     "paddle_tpu/kernels/fused_residual.py:90",
                     launches["residual_fwd"], err["residual_fwd"], t_k, t_p,
                     b, t_l))
-    blocks = (R + fr.BWD_ROWS - 1) // fr.BWD_ROWS
-    part_bytes = 2 * blocks * N * 4
-    t = launch_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw),
-                  (("fused_dropout_add_ln", "fused_dropout_add_ln_bwd"),
-                   ("sum_partials", "sum_partials")), iters=20)
-    t_k, t_s = t["fused_dropout_add_ln_bwd"], t["sum_partials"]
-    t_both = cuda_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw))
-    t_p = cuda_ms(lambda: fr.reference_bwd(x, y, g, do, **rkw), iters=10,
-                  reps=5)
-    xg, yg, gg, cg = (t.detach().requires_grad_() for t in (x, y, g, c))
-    ln = F.layer_norm(xg + yg, (N,), gg, cg, 1e-5)
-    t_l = cuda_ms(lambda: torch.autograd.grad(ln, (xg, yg, gg, cg), do,
-                                              retain_graph=True))
-    b = bound(5 * R * N * es + N * 4 + part_bytes, 20 * R * N, f32)
-    print(f"residual bwd: row kernel {t_k:.4f} ms (own launches), bound "
-          f"{b[0]:.4f} ms ({b[1]}); with sum_partials through the wrapper "
-          f"{t_both:.4f} ms; plain {t_p:.4f} ms, F.layer_norm backward "
-          f"{t_l:.4f} ms")
-    part = torch.randn(2, blocks, N, device="cuda")
-    rows.append(row("fused_dropout_add_ln_bwd", "training",
-                    "fused_dropout_add_ln.cu",
-                    "paddle_tpu/kernels/fused_residual.py:104",
-                    launches["residual_bwd"], err["residual_bwd"], t_k, t_p,
-                    b, t_l))
+    groups, rows_per_group = fr.bwd_groups(R)
+    print(f"residual bwd: {groups} row groups of {rows_per_group} rows, "
+          f"partials [2, {groups}, {N}]")
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+        # BERT AMP's activations: x, y and dO bf16, g and c fp32
+        xd, yd, dod = (t.to(dtype) for t in (x, y, do))
+        if dtype == f32:
+            e_bwd = err["residual_bwd"]
+        else:
+            got = fr.fused_dropout_add_ln_bwd(xd, yd, g, dod, **rkw)
+            want = fr.reference_bwd(xd, yd, g, dod, **rkw)
+            e_bwd = max(compare(a, w, "residual_bwd", dtype,
+                                f"residual bwd {n} R={R} {name}")
+                        for a, w, n in zip(got[:2], want[:2], ("dx", "dy")))
+            for a, w, n in zip(got[2:], want[2:], ("dg", "dc")):
+                compare(a, w, "residual_sums", f32,
+                        f"residual bwd {n} R={R} {name}")
+            del got, want
+        t = launch_ms(
+            lambda: fr.fused_dropout_add_ln_bwd(xd, yd, g, dod, **rkw),
+            (("fused_dropout_add_ln", "fused_dropout_add_ln_bwd"),
+             ("sum_partials", "sum_partials")), iters=20)
+        t_k = t["fused_dropout_add_ln_bwd"]
+        if dtype == f32:  # the sum_partials row's time
+            t_s = t["sum_partials"]
+        t_both = cuda_ms(
+            lambda: fr.fused_dropout_add_ln_bwd(xd, yd, g, dod, **rkw))
+        t_p = cuda_ms(lambda: fr.reference_bwd(xd, yd, g, dod, **rkw),
+                      iters=10, reps=5)
+        # the library's layer_norm takes scale and bias of x's dtype
+        xg, yg, gg, cg = (t.detach().to(dtype).requires_grad_()
+                          for t in (xd, yd, g, c))
+        ln = F.layer_norm(xg + yg, (N,), gg, cg, 1e-5)
+        t_l = cuda_ms(lambda: torch.autograd.grad(ln, (xg, yg, gg, cg), dod,
+                                                  retain_graph=True))
+        # the function's bytes: x, y, dO and g read, dx, dy, dg and dc
+        # written (not the kernel's own partials); fp32 arithmetic on
+        # the CUDA cores in both dtypes
+        esz = xd.element_size()
+        b = bound(5 * R * N * esz + N * 4 + 2 * N * 4, 20 * R * N, f32)
+        print(f"residual bwd {name}: row kernel {t_k:.4f} ms (own "
+              f"launches), bound {b[0]:.4f} ms ({b[1]}); with "
+              f"sum_partials through the wrapper {t_both:.4f} ms; plain "
+              f"{t_p:.4f} ms, F.layer_norm backward {t_l:.4f} ms "
+              f"({t_both / t_l:.2f}x)")
+        path = "training" if dtype == f32 else "amp_training"
+        n = launches if dtype == f32 else amp_launches
+        rows.append(row("fused_dropout_add_ln_bwd", path,
+                        "fused_dropout_add_ln.cu",
+                        "paddle_tpu/kernels/fused_residual.py:104",
+                        n["residual_bwd"], e_bwd, t_k, t_p, b, t_l))
+        del xd, yd, dod, xg, yg, gg, cg, ln
+    part = torch.randn(2, groups, N, device="cuda")
     t_sp = cuda_ms(lambda: sp.reference(part))
     b = bound(part.numel() * 4 + 2 * N * 4, part.numel(), f32)
     s_err = (sp.sum_partials(part) - sp.reference(part)).abs().max().item()
-    print(f"sum_partials [2, {blocks}, {N}]: kernel {t_s:.4f} ms (own "
+    print(f"sum_partials [2, {groups}, {N}]: kernel {t_s:.4f} ms (own "
           f"launches in the residual backward's calls), plain "
           f"(= library, part.sum(1)) {t_sp:.4f} ms, bound {b[0]:.4f} ms "
           f"({b[1]}), max_abs_err {s_err:.2e}")
@@ -1922,8 +1961,9 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     causal, no key bias, fp32, dropout 0.1 in training) and #1 at the GPT
     serving path's full recompute (B=8, S=256, causal, test mode). Bounds
     count the live S(S+1)/2 pairs of each head, two flops per
-    multiply-add, no recomputation; #7 reads qkv and writes out and lse
-    (fp32 CUDA cores); the backward as a function does 8*B*H*D*pairs flops
+    multiply-add, no recomputation; #7 reads qkv and writes out and lse,
+    its two products on the tensor cores as 3xTF32 (fwd_bound, with the
+    fp32 CUDA-core bound beside it); the backward as a function does 8*B*H*D*pairs flops
     (dP, dQ to #9; dV, dK to #8) and reads qkv, dO, out and lse once, split
     in halves between the two kernels, #9 writing dq and #8 dk and dv. The
     pair runs on the tensor cores, so its fp32 rows carry those operations
@@ -1938,7 +1978,7 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     wrapper's calls (launch_ms). #7 is timed again in bf16 at the GPT AMP
     path's activations (its row's launches are that path's), held against
     the plain version, beside SDPA's bf16 causal forward; #1's row
-    carries its two products as 3xTF32 (fwd_bound)."""
+    carries its two products as 3xTF32 (fwd_bound) too."""
     import torch.nn.functional as F
 
     B, S, H, D = GPT_B, GPT_S, 12, 64
@@ -1962,14 +2002,17 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, dropout_p=TRAIN_RATE, scale=0.125),
         iters=10, reps=5)
-    b = bound(qkv.numel() * es + head + lse_bytes, 4 * B * H * D * pairs, f32)
-    print(f"tiled fwd (#7): kernel {t_k:.3f} ms, plain {t_p:.3f} ms, sdpa "
-          f"{t_l:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+    ops = 4 * B * H * D * pairs
+    b, c = fwd_bound(qkv.numel() * es + head + lse_bytes, ops, f32)
+    print(f"tiled fwd (#7): kernel {t_k:.3f} ms ({ops / t_k / 1e9:.1f} "
+          f"TFLOP/s of products), plain {t_p:.3f} ms, sdpa {t_l:.3f} ms "
+          f"({t_k / t_l:.2f}x), bound {b[0]:.3f} ms ({b[1]}, tensor cores) "
+          f"/ {c[0]:.3f} ms (fp32 CUDA cores)")
     rows.append(row("flash_tiled_fwd", "gpt_training", "flash_tiled.cu",
                     "paddle_tpu/kernels/flash_tiled.py:127",
                     train_n["tiled_fwd"], err["tiled_fwd"], t_k, t_p, b, t_l))
-    # at GPT AMP's bf16 activations (still fp32 arithmetic on the CUDA
-    # cores; the bound at bf16's peak, as every bf16 row's)
+    # at GPT AMP's bf16 activations (the bound at bf16's peak, as every
+    # bf16 row's)
     bf = torch.bfloat16
     xb = qkv.to(bf)
     qb, kb, vb = (t.to(bf) for t in (q, k, v))
@@ -1986,11 +2029,10 @@ def gpt_kernel_times(fa, ft, err, train_n, serve_n, amp_n):
     t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, is_causal=True, dropout_p=TRAIN_RATE, scale=0.125),
         iters=10, reps=5)
-    b = bound(xb.numel() * 2 + head // 2 + lse_bytes,
-              4 * B * H * D * pairs, bf)
+    b, c = fwd_bound(xb.numel() * 2 + head // 2 + lse_bytes, ops, bf)
     print(f"tiled fwd (#7) bfloat16: kernel {t_k:.3f} ms, plain {t_p:.3f} "
           f"ms, sdpa bfloat16 causal {t_l:.3f} ms ({t_k / t_l:.2f}x), bound "
-          f"{b[0]:.3f} ms ({b[1]})")
+          f"{b[0]:.3f} ms ({b[1]}) / {c[0]:.3f} ms (fp32 CUDA cores)")
     rows.append(row("flash_tiled_fwd", "gpt_amp_training", "flash_tiled.cu",
                     "paddle_tpu/kernels/flash_tiled.py:127",
                     amp_n["tiled_fwd"], e_b, t_k, t_p, b, t_l))
@@ -2816,22 +2858,22 @@ def misaligned_views(layout, B, H, Sq, Sk, D, dtype, seed):
     return q, k, v, do
 
 
-# the kernels on the tensor cores: (library, kernels, the library's
-# occupancy entry: a backward pair's takes which = 0 (dq) or 1 (dkv)
-# before the dtype code, a forward's the dtype code alone), and the
-# library's kernels still on the CUDA cores, which must have no HMMA
+# the kernels on the tensor cores, every attention kernel of the port:
+# (library, kernels, the library's occupancy entry: a backward pair's
+# takes which = 0 (dq) or 1 (dkv) before the dtype code, a forward's the
+# dtype code alone)
 MMA_KERNELS = (
     ("flash_attention", ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"),
      "flash_attention_bwd_occupancy"),
     ("flash_attention", ("attn_fwd_kernel",),
      "flash_attention_fwd_occupancy"),
+    ("flash_tiled", ("tiled_fwd_kernel",), "flash_tiled_fwd_occupancy"),
     ("flash_tiled", ("tiled_dq_kernel", "tiled_dkv_kernel"),
      "flash_tiled_bwd_occupancy"),
     ("ring_block", ("ring_dq_kernel", "ring_dkv_kernel"),
      "ring_block_bwd_occupancy"),
     ("ring_block", ("ring_fwd_kernel",), "ring_block_fwd_occupancy"),
 )
-CUDA_CORE_KERNELS = (("flash_tiled", "tiled_fwd_kernel"),)
 
 
 def sass_hmma(lib_name, kernels):
@@ -2860,14 +2902,17 @@ def sass_hmma(lib_name, kernels):
 
 
 def tensor_cores():
-    """The kernels on the tensor cores as built: the backward pairs #3/#6
-    (attn_bwd_dq/dkv_kernel), #9/#8 (tiled_dq/dkv_kernel) and #13/#14
-    (ring_dq/dkv_kernel) and the forwards #1/#5 (attn_fwd_kernel) and #12
+    """The attention kernels as built, every one on the tensor cores: the
+    backward pairs #3/#6 (attn_bwd_dq/dkv_kernel), #9/#8
+    (tiled_dq/dkv_kernel) and #13/#14 (ring_dq/dkv_kernel) and the
+    forwards #1/#5 (attn_fwd_kernel), #7 (tiled_fwd_kernel) and #12
     (ring_fwd_kernel): each instance's HMMA (tensor-core) instructions in
-    its library's SASS (none may lack them), and from the CUDA runtime the
-    blocks of each that fit on one SM with its dynamic shared memory; the
-    KV-tiled forward #7 (tiled_fwd_kernel), still on the CUDA cores, must
-    have none."""
+    its library's SASS (none may lack them, and each kernel has its six
+    instances, fp32 and bf16 at D = 32, 64, 128), and from the CUDA
+    runtime the blocks of each that fit on one SM with its dynamic shared
+    memory. Then the residual backward #4 (ln_bwd_kernel) at N = 768 and
+    1024, fp32 and bf16, on its vector path: its blocks an SM and shared
+    memory."""
     from paddle_tpu_torch.kernels import _build
 
     print("== kernels on the tensor cores as built: tensor-core "
@@ -2894,13 +2939,25 @@ def tensor_cores():
                     check(n_hmma > 0 and blocks.value > 0,
                           f"{name}: no tensor-core instruction in its SASS "
                           "or no block fits on an SM")
-    for lib_name, kernel in CUDA_CORE_KERNELS:
-        hmma = sass_hmma(lib_name, (kernel,))
-        print(f"  {kernel} (CUDA cores): {len(hmma)} instances, HMMA "
-              f"{sorted(set(hmma.values()))}")
-        check(len(hmma) == 6 and not any(hmma.values()),
-              f"{kernel}: HMMA in a kernel on the CUDA cores, or an "
-              f"instance missing: {hmma}")
+        check(len(hmma) == 6 * len(kernels),
+              f"{lib_name}: {len(hmma)} instances of {kernels}, not "
+              f"{6 * len(kernels)}: {sorted(hmma)}")
+    lib = _build.load("fused_dropout_add_ln")
+    occupancy = lib.fused_dropout_add_ln_bwd_occupancy
+    occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    occupancy.restype = ctypes.c_int
+    for code, dtype in enumerate(("f32", "bf16")):
+        for N in (768, 1024):
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            err = occupancy(code, N, 1, ctypes.byref(blocks),
+                            ctypes.byref(smem))
+            check(err == 0 and blocks.value > 0,
+                  f"ln_bwd_kernel<{dtype}> N={N}: occupancy query failed "
+                  f"({err}) or no block fits on an SM")
+            print(f"  ln_bwd_kernel<{dtype}> N={N} (CUDA cores): "
+                  f"{blocks.value} blocks an SM, {smem.value} bytes of "
+                  "shared memory")
 
 
 def ring_parity(rb):

@@ -3,8 +3,10 @@
 // attn_bwd_dkv_kernel) and the KV-tiled pair (#9/#8, flash_tiled.cu:
 // tiled_dq_kernel, tiled_dkv_kernel), and the forward body fwd_mma_block,
 // shared by the whole-row forward (#1/#5, flash_attention.cu:
-// attn_fwd_kernel, policy WholeRow) and the ring-block forward (#12,
-// ring_block.cu: ring_fwd_kernel, policy RingFwd): mma_tiles.cuh's
+// attn_fwd_kernel), the KV-tiled forward (#7, flash_tiled.cu:
+// tiled_fwd_kernel; both policy WholeRow, through fwd_view) and the
+// ring-block forward (#12, ring_block.cu: ring_fwd_kernel, policy
+// RingFwd): mma_tiles.cuh's
 // 3xTF32 products, 4 warps of 16 rows over a resident tile of mma::ROWS
 // rows, the other side streamed through two cp.async stages of BS rows;
 // attn_tiles.cuh's keep mask and row reductions.
@@ -469,7 +471,7 @@ struct FwdSmem {
       Tl::STAGES * Tl::BS * sizeof(float) + mma::ROWS * Tl::NB;
 };
 
-// The whole-row forward's elementwise step (#1/#5): the scale, the key
+// The whole-row forward's elementwise step (#1/#5, #7): the scale, the key
 // bias of the batch, the causal cut (j > i at NEG_INF) and the sequence
 // end (j >= S at -inf: no weight at all); training dropout's Philox keep
 // mask; out = drop_scale * (keep . e) v / l. Every row sees key 0, so its
@@ -504,8 +506,8 @@ struct WholeRow {
 };
 
 // The forward of one query tile on the tensor cores, shared by the
-// whole-row forward (#1/#5, policy WholeRow) and the ring-block forward
-// (#12, ring_block.cu's RingFwd). Warp w owns query rows q0 + 16w .. + 15;
+// whole-row and KV-tiled forwards (#1/#5 and #7, policy WholeRow) and the
+// ring-block forward (#12, ring_block.cu's RingFwd). Warp w owns query rows q0 + 16w .. + 15;
 // a thread holds rows g and g + 8 of them (lane = 4g + t) at the
 // accumulator columns 8 nb + 2t, + 1 of each key tile. Per key tile:
 // S = Q K^T in registers (mma::tile_product), the policy's score and
@@ -630,6 +632,25 @@ __device__ __forceinline__ void fwd_mma_block(
         orow[nd * 8 + 2 * t + c] = from_f<TO>(acc[nd][2 * r + c] * mul);
     if (lse_row && t == 0) lse_row[rows[r]] = pol.lse(m[r], l[r]);
   }
+}
+
+// fwd_mma_block with the whole-row policy on a launch's [B, H, S, D] views
+// (HeadArgs or Args): the whole-row forward (#1/#5, LSE = false) and the
+// KV-tiled forward (#7, LSE: its lse row from a.lse), one block per
+// (query tile, head, batch), the heaviest causal tiles first in the
+// global order
+template <typename T, int D, bool LSE, typename A>
+__device__ __forceinline__ void fwd_view(void* smem, const A& a) {
+  const BlockTile bt = block_tile<true, FWD_GLOBAL>(a.causal);
+  const WholeRow pol{a.bias ? a.bias + (long long)bt.b * a.S : nullptr, a.S,
+                     a.causal, a.scale, a.dr, (int)bt.h, (int)bt.b};
+  fwd_mma_block<T, D, T>(
+      smem, head_of<T>(a.q, a.in_sb, a.in_sh, bt.b, bt.h),
+      head_of<T>(a.k, a.in_sb, a.in_sh, bt.b, bt.h),
+      head_of<T>(a.v, a.in_sb, a.in_sh, bt.b, bt.h), a.in_ss, a.in_ss,
+      head_of<T>(a.out, a.out_sb, a.out_sh, bt.b, bt.h), a.out_ss,
+      LSE ? a.lse + stats_row(a, bt) : nullptr, (int)bt.tile * mma::ROWS,
+      a.async_copy != 0, pol);
 }
 
 }  // namespace attn

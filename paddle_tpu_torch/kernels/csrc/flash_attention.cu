@@ -58,7 +58,8 @@
 // Both directions run their products on the tensor cores, on
 // mma_tiles.cuh: mma.sync m16n8k8 TF32 in the 3xTF32 split (an fp32
 // operand x = hi + lo, a product lo.hi + hi.lo + hi.hi), as the
-// ring-block kernels #12-#14 do. The forward shares its body with #12
+// ring-block kernels #12-#14 do. The forward shares its body with #7
+// (the same kernel through fwd_view, writing lse) and #12
 // (attn_mma.cuh's fwd_mma_block): 4 warps of 16 query rows over a
 // resident 64-row Q tile, K and V through two cp.async stages of BS rows
 // (64, 32 at D = 128), S = Q K^T in registers, the scale, key bias,
@@ -150,23 +151,15 @@ struct HeadArgs {
   float scale;
   int causal;
   Dropout dr;
-  int async_copy;  // backward: q, k, v and dout rows 16-byte aligned
+  int async_copy;  // the rows the kernel copies are 16-byte aligned
 };
 
-// #1/#5: attn_mma.cuh's forward body with the whole-row policy
+// #1/#5: attn_mma.cuh's forward body with the whole-row policy (no lse)
 template <typename T, int D>
 __global__ void __launch_bounds__(mma::THREADS, 2)
 attn_fwd_kernel(HeadArgs a) {
   extern __shared__ float4 smem4[];
-  const BlockTile bt = block_tile<true, FWD_GLOBAL>(a.causal);
-  const WholeRow pol{a.bias ? a.bias + (long long)bt.b * a.S : nullptr, a.S,
-                     a.causal, a.scale, a.dr, (int)bt.h, (int)bt.b};
-  fwd_mma_block<T, D, T>(
-      smem4, head_of<T>(a.q, a.in_sb, a.in_sh, bt.b, bt.h),
-      head_of<T>(a.k, a.in_sb, a.in_sh, bt.b, bt.h),
-      head_of<T>(a.v, a.in_sb, a.in_sh, bt.b, bt.h), a.in_ss, a.in_ss,
-      head_of<T>(a.out, a.out_sb, a.out_sh, bt.b, bt.h), a.out_ss, nullptr,
-      (int)bt.tile * mma::ROWS, a.async_copy != 0, pol);
+  fwd_view<T, D, false>(smem4, a);
 }
 
 // backward pair (#3/#6) on the tensor cores: attn_mma.cuh's bodies, the

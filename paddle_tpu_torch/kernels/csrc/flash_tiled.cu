@@ -14,7 +14,10 @@
 //   tiled_fwd: one block per (query tile, head, batch) streams the key
 //     tiles through shared memory with an online softmax and writes, beside
 //     the output, the row logsumexp L = m + log(l) of the softmax before
-//     dropout to an fp32 [B, H, S] tensor.
+//     dropout to an fp32 [B, H, S] tensor. It is the whole-row forward's
+//     kernel body (attn_mma.cuh's fwd_view: fwd_mma_block, policy
+//     WholeRow) with the lse row given, so #7 and #1/#5 compute one
+//     function in one arithmetic.
 //   tiled_dq: one block per (query tile, head, batch). It never re-runs the
 //     forward: delta_i = rowsum(dO_i . out_i) comes from the saved output
 //     (written to a [B, H, S] scratch for tiled_dkv), p = exp(s - L) from
@@ -27,18 +30,28 @@
 // Tiles wholly above the causal diagonal are skipped in all three. The
 // dropout mask is philox.cuh's, keyed by (b, h, row, col), so the three
 // kernels, the whole-row kernels and the plain versions all draw one mask
-// whatever their tiling. The forward widens bf16 inputs to fp32 in shared
-// memory; the backward keeps its tiles in the input dtype and widens each
-// fragment as it loads it; the exp tail runs in fp32 for both dtypes.
+// whatever their tiling. The kernels keep their tiles in the input dtype
+// and widen each fragment as they load it; the exp tail runs in fp32 for
+// both dtypes.
 //
 // What bounds it on the H100: at B=4, S=2048, H=12, D=64, causal
 // (1.007e8 live pairs), the forward owns 2 products of 2*D*pairs flops
 // (25.8 GFLOP) against ~0.1 GB of bytes, 250 flops a byte: bounded by
-// operations (0.385 ms at 67 TFLOP/s fp32 on the CUDA cores, where it
-// runs: fwd_block, fp32 in either dtype). The backward as a function does
-// 4 products (dP, dQ to dq; dV, dK to dkv), each kernel 2: on the tensor
-// cores in the 3xTF32 split, 3 x 25.8 GFLOP at 495 TFLOP/s = 0.156 ms a
-// kernel in fp32; in bf16 about 0.026 ms of operations at 989 TFLOP/s.
+// operations, on the tensor cores 3 x 25.8 GFLOP in the 3xTF32 split at
+// 495 TFLOP/s = 0.156 ms in fp32 and 0.026 ms in bf16 at 989 TFLOP/s
+// (0.385 ms on the fp32 CUDA cores at 67 TFLOP/s). The backward as a function does 4 products (dP, dQ to dq; dV,
+// dK to dkv), each kernel 2: 0.156 ms a kernel in fp32, about 0.026 ms
+// in bf16.
+//
+// The forward runs on the tensor cores on the body it shares with #1/#5
+// and #12 (attn_mma.cuh's fwd_mma_block over mma_tiles.cuh's mma.sync
+// m16n8k8 TF32, 3xTF32 for fp32 operands): 4 warps of 16 query rows over
+// a resident 64-row Q tile, K and V through two cp.async stages of BS
+// rows (64, 32 at D = 128), S = Q K^T and the softmax in registers,
+// O += P V with P as it lies (fp32 and split in both dtypes, as the plain
+// version keeps it: 6 TF32 products in fp32, 3 in bf16), the heaviest
+// causal tiles first in the global order (block_tile), and the lse row
+// written from the registers.
 //
 // The backward pair runs on the tensor cores, on the bodies it shares
 // with the whole-row pair #3/#6 (attn_mma.cuh, over mma_tiles.cuh's
@@ -53,11 +66,12 @@
 // from dp's own row sum, so dkv sums S^T and dP^T from zero 8 columns at
 // a time and adds them in fp32 (mma::tile_products<STEPWISE>): a chain of
 // mma's over D truncates toward zero, and dbias would add that bias up.
-// Under the causal mask both kernels hand out their heaviest tiles of
-// every head first (block_tile). Both take 128 threads, two cp.async
-// stages and, where a view's rows are not 16-byte aligned, the
-// synchronous copy path (the C entries decide with mma::rows_aligned).
-// Wgmma with TMA and pre-split hi/lo tiles are later work.
+// Under the causal mask all three kernels hand out their heaviest tiles
+// first (block_tile). All three take 128 threads, two cp.async stages
+// and, where a view's rows are not 16-byte aligned, the synchronous copy
+// path of the same kernel (the C entries decide with mma::rows_aligned).
+// Wgmma with TMA, pre-split hi/lo tiles and bf16 products on a rounded P
+// (which the plain version does not round) are later work.
 
 #include "attn_mma.cuh"
 
@@ -65,10 +79,12 @@ namespace {
 
 using namespace attn;
 
+// #7: the whole-row forward's body (attn_mma.cuh's fwd_view), writing
+// the lse row of each query
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) tiled_fwd_kernel(Args a) {
+__global__ void __launch_bounds__(mma::THREADS, 2) tiled_fwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  view_fwd<T, D>(reinterpret_cast<float*>(smem4), a, a.lse);
+  fwd_view<T, D, true>(smem4, a);
 }
 
 // #9: dq and delta from the saved output and lse, one pass
@@ -96,7 +112,7 @@ __global__ void __launch_bounds__(mma::THREADS, 2) tiled_dkv_kernel(Args a) {
     }                                                                        \
   };
 
-TILED_KERNEL(Fwd, tiled_fwd_kernel, THREADS, Layout<D>::fwd)
+TILED_KERNEL(Fwd, tiled_fwd_kernel, mma::THREADS, (FwdSmem<T, D>::bytes))
 TILED_KERNEL(Dq, tiled_dq_kernel, mma::THREADS, (BwdSmem<T, D>::dq))
 TILED_KERNEL(Dkv, tiled_dkv_kernel, mma::THREADS, (BwdSmem<T, D>::dkv))
 
@@ -144,10 +160,13 @@ extern "C" int flash_tiled_fwd(
     const long long* strides, float scale, float drop_scale, int causal,
     int use_mask, unsigned seed0, unsigned seed1, unsigned threshold,
     int dtype, void* stream) {
-  const Args a = make_args(q, k, v, bias, nullptr, nullptr, out, nullptr,
-                           nullptr, lse, nullptr, nullptr, B, S, H, strides,
-                           scale, drop_scale, causal, use_mask, seed0, seed1,
-                           threshold);
+  Args a = make_args(q, k, v, bias, nullptr, nullptr, out, nullptr, nullptr,
+                     lse, nullptr, nullptr, B, S, H, strides, scale,
+                     drop_scale, causal, use_mask, seed0, seed1, threshold);
+  // q, k and v (their three strides) decide the copy path; out and lse
+  // are stored element by element
+  a.async_copy = mma::rows_aligned(q, k, v, q, strides, 3,
+                                   dtype == 1 ? 2 : 4);
   return dispatch<Fwd>(dtype, D, a, stream);
 }
 
@@ -188,4 +207,10 @@ extern "C" int flash_tiled_bwd_occupancy(int which, int dtype, int D,
                                          int* blocks, int* smem_bytes) {
   return which == 0 ? occupancy<Dq>(dtype, D, blocks, smem_bytes)
                     : occupancy<Dkv>(dtype, D, blocks, smem_bytes);
+}
+
+// The same report for the forward kernel (#7)
+extern "C" int flash_tiled_fwd_occupancy(int dtype, int D, int* blocks,
+                                         int* smem_bytes) {
+  return occupancy<Fwd>(dtype, D, blocks, smem_bytes);
 }

@@ -4,8 +4,8 @@
 // backward pair (#13, #14, ring_block.cu), and through the bodies of
 // attn_mma.cuh the whole-row (#3/#6, flash_attention.cu) and KV-tiled
 // (#9/#8, flash_tiled.cu) backward pairs and the forward body that the
-// whole-row forward (#1/#5) and the ring-block forward (#12) share. The
-// KV-tiled forward (#7) still runs on the CUDA cores (attn_tiles.cuh).
+// whole-row forward (#1/#5), the KV-tiled forward (#7) and the ring-block
+// forward (#12) share: every attention kernel of the port.
 //
 // The product. A block's warps each own 16 rows of an m16n8k8 TF32 product
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, fp32 accumulators).

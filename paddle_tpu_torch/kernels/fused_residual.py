@@ -20,9 +20,11 @@ element against 12 (20) bytes of fp32 traffic, so device-memory bytes.
 The designs (csrc/fused_dropout_add_ln.cu) give each row to one warp,
 which holds it in registers between the row sums and the normalisation:
 x, y (and dO) are read once and each output written once. The backward
-recomputes z and the statistics and regenerates the mask rather than
-reading them back; its dg and dc go through per-block partials and a
-fixed-order second pass (sum_partials.py) instead of the TPU's
+reads and writes its rows as 16-byte vectors (fp32 4 columns, bf16 8 a
+lane's chunk), recomputes z and the statistics and regenerates the mask
+rather than reading them back, and accumulates dg and dc in shared
+memory; they go through one partial row per group of rows (bwd_groups)
+and a fixed-order second pass (sum_partials.py) instead of the TPU's
 accumulation along a sequential grid.
 
 Dispatch: a CUDA tensor goes to the kernels, or raises if they do not
@@ -43,9 +45,19 @@ from .sum_partials import sum_partials
 
 # the kernels keep a row in registers: 32 lanes x at most 32 values
 MAX_N = 1024
-# rows per block of the backward kernel (one partial row each)
-BWD_ROWS = 64
+# the backward's row groups (one block and one partial row each): at most
+# BWD_GROUPS groups of at least BWD_MIN_ROWS consecutive rows
+BWD_GROUPS = 512
+BWD_MIN_ROWS = 16
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bwd_groups(R):
+    """(groups, rows per group) of the backward kernel over R rows, the
+    last group ragged: a function of R alone, never of the device, so dg
+    and dc are summed in one order on every card."""
+    rows = max(BWD_MIN_ROWS, -(-R // BWD_GROUPS))
+    return -(-R // rows), rows
 
 
 def _z(x2d, y2d, rate, is_test, upscale, seed):
@@ -195,11 +207,12 @@ def fused_dropout_add_ln_bwd(x2d, y2d, g, d_out, *, rate=0.0, is_test=True,
     g = _vec(g, N, 1.0, dev, who)
     dx = torch.empty((R, N), dtype=x2d.dtype, device=dev)
     dy = torch.empty((R, N), dtype=y2d.dtype, device=dev)
-    blocks = (R + BWD_ROWS - 1) // BWD_ROWS
-    part = torch.empty((2, blocks, N), dtype=torch.float32, device=dev)
+    groups, rows = bwd_groups(R)
+    part = torch.empty((2, groups, N), dtype=torch.float32, device=dev)
     err = _bind().fused_dropout_add_ln_bwd(
         x2d.data_ptr(), y2d.data_ptr(), g.data_ptr(), d_out.data_ptr(),
-        dx.data_ptr(), dy.data_ptr(), part.data_ptr(), R, N, x2d.stride(0),
+        dx.data_ptr(), dy.data_ptr(), part.data_ptr(), R, N, rows,
+        x2d.stride(0),
         y2d.stride(0), d_out.stride(0), dx.stride(0), dy.stride(0),
         float(drop_scale(rate, is_test, upscale)), float(eps), use_mask, s0,
         s1, thr, DTYPES.index(x2d.dtype),
@@ -252,7 +265,7 @@ def _bind():
         lib.fused_dropout_add_ln_fwd.argtypes = (
             [p, p, p, p, p, i, i, ll, ll, ll] + tail)
         lib.fused_dropout_add_ln_bwd.argtypes = (
-            [p, p, p, p, p, p, p, i, i, ll, ll, ll, ll, ll] + tail)
+            [p, p, p, p, p, p, p, i, i, i, ll, ll, ll, ll, ll] + tail)
         for fn in (lib.fused_dropout_add_ln_fwd, lib.fused_dropout_add_ln_bwd):
             fn.restype = ctypes.c_int
     return lib

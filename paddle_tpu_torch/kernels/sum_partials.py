@@ -9,9 +9,12 @@ one partial per block or head, and this sums them:
 out[b, n] = sum_g part[b, g, n], g in ascending order.
 
 What bounds it on the H100: device-memory bytes (one add per element
-read). The design (csrc/sum_partials.cu) gives each output element one
-thread that walks its partials in a fixed order: the same result on
-every run, with no float atomics.
+read). The design (csrc/sum_partials.cu), by G: up to 16 partials (the
+attention's dbias over heads), one thread a column walks them in order;
+more (the row kernels' groups), up to 32 threads a column each sum a
+contiguous slice of at most 16 in order, and the slices' sums are added
+in order. The order depends on G alone: the same result on every run,
+with no float atomics.
 
 Dispatch: a CUDA tensor goes to the kernel, or raises if the kernel does
 not take it; a CPU tensor goes to the plain version.

@@ -27,6 +27,7 @@ from paddle_tpu_torch import layers as tl
 from paddle_tpu_torch.errors import InvalidArgumentError
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import flash_tiled as tft
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 H, D = 4, 32
 

@@ -6,6 +6,7 @@ that do not fit its time, with its inputs and tolerances."""
 import pytest
 
 from test_torch_flash_tiled import check_against_the_jax_package
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("B,S,causal", [(1, 384, True), (2, 384, False)])

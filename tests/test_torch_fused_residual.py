@@ -184,3 +184,78 @@ def test_sum_partials_plain_version():
         np.random.RandomState(0).randn(2, 7, 33).astype(np.float32))
     np.testing.assert_allclose(tsp.sum_partials(part).numpy(),
                                part.numpy().sum(1), rtol=0, atol=1e-6)
+
+
+# the card tests' TOL["residual_bwd"] for fp32 (sums in another order)
+BWD_ATOL = 5e-5
+
+
+@pytest.mark.parametrize("R", [1, 15, 16, 17, 300, 1000, 8192, 16384,
+                               16385, 100000])
+def test_backward_row_groups_are_a_function_of_the_rows(R):
+    """The backward kernel's row groups (one partial row each) depend on
+    R alone: the same for every N and call, every row in exactly one
+    group, at most BWD_GROUPS groups of at least BWD_MIN_ROWS rows (R
+    permitting), the last one ragged."""
+    groups, rows = tfr.bwd_groups(R)
+    assert all(tfr.bwd_groups(R) == (groups, rows) for _ in range(3))
+    assert (groups - 1) * rows < R <= groups * rows
+    assert groups <= tfr.BWD_GROUPS and rows >= tfr.BWD_MIN_ROWS
+    assert tfr.bwd_groups(16384) == (512, 32)
+
+
+def _kernel_order_sums(do, zhat, R, warps=4):
+    """dg = sum_rows do * zhat and dc = sum_rows do in fp32 in the card's
+    fixed order: each group of bwd_groups(R) rows by its warps (warp w
+    takes rows w, w + warps, ... of the group, each a chain of fused
+    multiply-adds), the warps added in order into the group's partial;
+    then sum_partials over the G groups: YS slices (the fewest powers of
+    two up to 32 that leave at most 16 groups a slice) of ceil(G / YS)
+    groups, each summed in order, the slices' sums added in order."""
+    groups, rows = tfr.bwd_groups(R)
+    N = do.shape[1]
+    part = torch.zeros(2, groups, N)
+    for gi in range(groups):
+        r0, r1 = gi * rows, min(gi * rows + rows, R)
+        for w in range(warps):
+            dg, dc = torch.zeros(N), torch.zeros(N)
+            for r in range(r0 + w, r1, warps):
+                dg = torch.addcmul(dg, do[r], zhat[r])
+                dc = dc + do[r]
+            part[0, gi] += dg
+            part[1, gi] += dc
+    ys = 1
+    while ys < 32 and ys * 16 < groups:
+        ys *= 2
+    width = -(-groups // ys)
+    out = torch.zeros(2, N)
+    for y in range(ys):
+        acc = torch.zeros(2, N)
+        for gi in range(y * width, min(y * width + width, groups)):
+            acc = acc + part[:, gi]
+        out = out + acc
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("R,N", [(1000, 768), (2100, 700)])
+def test_backward_sums_over_the_kernels_groups_hold_its_tolerance(R, N):
+    """dg and dc summed over the kernel's row groups in its fixed order
+    (R not a multiple of a group's rows: 63 and 132 groups, in 4 and 16
+    slices of sum_partials) against the plain backward's within the card
+    tests' residual_bwd atol, with training dropout. (The sums reach ~100
+    here, where 5e-5 is ~6 fp32 units in the last place; over 16384 rows
+    they reach ~400, and the card holds them to residual_sums.)"""
+    rng = np.random.RandomState(R)
+    x, y, do = (torch.from_numpy(rng.randn(R, N).astype(np.float32))
+                for _ in range(3))
+    g = torch.from_numpy((1 + 0.1 * rng.randn(N)).astype(np.float32))
+    kw = dict(rate=0.1, is_test=False, upscale=True, eps=EPS,
+              seed=(0x2024ABCD, 0x5EED0001))
+    z, _ = tfr._z(x, y, 0.1, False, True, kw["seed"])
+    mean, rstd = tfr._stats(z, EPS)
+    dg, dc = _kernel_order_sums(do, (z - mean) * rstd, R)
+    _, _, want_g, want_c = tfr.reference_bwd(x, y, g, do, **kw)
+    np.testing.assert_allclose(dg.numpy(), want_g.numpy(), rtol=0,
+                               atol=BWD_ATOL)
+    np.testing.assert_allclose(dc.numpy(), want_c.numpy(), rtol=0,
+                               atol=BWD_ATOL)

@@ -1,14 +1,16 @@
 """The arithmetic of the forward kernels on the tensor cores, the whole-row
-forward (#1/#5) and the ring-block forward (#12), which share one body
-(csrc/attn_mma.cuh's fwd_mma_block), through the plain model of the
-card's products in paddle_tpu_torch.kernels.ring_block (`tf32_split`:
-x = hi + lo, both TF32, as the card's cvt.rna.tf32.f32 rounds).
+forward (#1/#5), the KV-tiled forward (#7) and the ring-block forward
+(#12), which share one body (csrc/attn_mma.cuh's fwd_mma_block), through
+the plain model of the card's products in paddle_tpu_torch.kernels.
+ring_block (`tf32_split`: x = hi + lo, both TF32, as the card's
+cvt.rna.tf32.f32 rounds).
 
 The body, emulated key tile by key tile on the CPU for one head: S = Q K^T
 over a tile of BS keys (64; 32 at D=128) with TF32 operands and fp32
-sums, the policy's scores (whole-row: the scale, a key bias with a padded
-tail and the sequence end; ring: liveness at the shards' causal offsets,
-a dead entry weighing exactly 0), an fp32 online softmax (the tile's row
+sums, the policy's scores (whole-row, #1/#5 and #7: the scale, a key bias
+with a padded tail, the causal cut at -1e30 for #7 at GPT's S=2048, and
+the sequence end; ring: liveness at the shards' causal offsets, a dead
+entry weighing exactly 0), an fp32 online softmax (the tile's row
 max, alpha = exp(m - m_new), the row sum over every e, kept or dropped),
 training dropout's keep mask (the kernels' Philox mask, prng_mask) on P,
 and each tile's P V summed from zero with TF32 operands and added to the
@@ -27,6 +29,7 @@ import torch
 
 from paddle_tpu_torch.kernels import prng_mask as pm
 from paddle_tpu_torch.kernels import ring_block as rb
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 ATOL_OUT, ATOL_LSE = 5e-6, 1e-5  # the card tests' TOL["attention"], lse
 MISS = 5e-5  # one TF32 term a product misses this
@@ -34,14 +37,24 @@ RATE = 0.1
 SEED = (0x2024ABCD, 0x5EED0001)
 
 # (kind, S, D, row0, col0): whole-row at BERT's S=512 with a key bias and
-# training dropout; the ring's diagonal shard at S=2048, causal, at
-# offsets whose first 60 rows see no key and whose diagonal cuts tiles
+# training dropout; the KV-tiled forward (the whole-row policy, causal) at
+# GPT's S=2048 with a key bias and training dropout, 32 key tiles of
+# rescaling at D=64 and 64 at D=128; the ring's diagonal shard at S=2048,
+# causal, at offsets whose first 60 rows see no key and whose diagonal
+# cuts tiles
 CASES = {
     "whole_row_s512_d64": ("whole_row", 512, 64, 0, 0),
     "whole_row_s512_d128": ("whole_row", 512, 128, 0, 0),
+    "tiled_s2048_causal_d64": ("tiled", 2048, 64, 0, 0),
+    "tiled_s2048_causal_d128": ("tiled", 2048, 128, 0, 0),
     "ring_s2048_causal_d64": ("ring", 2048, 64, 40, 100),
     "ring_s2048_causal_d128": ("ring", 2048, 128, 40, 100),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _keep(S):
+    return pm.keep_mask(SEED, RATE, S, S).numpy()
 
 
 def _mm(a, b, terms):
@@ -64,11 +77,12 @@ def _case(name):
     Q, K, V = (x.astype(np.float64) for x in (q, k, v))
     scale = 1 / math.sqrt(D)
     s = Q @ K.T * scale
-    if kind == "whole_row":
+    if kind != "ring":  # the whole-row policy: #1/#5, and #7 causal
         bias = np.zeros(S, np.float32)
         bias[S - 100:] = -1e4  # a padded tail of keys
-        keep = pm.keep_mask(SEED, RATE, S, S).numpy()
-        vis = np.ones((S, S), bool)
+        keep = _keep(S)
+        vis = (np.tril(np.ones((S, S), bool)) if kind == "tiled"
+               else np.ones((S, S), bool))
         s = s + bias[None]
         w = keep / (1 - RATE)  # the multiplier of a kept p
     else:
@@ -94,7 +108,7 @@ def _emulate(name, terms):
     BS = 32 if D > 64 else 64
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     t_vis = torch.from_numpy(vis)
-    ring = kind == "ring"
+    ring, causal = kind == "ring", kind == "tiled"
     m0 = rb.NEG_INF if ring else -math.inf
     m = torch.full((S, 1), m0)
     l = torch.zeros(S, 1)
@@ -110,6 +124,8 @@ def _emulate(name, terms):
             sc = torch.where(live, sc * scale, rb.NEG_INF)
         else:
             sc = sc * scale + torch.from_numpy(bias[c])
+            if causal:  # j > i at NEG_INF; every row sees key 0
+                sc = torch.where(t_vis[:, c], sc, rb.NEG_INF)
         m_new = torch.maximum(m, sc.max(1, keepdim=True).values)
         e = torch.exp(sc - m_new)
         if ring:  # a dead entry weighs 0, even in a wholly dead row

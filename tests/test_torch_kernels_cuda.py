@@ -219,6 +219,58 @@ def test_residual_kernels_train_like_their_plain_versions(dev, N, dtype,
     assert torch.equal(dy == 0, ~keep)
 
 
+def _residual_rows(dev, R, N, dtype, stride, seed):
+    """x, y and dO [R, N] of dtype whose rows lie `stride` elements apart
+    (stride N: contiguous; N + 1: rows that are not 16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.randn(3, R, N, generator=g, device=dev)
+    vals[1] = vals[1] * 2 + 0.5
+    buf = torch.zeros(3, R, stride, device=dev, dtype=dtype)
+    buf[..., :N] = vals.to(dtype)
+    return buf[0, :, :N], buf[1, :, :N], buf[2, :, :N]
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [700, 768, 1024])
+def test_residual_backward_takes_both_copy_paths_alike(dev, N, dtype,
+                                                       training):
+    """#4 over R=1000 rows (groups of 16, the last one ragged), dropout
+    0.1 in training or test mode, on contiguous rows (16-byte vectors
+    where N is a whole number of chunks: fp32 chunks of 4, bf16 of 8, so
+    bf16 at N=700 goes element by element) and on the same values with
+    rows N + 1 elements apart (element by element): dx, dy within the
+    backward tolerance of the plain version, dg and dc within the sums'
+    (1e-3 + 1e-5 relative), the two layouts' results the same bits, dg
+    and dc the same bits over two launches, and dy zero exactly where the
+    plain mask drops."""
+    R = 1000
+    gam = 1 + 0.1 * torch.randn(N, device=dev)
+    kw = dict(rate=0.1, is_test=not training, eps=1e-5,
+              seed=SEED if training else None)
+    got = {}
+    for stride in (N, N + 1):
+        x, y, do = _residual_rows(dev, R, N, dtype, stride, 21)
+        before = (fr.fused_dropout_add_ln_bwd.launches,
+                  sp.sum_partials.launches)
+        got[stride] = fr.fused_dropout_add_ln_bwd(x, y, gam, do, **kw)
+        assert (fr.fused_dropout_add_ln_bwd.launches,
+                sp.sum_partials.launches) == (before[0] + 1, before[1] + 1)
+        dx, dy, dg, dc = got[stride]
+        want = fr.reference_bwd(x, y, gam, do, **kw)
+        _close(dx, want[0], "residual_bwd", dtype)
+        _close(dy, want[1], "residual_bwd", dtype)
+        for a, w in zip((dg, dc), want[2:]):
+            torch.testing.assert_close(a, w, atol=1e-3, rtol=1e-5)
+        again = fr.fused_dropout_add_ln_bwd(x, y, gam, do, **kw)
+        assert torch.equal(dg, again[2]) and torch.equal(dc, again[3])
+        if training:
+            keep = pm.keep_mask(SEED, 0.1, R, N, device=dev)
+            assert torch.equal(dy == 0, ~keep)
+    for a, b in zip(got[N], got[N + 1]):
+        assert torch.equal(a, b)
+
+
 def test_kernel_masks_equal_the_plain_mask_and_keep_one_minus_p(dev):
     """The residual backward's dy is zero exactly where a kernel dropped:
     over 2048 x 768 elements (>10^6) that pattern equals the plain mask,
@@ -238,8 +290,12 @@ def test_kernel_masks_equal_the_plain_mask_and_keep_one_minus_p(dev):
     assert abs(kept.float().mean().item() - p) < 5 * math.sqrt(p * (1 - p) / n)
 
 
-def test_sum_partials_kernel_matches_plain_version(dev):
-    part = torch.randn(3, 257, 700, device=dev)
+@pytest.mark.parametrize("G", [12, 257])
+def test_sum_partials_kernel_matches_plain_version(dev, G):
+    """One thread a column up to 16 partials, slices of at most 16 in
+    up to 32 thread rows past it: both within 5e-5 of the plain sum and
+    the same bits twice."""
+    part = torch.randn(3, G, 700, device=dev)
     before = sp.sum_partials.launches
     got = sp.sum_partials(part)
     assert sp.sum_partials.launches == before + 1
@@ -510,19 +566,13 @@ def test_tiled_kernels_take_every_head_dim(dev, D):
 
 
 def test_tiled_kernels_draw_the_whole_row_kernels_mask(dev):
-    """One seed, S=512 (both paths take it): #7's output (CUDA cores)
-    equals #1's (tensor cores) bit for bit, and the dv of one query row
-    from #8 is zero exactly where #3's is and where the plain mask drops.
-    With q = 0 every live key weighs exp(0) = 1 and v holds small
-    integers, so each output is a sum of kept integers times drop_scale
-    over the live count, exact in any order of the sums: the two kernels
-    agree in their bits exactly when they draw one mask."""
+    """One seed, S=512 (both paths take it), random q, k and v: #7's
+    output equals #1's bit for bit (one body, attn_mma.cuh's fwd_view,
+    with and without the lse row, so one mask and one arithmetic), and
+    the dv of one query row from #8 is zero exactly where #3's is and
+    where the plain mask drops."""
     B, S, H, D, rate = 2, 512, 2, 64, 0.25
     qkv, bias = _qkv(dev, B, S, H, D, torch.float32, seed=9)
-    g = torch.Generator(device=dev).manual_seed(9)
-    qkv[..., :H * D] = 0.0
-    qkv[..., 2 * H * D:] = torch.randint(-8, 9, (B, S, H * D), generator=g,
-                                         device=dev).float()
     kw = dict(scale=1 / 8, is_test=False, causal=False)
     out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, H, D, rate=rate, **kw)
     whole = fa.fused_attention_qkv(qkv, H, bias, dropout_rate=rate, seed=SEED,
@@ -1445,6 +1495,82 @@ def test_attention_forward_takes_every_sequence_length(dev, S, D, dtype):
                     seed=SEED, causal=True)):
         got = fa.fused_attention_qkv(qkv, H, bias, **kw)
         _close(got, fa.reference_qkv(qkv, H, bias, **kw), "attention", dtype)
+
+
+# ---------------------------------------------------------------------------
+# the KV-tiled forward (#7) on the tensor cores: the whole-row forward's
+# body with the lse row
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1025, 1537, 2049])
+def test_tiled_forward_takes_every_length_past_1024(dev, S, D, dtype,
+                                                    causal):
+    """#7 past S=1024 at lengths no multiple of the 64-row tile (the
+    causal diagonal's last tile and the sequence end cut one tile), every
+    head dim (D=128 streams key tiles of 32), both dtypes, causal or not,
+    with a padded key bias and training dropout: out within the forward
+    tolerance and lse within 1e-5 of the plain version; one launch."""
+    H = 2
+    qkv, bias = _qkv(dev, 2, S, H, D, dtype, seed=S + D)
+    kw = dict(scale=1 / math.sqrt(D), rate=0.1, is_test=False,
+              causal=causal)
+    before = _tiled_counts()
+    out, lse = ft.flash_tiled_fwd(qkv, bias, SEED, H, D, **kw)
+    assert _tiled_counts() == (before[0] + 1, before[1], before[2])
+    want_o, want_l = ft.reference_fwd(qkv, bias, SEED, H, D, **kw)
+    _close(out, want_o, "attention", dtype)
+    torch.testing.assert_close(lse, want_l, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["base_off_by_one", "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_forward_reads_misaligned_views(dev, dtype, layout):
+    """The 4-D op past S=1024 on views whose rows are not 16-byte aligned
+    (the base one element off, or rows an odd number of elements apart)
+    takes #7's synchronous copy path: one launch of #7, out within the
+    forward tolerance of the plain tiled version, causal, with training
+    dropout."""
+    B, S, H, D = 2, 1100, 3, 64
+    q, k, v = _misaligned(dev, layout, B, H, S, D, dtype, 3, 15)
+    _, bias = _qkv(dev, B, S, H, D, dtype, seed=15)
+    assert q.data_ptr() % 16 or q.stride(2) % 2
+    fkw = dict(scale=0.125, dropout_rate=0.1, is_test=False, causal=True,
+               seed=SEED)
+    before = _tiled_counts()
+    got = fa.fused_attention(q, k, v, bias, **fkw)
+    assert _tiled_counts() == (before[0] + 1, before[1], before[2])
+    want, _ = ft.reference_fwd4(q, k, v, bias, SEED, scale=0.125, rate=0.1,
+                                is_test=False, causal=True)
+    _close(got, want, "attention", dtype)
+
+
+@pytest.mark.parametrize("layout", ["packed", "four_d", "odd_row_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_forward_gives_the_same_bits_twice(dev, dtype, layout):
+    """Two launches of #7 on the same inputs give the same out (and lse)
+    bits: each output element is summed by one thread in a fixed order."""
+    B, S, H, D = 2, 1300, 3, 64
+    kw = _tiled_kw(D)
+    if layout == "packed":
+        qkv, bias = _qkv(dev, B, S, H, D, dtype, seed=16)
+        first, second = (ft.flash_tiled_fwd(qkv, bias, SEED, H, D, **kw)
+                         for _ in range(2))
+    else:
+        if layout == "four_d":
+            q, k, v, _, bias = _heads(dev, B, S, H, D, dtype, seed=16)
+        else:
+            q, k, v = _misaligned(dev, layout, B, H, S, D, dtype, 3, 16)
+            _, bias = _qkv(dev, B, S, H, D, dtype, seed=16)
+        fkw = dict(scale=kw["scale"], dropout_rate=kw["rate"],
+                   is_test=False, causal=True, seed=SEED)
+        first, second = ((fa.fused_attention(q, k, v, bias, **fkw),)
+                         for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

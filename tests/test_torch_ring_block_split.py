@@ -27,6 +27,7 @@ import torch
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import prng_mask as pm
 from paddle_tpu_torch.kernels import ring_block as rb
+from torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 F32_MAX = float(np.finfo(np.float32).max)
 TINY = 2.0 ** -149  # the smallest fp32 subnormal

@@ -135,6 +135,23 @@ def sp_leg_worker(rank, world, store, inputs, op, steps, out):
     dist.destroy_process_group()
 
 
+def stall_worker(rank, world, store, plan, out):
+    """A rank that follows plan[rank]: sleep that many seconds (a
+    positive float), exit with that code (a negative int, negated), or,
+    absent, write an empty .npz and exit 0. No process group: it tests
+    Ranks itself."""
+    import os
+    import time
+
+    act = plan.get(rank)
+    if act is None:
+        np.savez(out, rank=np.asarray(rank))
+    elif act > 0:
+        time.sleep(act)
+    else:
+        os._exit(-act)
+
+
 class Ranks:
     """target(rank, world, store, *args, out) started in `world` children
     (torch.multiprocessing), one gloo rank each, over a FileStore under
@@ -155,21 +172,52 @@ class Ranks:
                                   args=(r, world, store, *args, self.outs[r]))
                       for r in range(world)]
         # the first start waits for the forkserver to import torch: start
-        # them from a thread, so the caller's work overlaps that wait
-        self._starter = threading.Thread(
-            target=lambda: [p.start() for p in self.procs], daemon=True)
+        # them from a thread, so the caller's work overlaps that wait;
+        # results() sets _stop to keep it from starting more
+        self._stop = threading.Event()
+        self._starter = threading.Thread(target=self._start, daemon=True)
         self._starter.start()
 
-    def results(self):
-        self._starter.join()
+    def _start(self):
         for p in self.procs:
-            p.join(timeout=120)
-        bad = [(r, p.exitcode) for r, p in enumerate(self.procs)
-               if p.exitcode != 0]
-        for p in self.procs:
-            if p.is_alive():
-                p.kill()
-        if bad:
+            if self._stop.is_set():
+                return
+            p.start()
+
+    def results(self, start_timeout=240, timeout=120):
+        """Every rank's results. Each wait is bounded: the starts (the
+        forkserver's imports) by start_timeout seconds, each child by
+        timeout seconds. A rank that does not start, hangs or fails
+        fails the caller with every rank's exit code, and no child is
+        left running."""
+        self._starter.join(timeout=start_timeout)
+        if self._starter.is_alive():
+            # no start after this one: the starter ends once the start
+            # under way returns, and then every started child is killed
+            self._stop.set()
+            self._starter.join(timeout=60)
+            started = [r for r, p in enumerate(self.procs)
+                       if p.pid is not None]
+            self._kill()
             raise RuntimeError(
-                f"rank processes failed (rank, exit code): {bad}")
+                f"rank processes not all started after {start_timeout} s "
+                f"(the forkserver's imports): started ranks {started} of "
+                f"{len(self.procs)}, killed"
+                + ("; a start still under way" if self._starter.is_alive()
+                   else ""))
+        for p in self.procs:
+            p.join(timeout=timeout)
+        hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+        self._kill()
+        codes = [(r, p.exitcode) for r, p in enumerate(self.procs)]
+        if hung or any(code != 0 for _, code in codes):
+            raise RuntimeError(
+                f"rank processes failed: (rank, exit code) {codes}; ranks "
+                f"{hung} still running after {timeout} s, killed")
         return [dict(np.load(o)) for o in self.outs]
+
+    def _kill(self):
+        for p in self.procs:
+            if p.pid is not None and p.is_alive():
+                p.kill()
+                p.join(timeout=10)
