@@ -14,9 +14,10 @@ Phases, each fatal on failure:
    and backward, in fp32 and bf16; check the kernels' keep mask against
    the plain one, its keep rate and its independence from the tiling; the
    KV-tiled kernels at S = 1152 and 2048, training dropout on and off; the
-   standalone LayerNorm kernels (#10, #11) at [8192, 768] and R = 1001,
-   fp32 and bf16, scale and bias fp32, bf16 or absent, and #11's bits
-   equal over two runs; the 4-D kernels (#5, #6) at B=32, S=512 and small
+   standalone LayerNorm kernels (#10, #11) at [8192, 768] and R = 1001
+   up to N = 8192, fp32 and bf16, scale and bias fp32, bf16 or absent,
+   #11's bits on unaligned rows equal to the aligned rows', and over two
+   runs; the 4-D kernels (#5, #6) at B=32, S=512 and small
    shapes, fp32 and bf16, with and without the key bias, causal, test
    mode and training dropout, and on the heads of a packed projection
    against #1/#3 on the projection (the same bits);
@@ -99,8 +100,8 @@ Phases, each fatal on failure:
    every one on the tensor cores, the backward pairs #13/#14, #3/#6 and
    #9/#8 and the forwards #1/#5, #7 and #12 (run after phase 3's
    parity): the tensor-core instructions (HMMA) of each instance in its
-   library's SASS, its blocks an SM and shared memory, and the residual
-   backward #4's blocks an SM; the port's ring forward and backward
+   library's SASS, its blocks an SM and shared memory, and the row
+   backwards #4's and #11's blocks an SM; the port's ring forward and backward
    (ring_fwd_steps, ring_bwd_steps) for n=4 shards in one process over
    an in-process exchange (drive_lockstep), against dense attention, each
    kernel
@@ -117,9 +118,9 @@ Phases, each fatal on failure:
    two steps on the card (NCCL) and on the CPU (a 1-rank gloo mesh) from
    one state, under phase 5's tolerances;
 17. kernel times: each kernel beside its plain version, its bound and one
-   PyTorch call, at the serving, the BERT training (#1 and the backward
-   pair #3 also in bf16 at the BERT AMP path's activations, beside
-   SDPA's bf16 forward and backward) and the GPT shapes (#7 also in bf16
+   PyTorch call, at the serving, the BERT training (#1, the backward
+   pair #3, #2 and #4 also in bf16 at the BERT AMP path's activations,
+   beside SDPA's and F.layer_norm's bf16) and the GPT shapes (#7 also in bf16
    at the GPT AMP path's activations beside SDPA's bf16 causal forward;
    the tiled backward pair #9/#8 with its TFLOP/s and the 3xTF32 bound
    beside the fp32 one, and again in bf16 at the GPT AMP path's
@@ -284,8 +285,10 @@ def read_counts(kc):
 
 def ptxas_usage(report):
     """[(kernel, registers, spill line)] from ptxas -v output: each entry
-    function's name (with its dtype, its head dim or chunk count, and #4's
-    copy path where it is a template), its spills and its registers."""
+    function's name (with its dtype, its integer template arguments in
+    order: a head dim, or a chunk or value count and warps a row, and the
+    row backwards' copy path where it is a template), its spills and its
+    registers."""
     out, kernel, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"entry function '.*?\d+([a-z_]+_kernel)(I\w*)?",
@@ -295,10 +298,10 @@ def ptxas_usage(report):
             args = m.group(2) or ""
             if args:
                 dtype = "bf16" if "bfloat16" in args else "f32"
-                dim = re.search(r"Li(\d+)E", args)
-                # #4's copy path: 16-byte vectors or element by element
+                dims = re.findall(r"Li(\d+)E", args.split("EEv")[0])
+                # #4's and #11's copy path: 16-byte vectors or elements
                 vec = re.search(r"Lb([01])E", args)
-                tags = [dtype] + ([dim.group(1)] if dim else []) + (
+                tags = [dtype] + dims + (
                     [("elem", "vec")[int(vec.group(1))]] if vec else [])
                 kernel += f"<{', '.join(tags)}>"
         elif "spill" in line:
@@ -702,14 +705,18 @@ def ln_inputs(R, N, dtype, affine, seed):
 
 def ln_parity(lnk):
     """#10 and #11 against their plain versions on the card at GPT's
-    [8192, 768] and at R = 1001 (a multiple of no block size) with N in
-    {256, 1024, 4096}, fp32 and bf16 x, scale and bias fp32, bf16 or
-    absent; #11 twice on the same inputs gives the same bits. Returns the
-    errors at the GPT AMP path's case ([8192, 768], bf16 x, scale and
-    bias) and in fp32."""
+    [8192, 768] and at R = 1001 (a multiple of no row group) with N in
+    {256, 1024, 4096, 8192} (one, four and eight warps a row), fp32 and
+    bf16 x, scale and bias fp32, bf16 or absent; #11 on unaligned rows
+    (x and dy [R, N] slices of [R, N + 1] fp32 / [R, N + 2] bf16
+    buffers, element by element) gives the bits of the same values in
+    aligned rows (16-byte vectors), and twice on the same inputs the same
+    bits. Returns the errors at the GPT AMP path's case ([8192, 768],
+    bf16 x, scale and bias) and in fp32."""
     print("== parity, layer_norm: #10/#11 vs plain version on the card")
     err = {}
-    for R, N in ((8192, 768), (1001, 256), (1001, 1024), (1001, 4096)):
+    for R, N in ((8192, 768), (1001, 256), (1001, 1024), (1001, 4096),
+                 (1001, 8192)):
         for dtype in (torch.float32, torch.bfloat16):
             for affine in (torch.float32, torch.bfloat16, None):
                 x, dy, s, b = ln_inputs(R, N, dtype, affine, SEED + N)
@@ -733,6 +740,19 @@ def ln_parity(lnk):
                     key = "" if dtype == torch.bfloat16 else "_fp32"
                     err["layer_norm_fwd" + key] = e_f
                     err["layer_norm_bwd" + key] = e_b
+    for R, N in ((8192, 768), (1001, 1024)):
+        for dtype, pad in ((torch.float32, 1), (torch.bfloat16, 2)):
+            x, dy, s, _ = ln_inputs(R, N, dtype, dtype, SEED)
+            xu, dyu = (torch.empty(R, N + pad, dtype=dtype,
+                                   device="cuda")[:, :N].copy_(t)
+                       for t in (x, dy))
+            aligned = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(lnk.layer_norm_bwd(xu, s, dyu, 1e-5), aligned)),
+                  f"#11 on unaligned rows (R={R} N={N} {dtype}) differs "
+                  "from the same values in aligned rows")
+    print("layer_norm bwd: unaligned rows (element by element) give the "
+          "aligned rows' bits (16-byte vectors)")
     x, dy, s, _ = ln_inputs(8192, 768, torch.bfloat16, torch.bfloat16, SEED)
     first = lnk.layer_norm_bwd(x, s, dy, 1e-5)
     second = lnk.layer_norm_bwd(x, s, dy, 1e-5)
@@ -1746,12 +1766,12 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
     kernels' times come from CUDA events around each launch in the
     wrappers' own calls (launch_ms), so the pair's kernels, and the
     residual row kernel and its sum_partials, are timed apart. The
-    residual backward (#4) is timed in fp32 and again at the BERT AMP
-    path's bf16 activations (x, y and dO bf16, scale and bias fp32; its
-    row's launches are that path's), each beside F.layer_norm(x + y)'s
-    backward (whose scale and bias take x's dtype); its row groups
-    (fr.bwd_groups) are printed, and sum_partials is timed at that
-    count."""
+    residual forward (#2) and backward (#4) are timed in fp32 and again at
+    the BERT AMP path's bf16 activations (x, y and dO bf16, scale and
+    bias fp32; their rows' launches are that path's), each beside
+    F.layer_norm(x + y) or its backward (whose scale and bias take x's
+    dtype); #4's row groups (fr.bwd_groups) are printed, and sum_partials
+    is timed at that count."""
     import torch.nn.functional as F
 
     B, S, H, D, R, N = 32, 512, 12, 64, 32 * 512, 768
@@ -1888,6 +1908,25 @@ def train_kernel_times(fa, fr, sp, err, launches, amp_launches):
                     "paddle_tpu/kernels/fused_residual.py:90",
                     launches["residual_fwd"], err["residual_fwd"], t_k, t_p,
                     b, t_l))
+    # BERT AMP's activations: x and y bf16, g and c fp32
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    e_fwd = compare(fr.fused_dropout_add_ln_fwd(xb, yb, g, c, **rkw),
+                    fr.reference_fwd(xb, yb, g, c, **rkw), "residual",
+                    torch.bfloat16, f"residual fwd R={R} bfloat16")
+    t_k = cuda_ms(lambda: fr.fused_dropout_add_ln_fwd(xb, yb, g, c, **rkw))
+    t_p = cuda_ms(lambda: fr.reference_fwd(xb, yb, g, c, **rkw), iters=10,
+                  reps=5)
+    gb, cb = g.to(torch.bfloat16), c.to(torch.bfloat16)
+    t_l = cuda_ms(lambda: F.layer_norm(xb + yb, (N,), gb, cb, 1e-5))
+    b = res_bound(xb, N)
+    print(f"residual fwd bfloat16: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+          f"ms, F.layer_norm(x + y) bfloat16 {t_l:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}; {t_k / b[0]:.2f}x)")
+    rows.append(row("fused_dropout_add_ln_fwd", "amp_training",
+                    "fused_dropout_add_ln.cu",
+                    "paddle_tpu/kernels/fused_residual.py:90",
+                    amp_launches["residual_fwd"], e_fwd, t_k, t_p, b, t_l))
+    del xb, yb, gb, cb
     groups, rows_per_group = fr.bwd_groups(R)
     print(f"residual bwd: {groups} row groups of {rows_per_group} rows, "
           f"partials [2, {groups}, {N}]")
@@ -2159,7 +2198,9 @@ def ln_kernel_times(lnk, err, launches):
     import torch.nn.functional as F
 
     R, N = GPT_B * GPT_S, 768
-    print(f"== kernel times, GPT AMP path's layer_norm (R={R}, N={N})")
+    groups, per = lnk.bwd_groups(R)
+    print(f"== kernel times, GPT AMP path's layer_norm (R={R}, N={N}; "
+          f"#11 in {groups} row groups of {per} rows)")
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         name, es = str(dtype)[6:], dtype.itemsize
@@ -2184,9 +2225,10 @@ def ln_kernel_times(lnk, err, launches):
         b_b = bound(3 * R * N * es + N * es + 2 * N * 4, 16 * R * N, dtype)
         print(f"layer_norm bwd (#11) {name}: {t_b:.4f} ms through the "
               f"wrapper (row kernel {t['layer_norm_bwd']:.4f} ms, "
+              f"{b_b[0] / t['layer_norm_bwd']:.2f} of its bound; "
               f"sum_partials {t['sum_partials']:.4f} ms), plain "
-              f"{t_pb:.4f} ms, F.layer_norm backward {t_lb:.4f} ms, bound "
-              f"{b_b[0]:.4f} ms ({b_b[1]})")
+              f"{t_pb:.4f} ms, F.layer_norm backward {t_lb:.4f} ms "
+              f"({t_b / t_lb:.2f}x), bound {b_b[0]:.4f} ms ({b_b[1]})")
         if dtype == torch.bfloat16:
             rows.append(row("layer_norm_fwd", "gpt_amp_training",
                             "layer_norm.cu",
@@ -2910,9 +2952,9 @@ def tensor_cores():
     its library's SASS (none may lack them, and each kernel has its six
     instances, fp32 and bf16 at D = 32, 64, 128), and from the CUDA
     runtime the blocks of each that fit on one SM with its dynamic shared
-    memory. Then the residual backward #4 (ln_bwd_kernel) at N = 768 and
-    1024, fp32 and bf16, on its vector path: its blocks an SM and shared
-    memory."""
+    memory. Then the row backwards #4 (ln_bwd_kernel) and #11
+    (ln_row_bwd_kernel) at N = 768 and 1024, fp32 and bf16, on their
+    vector paths: their blocks an SM and shared memory."""
     from paddle_tpu_torch.kernels import _build
 
     print("== kernels on the tensor cores as built: tensor-core "
@@ -2942,22 +2984,25 @@ def tensor_cores():
         check(len(hmma) == 6 * len(kernels),
               f"{lib_name}: {len(hmma)} instances of {kernels}, not "
               f"{6 * len(kernels)}: {sorted(hmma)}")
-    lib = _build.load("fused_dropout_add_ln")
-    occupancy = lib.fused_dropout_add_ln_bwd_occupancy
-    occupancy.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)] * 2
-    occupancy.restype = ctypes.c_int
-    for code, dtype in enumerate(("f32", "bf16")):
-        for N in (768, 1024):
-            blocks, smem = ctypes.c_int(), ctypes.c_int()
-            err = occupancy(code, N, 1, ctypes.byref(blocks),
-                            ctypes.byref(smem))
-            check(err == 0 and blocks.value > 0,
-                  f"ln_bwd_kernel<{dtype}> N={N}: occupancy query failed "
-                  f"({err}) or no block fits on an SM")
-            print(f"  ln_bwd_kernel<{dtype}> N={N} (CUDA cores): "
-                  f"{blocks.value} blocks an SM, {smem.value} bytes of "
-                  "shared memory")
+    for lib_name, entry, kernel in (
+            ("fused_dropout_add_ln", "fused_dropout_add_ln_bwd_occupancy",
+             "ln_bwd_kernel"),
+            ("layer_norm", "layer_norm_bwd_occupancy", "ln_row_bwd_kernel")):
+        occupancy = getattr(_build.load(lib_name), entry)
+        occupancy.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        occupancy.restype = ctypes.c_int
+        for code, dtype in enumerate(("f32", "bf16")):
+            for N in (768, 1024):
+                blocks, smem = ctypes.c_int(), ctypes.c_int()
+                err = occupancy(code, N, 1, ctypes.byref(blocks),
+                                ctypes.byref(smem))
+                check(err == 0 and blocks.value > 0,
+                      f"{kernel}<{dtype}> N={N}: occupancy query failed "
+                      f"({err}) or no block fits on an SM")
+                print(f"  {kernel}<{dtype}> N={N} (CUDA cores): "
+                      f"{blocks.value} blocks an SM, {smem.value} bytes of "
+                      "shared memory")
 
 
 def ring_parity(rb):

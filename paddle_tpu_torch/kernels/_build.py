@@ -4,10 +4,10 @@ Each source in csrc/ is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface, at first use, into `_build/` beside
 this file (listed in .gitignore). A library's file name carries a hash
 of its source, the csrc/ headers it includes (philox.cuh,
-attn_tiles.cuh, mma_tiles.cuh, attn_mma.cuh) and the flags,
-so an edited source or header is rebuilt. `build()`
-starts one nvcc process per source, all at once. Nothing here runs at
-import time: the CPU tests import every module on a host without nvcc.
+attn_tiles.cuh, mma_tiles.cuh, attn_mma.cuh, row_chunks.cuh) and the
+flags, so an edited source or header is rebuilt. `build()` starts one
+nvcc process per source, all at once. Nothing here runs at import time:
+the CPU tests import every module on a host without nvcc.
 """
 
 from __future__ import annotations

@@ -35,7 +35,8 @@
 //     aligned (a pointer, a row stride, or N % V != 0) the same kernel
 //     loads and stores the same chunks element by element (the C entry
 //     decides, as the attention entries choose their copy path): one
-//     layout, one arithmetic, the same bits;
+//     layout, one arithmetic, the same bits. The chunk helpers are
+//     row_chunks.cuh's, shared with #11's backward in layer_norm.cu;
 //   - the keep bits of a chunk are one Philox block's byte (eight columns
 //     a block): lane L draws blocks L, L + 32, ... of the row and hands
 //     each chunk its bits with a shuffle;
@@ -65,6 +66,7 @@
 #include <type_traits>
 
 #include "philox.cuh"
+#include "row_chunks.cuh"
 
 namespace {
 
@@ -72,21 +74,6 @@ constexpr int THREADS = 256;
 constexpr int ROWS_PER_BLOCK = THREADS / 32;  // forward: one row per warp
 constexpr int BWD_WARPS = 4;                  // backward: warps per block
 constexpr int BWD_THREADS = 32 * BWD_WARPS;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 struct Dropout {
   int use_mask;
@@ -172,65 +159,6 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
-// V consecutive columns of a row, widened to fp32 (zeros past N): one
-// 16-byte load on the vector path, else element by element
-template <typename T, int V, bool VEC>
-__device__ __forceinline__ void load_chunk(float (&o)[V], const T* p, int c0,
-                                           int N) {
-  if constexpr (VEC) {
-    static_assert(V * sizeof(T) == 16, "a chunk is one 16-byte vector");
-    if (c0 >= N) {  // N % V == 0 on this path: a chunk is in or out
-#pragma unroll
-      for (int e = 0; e < V; ++e) o[e] = 0.f;
-      return;
-    }
-    const uint4 u = *reinterpret_cast<const uint4*>(p + c0);
-    if constexpr (sizeof(T) == 4) {
-      o[0] = __uint_as_float(u.x);
-      o[1] = __uint_as_float(u.y);
-      o[2] = __uint_as_float(u.z);
-      o[3] = __uint_as_float(u.w);
-    } else {
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // element 2j in the low half, 2j + 1 in the high half
-        o[2 * j] = __uint_as_float(w[j] << 16);
-        o[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) o[e] = c0 + e < N ? to_f(p[c0 + e]) : 0.f;
-  }
-}
-
-template <typename T, int V, bool VEC>
-__device__ __forceinline__ void store_chunk(T* p, const float (&v)[V], int c0,
-                                            int N) {
-  if constexpr (VEC) {
-    if (c0 >= N) return;
-    uint4 u;
-    if constexpr (sizeof(T) == 4) {
-      u = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                     __float_as_uint(v[2]), __float_as_uint(v[3]));
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-        w[j] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-      u = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-    *reinterpret_cast<uint4*>(p + c0) = u;
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e)
-      if (c0 + e < N) p[c0 + e] = from_f<T>(v[e]);
-  }
-}
-
 // The keep bits of this lane's NC chunks of V columns (chunk i at column
 // c0 = V (lane + 32 i)) of row `row`: bit e of keep[i] keeps column
 // c0 + e. A chunk lies in one Philox block of eight columns, c0 >> 3;
@@ -264,24 +192,6 @@ __device__ __forceinline__ void chunk_keep(uint32_t (&keep)[NC],
         __shfl_sync(0xffffffffu, kb[(V * i) >> 3], (c0 >> 3) & 31);
     keep[i] = byte >> (c0 & 7);
   }
-}
-
-__device__ __forceinline__ void warp_sum2(float& a, float& b) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-}
-
-// fp32 [V] at column c0 of an fp32 vector (zeros past N), as load_chunk
-template <int V, bool VEC>
-__device__ __forceinline__ void load_f32(float (&o)[V], const float* p,
-                                         int c0, int N) {
-#pragma unroll
-  for (int j = 0; j < V; j += 4)
-    load_chunk<float, 4, VEC>(*reinterpret_cast<float(*)[4]>(o + j), p,
-                              c0 + j, N);
 }
 
 // One block per group of rows_per_group consecutive rows; warp w takes
@@ -453,18 +363,6 @@ cudaError_t launch_bwd(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// f(integral_constant NC) for the fewest chunks of V = 16 / sizeof(T)
-// columns that hold N columns in 32 lanes (8, 16, 24 or 32 columns a lane)
-template <typename T, typename F>
-cudaError_t with_chunks(int N, F f) {
-  constexpr int V = 16 / sizeof(T);
-  if (N <= 32 * 8) return f(std::integral_constant<int, 8 / V>{});
-  if (N <= 32 * 16) return f(std::integral_constant<int, 16 / V>{});
-  if (N <= 32 * 24) return f(std::integral_constant<int, 24 / V>{});
-  if (N <= 32 * 32) return f(std::integral_constant<int, 32 / V>{});
-  return cudaErrorInvalidValue;
-}
-
 template <typename T>
 cudaError_t dispatch_fwd(const Args& a, cudaStream_t stream) {
   // the smallest register row that holds N columns
@@ -474,11 +372,6 @@ cudaError_t dispatch_fwd(const Args& a, cudaStream_t stream) {
   if (a.N <= 32 * 24) return launch_fwd<T, 24>(a, stream);
   if (a.N <= 32 * 32) return launch_fwd<T, 32>(a, stream);
   return cudaErrorInvalidValue;
-}
-
-bool aligned16(const void* p, long long row_stride, size_t es) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (row_stride * (long long)es) % 16 == 0;
 }
 
 // The backward's copy path: 16-byte vectors where N is a whole number of

@@ -41,23 +41,11 @@ import torch
 from ..errors import InvalidArgumentError
 from . import _build
 from .prng_mask import drop_scale, keep_mask, mask_args
-from .sum_partials import sum_partials
+from .sum_partials import bwd_groups, sum_partials
 
 # the kernels keep a row in registers: 32 lanes x at most 32 values
 MAX_N = 1024
-# the backward's row groups (one block and one partial row each): at most
-# BWD_GROUPS groups of at least BWD_MIN_ROWS consecutive rows
-BWD_GROUPS = 512
-BWD_MIN_ROWS = 16
 DTYPES = (torch.float32, torch.bfloat16)
-
-
-def bwd_groups(R):
-    """(groups, rows per group) of the backward kernel over R rows, the
-    last group ragged: a function of R alone, never of the device, so dg
-    and dc are summed in one order on every card."""
-    rows = max(BWD_MIN_ROWS, -(-R // BWD_GROUPS))
-    return -(-R // rows), rows
 
 
 def _z(x2d, y2d, rate, is_test, upscale, seed):

@@ -15,10 +15,13 @@ x's dtype and dscale = sum_rows dy * xhat, dbias = sum_rows dy in fp32
 What bounds it on the H100: ~10 flops forward (~20 backward) per element
 against 4 (6) bytes of bf16 traffic: device-memory bytes. The designs
 (csrc/layer_norm.cu) hold a row in registers between its sums and its
-normalisation, so x (and dy) are read once and y (dx) written once; the
-backward's dscale and dbias go through per-block partials and the
-fixed-order second pass of sum_partials.py instead of the TPU's
-accumulation along a sequential grid.
+normalisation, so x (and dy) are read once and y (dx) written once. The
+backward takes #4's row layout (csrc/row_chunks.cuh): 16-byte chunks a
+lane, all of a row's loads in flight together, dscale and dbias
+accumulated in shared memory; they go through one partial row per group
+of rows (sum_partials.bwd_groups, #4's rule) and the fixed-order second
+pass of sum_partials.py instead of the TPU's accumulation along a
+sequential grid.
 
 Dispatch: a CUDA tensor goes to the kernels, or raises if they do not
 take it; a CPU tensor goes to the plain version; a meta tensor (shape
@@ -36,11 +39,9 @@ import torch
 from ..core.dtypes import to_torch_dtype
 from ..errors import InvalidArgumentError
 from . import _build
-from .sum_partials import sum_partials
+from .sum_partials import bwd_groups, sum_partials
 
 MAX_N = 8192
-# rows per block of the backward kernel (one partial row each)
-BWD_ROWS = 32
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -173,12 +174,12 @@ def layer_norm_bwd(x2d, scale, d_y, eps=1e-5):
         )
     s, s_kind = _vec(scale, N, dev, who)
     dx = torch.empty((R, N), dtype=x2d.dtype, device=dev)
-    blocks = (R + BWD_ROWS - 1) // BWD_ROWS
-    part = torch.empty((2, blocks, N), dtype=torch.float32, device=dev)
+    groups, rows = bwd_groups(R)
+    part = torch.empty((2, groups, N), dtype=torch.float32, device=dev)
     err = _bind().layer_norm_bwd(
         x2d.data_ptr(), 0 if s is None else s.data_ptr(), d_y.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), R, N, x2d.stride(0), d_y.stride(0),
-        s_kind, float(eps), DTYPES.index(x2d.dtype),
+        dx.data_ptr(), part.data_ptr(), R, N, rows, x2d.stride(0),
+        d_y.stride(0), s_kind, float(eps), DTYPES.index(x2d.dtype),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -244,8 +245,8 @@ def _bind():
                        ctypes.c_float)
         lib.layer_norm_fwd.argtypes = [p, p, p, p, p, p, i, i, ll, i, i, f,
                                        i, p]
-        lib.layer_norm_bwd.argtypes = [p, p, p, p, p, i, i, ll, ll, i, f, i,
-                                       p]
+        lib.layer_norm_bwd.argtypes = [p, p, p, p, p, i, i, i, ll, ll, i, f,
+                                       i, p]
         for fn in (lib.layer_norm_fwd, lib.layer_norm_bwd):
             fn.restype = ctypes.c_int
     return lib

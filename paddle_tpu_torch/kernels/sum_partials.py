@@ -14,7 +14,8 @@ attention's dbias over heads), one thread a column walks them in order;
 more (the row kernels' groups), up to 32 threads a column each sum a
 contiguous slice of at most 16 in order, and the slices' sums are added
 in order. The order depends on G alone: the same result on every run,
-with no float atomics.
+with no float atomics. `bwd_groups` sets G for the row kernels' backwards
+(#4 and #11), one rule for both, a function of R alone.
 
 Dispatch: a CUDA tensor goes to the kernel, or raises if the kernel does
 not take it; a CPU tensor goes to the plain version.
@@ -28,6 +29,20 @@ import torch
 
 from ..errors import InvalidArgumentError
 from . import _build
+
+# the row kernels' backward groups (one block and one partial row each):
+# at most BWD_GROUPS groups of at least BWD_MIN_ROWS consecutive rows
+BWD_GROUPS = 512
+BWD_MIN_ROWS = 16
+
+
+def bwd_groups(R):
+    """(groups, rows per group) of a row kernel's backward over R rows,
+    the last group ragged: a function of R alone, never of the device, so
+    the column sums are taken in one order on every card. #4
+    (fused_residual) and #11 (layer_norm) both use it."""
+    rows = max(BWD_MIN_ROWS, -(-R // BWD_GROUPS))
+    return -(-R // rows), rows
 
 
 def reference(part):

@@ -200,7 +200,7 @@ def test_backward_row_groups_are_a_function_of_the_rows(R):
     groups, rows = tfr.bwd_groups(R)
     assert all(tfr.bwd_groups(R) == (groups, rows) for _ in range(3))
     assert (groups - 1) * rows < R <= groups * rows
-    assert groups <= tfr.BWD_GROUPS and rows >= tfr.BWD_MIN_ROWS
+    assert groups <= tsp.BWD_GROUPS and rows >= tsp.BWD_MIN_ROWS
     assert tfr.bwd_groups(16384) == (512, 32)
 
 

@@ -14,8 +14,9 @@ of jax or paddle_tpu, so it runs where jax is not installed.) Tolerances,
 per kernel: forward fp32 atol 5e-6 (sums in another order); backward fp32
 atol 5e-5 (sums over up to S=512 rows of terms of magnitude ~1); bf16 the
 same plus one bf16 unit (2^-7 relative), for the output's one rounding.
-The standalone LayerNorm's column sums (dscale, dbias over up to 8192
-rows) atol 1e-3 + rtol 1e-5, and its statistics atol 5e-6 + rtol 1e-5.
+The standalone LayerNorm's column sums (dscale, dbias over up to 16384
+rows) atol 1e-3 + rtol 1e-5, and its statistics atol 5e-6 + rtol 1e-5
+(chip_smoke.py's layer_norm_bwd and ln_sums).
 AMP programs on the card against the CPU, both in bf16 (cuBLAS and the
 CPU's matmul round at other places): loss rtol 2^-8, each gradient's
 relative L2 error 2^-4.
@@ -65,6 +66,10 @@ TOL = {
                       torch.bfloat16: (5e-5, 2 ** -7)},
     "residual_bwd": {torch.float32: (5e-5, 0.0),
                      torch.bfloat16: (5e-5, 2 ** -7)},
+    # chip_smoke.py's: #11's dx, and its column sums over up to 16384 rows
+    "layer_norm_bwd": {torch.float32: (5e-5, 0.0),
+                       torch.bfloat16: (5e-5, 2 ** -7)},
+    "ln_sums": {torch.float32: (1e-3, 1e-5)},
 }
 SEED = (0x1234567, 0x89ABCDE)
 
@@ -730,6 +735,53 @@ def test_layer_norm_kernels_match_their_plain_versions(dev, R, N, dtype,
     _close(dx, want[0], "residual_bwd", dtype)
     for got_t, want_t in zip((ds, db), want[1:]):
         torch.testing.assert_close(got_t, want_t, atol=1e-3, rtol=1e-5)
+
+
+def _ln_bwd_held(x, s, dy):
+    """#11 on x, s, dy, held against reference_bwd under the layer_norm_bwd
+    and ln_sums tolerances, one launch of it and of sum_partials."""
+    before = (lnk.layer_norm_bwd.launches, sp.sum_partials.launches)
+    got = lnk.layer_norm_bwd(x, s, dy, 1e-5)
+    assert (lnk.layer_norm_bwd.launches,
+            sp.sum_partials.launches) == (before[0] + 1, before[1] + 1)
+    want = lnk.reference_bwd(x, s, dy, 1e-5)
+    assert got[0].dtype == x.dtype
+    _close(got[0], want[0], "layer_norm_bwd", x.dtype)
+    for got_t, want_t in zip(got[1:], want[1:]):
+        assert got_t.dtype == torch.float32
+        _close(got_t, want_t, "ln_sums", torch.float32)
+    return got
+
+
+@pytest.mark.parametrize("affine", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [8, 1001, 8192, 16384])
+@pytest.mark.parametrize("N", [128, 768, 1024, 1152, 2048, 8192])
+def test_layer_norm_backward_matches_its_plain_version(dev, N, R, dtype,
+                                                       affine):
+    """#11 at one, two and eight warps a row (N = 128 to 1024, 1152 and
+    2048, 8192) and R ragged against its row groups (bwd_groups: one
+    group of 16 rows' room for 8, 63 groups of 16 with a ragged last, 512
+    of 16, 512 of 32), scale fp32, bf16 or absent."""
+    x, dy, s, _ = _ln_inputs(dev, R, N, dtype, affine, seed=N + R)
+    _ln_bwd_held(x, s, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [128, 768, 1152, 8192])
+def test_layer_norm_backward_reads_unaligned_rows_alike(dev, N, dtype):
+    """#11 on x and dy [1001, N] slices of [1001, N + 1] fp32 / [1001, N +
+    2] bf16 buffers (rows not 16-byte aligned: element by element) gives
+    the bits of the same values in aligned rows (16-byte vectors), within
+    its tolerances of the plain version."""
+    R, pad = 1001, 1 if dtype == torch.float32 else 2
+    x, dy, s, _ = _ln_inputs(dev, R, N, dtype, dtype, seed=N)
+    xu, dyu = (torch.empty(R, N + pad, dtype=dtype, device=dev)[:, :N]
+               .copy_(t) for t in (x, dy))
+    assert xu.stride(0) * xu.element_size() % 16 != 0
+    aligned = _ln_bwd_held(x, s, dy)
+    for a, b in zip(_ln_bwd_held(xu, s, dyu), aligned):
+        assert torch.equal(a, b)
 
 
 def test_layer_norm_backward_is_deterministic(dev):

@@ -39,7 +39,9 @@ from paddle_tpu.kernels import layer_norm as jlnk
 import paddle_tpu_torch as tf
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import layers as tl
+from paddle_tpu_torch.kernels import fused_residual as tfr
 from paddle_tpu_torch.kernels import layer_norm as lnk
+from paddle_tpu_torch.kernels import sum_partials as tsp
 
 R, N = 64, 256
 EPS = 1e-5
@@ -158,6 +160,75 @@ def test_supports_matches_the_jax_predicate():
                 want = jlnk.supports(rows, n, jnp.dtype(dt))
                 assert lnk.supports(rows, n, dt) == want, (rows, n, dt)
                 assert lnk.supports(rows, n, getattr(torch, dt)) == want
+
+
+@pytest.mark.parametrize("rows", [8, 1001, 8192, 16384, 65536])
+def test_backward_row_groups_are_one_function_of_the_rows(rows):
+    """#11 and #4 take their row groups (one block and one partial row
+    each) from one function, sum_partials.bwd_groups, of R alone: every
+    row in one group, the last one ragged, at most 512 groups of at least
+    16 rows, the same answer on every call."""
+    assert lnk.bwd_groups is tsp.bwd_groups is tfr.bwd_groups
+    groups, per = tsp.bwd_groups(rows)
+    assert all(tsp.bwd_groups(rows) == (groups, per) for _ in range(3))
+    assert (groups - 1) * per < rows <= groups * per
+    assert groups <= 512 and per >= 16
+
+
+def _kernel_order_sums(dy, xhat):
+    """dscale = sum_rows dy * xhat and dbias = sum_rows dy in fp32 in #11's
+    fixed order: a row takes WPR warps (1 up to N = 1024, then 2, 4, 8), a
+    block max(4, WPR) warps, so it holds SLOTS = max(4, WPR) / WPR rows in
+    flight; slot s takes rows s, s + SLOTS, ... of each group of
+    bwd_groups(R) rows (a chain of fused multiply-adds a column), the
+    slots are added in order into the group's partial; then sum_partials
+    over the groups: YS slices (the fewest powers of two up to 32 that
+    leave at most 16 groups a slice) summed in order, then added in
+    order."""
+    R, N = dy.shape
+    wpr = next(w for w in (1, 2, 4, 8) if N <= 1024 * w)
+    slots = max(4, wpr) // wpr
+    groups, per = tsp.bwd_groups(R)
+    part = torch.zeros(2, groups, N)
+    for gi in range(groups):
+        r0, r1 = gi * per, min(gi * per + per, R)
+        for slot in range(slots):
+            ds, db = torch.zeros(N), torch.zeros(N)
+            for r in range(r0 + slot, r1, slots):
+                ds = torch.addcmul(ds, dy[r], xhat[r])
+                db = db + dy[r]
+            part[0, gi] += ds
+            part[1, gi] += db
+    ys = 1
+    while ys < 32 and ys * 16 < groups:
+        ys *= 2
+    width = -(-groups // ys)
+    out = torch.zeros(2, N)
+    for y in range(ys):
+        acc = torch.zeros(2, N)
+        for gi in range(y * width, min(y * width + width, groups)):
+            acc = acc + part[:, gi]
+        out = out + acc
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("rows,n", [(1001, 768), (300, 2048), (40, 8192)])
+def test_backward_sums_in_the_kernels_order_hold_its_tolerance(rows, n):
+    """dscale and dbias summed in #11's fixed order (one, two and eight
+    warps a row; 63, 19 and 3 groups) against the plain backward's within
+    the card's ln_sums tolerance (atol 1e-3, rtol 1e-5)."""
+    rng = np.random.RandomState(rows)
+    x = torch.from_numpy(rng.randn(rows, n).astype(np.float32) * 2 + 0.5)
+    dy = torch.from_numpy(rng.randn(rows, n).astype(np.float32))
+    mean = x.mean(1, keepdim=True)
+    var = torch.clamp(x.square().mean(1, keepdim=True) - mean.square(),
+                      min=0.0)
+    ds, db = _kernel_order_sums(dy, (x - mean) * torch.rsqrt(var + EPS))
+    _, want_s, want_b = lnk.reference_bwd(x, None, dy, EPS)
+    np.testing.assert_allclose(ds.numpy(), want_s.numpy(), atol=1e-3,
+                               rtol=1e-5)
+    np.testing.assert_allclose(db.numpy(), want_b.numpy(), atol=1e-3,
+                               rtol=1e-5)
 
 
 def test_wrappers_on_meta_tensors_give_shapes_and_dtypes():

@@ -126,3 +126,18 @@ def test_editing_a_header_rebuilds_the_libraries_that_include_it(tmp_path):
     for name in ("flash_attention", "fused_dropout_add_ln"):
         assert after[name] != before[name]  # both include philox.cuh
     assert after["sum_partials"] == before["sum_partials"]
+
+
+def test_the_row_chunks_rebuild_the_two_row_libraries_that_include_them(
+        tmp_path):
+    """row_chunks.cuh, the row helpers of #4's and #11's backwards, is
+    hashed into the names of libfused_dropout_add_ln and liblayer_norm
+    and no other's: an edit to it rebuilds those two libraries alone."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
+    header = csrc / "row_chunks.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build.lib_path(n, csrc) for n in _build.SOURCES}
+    assert [n for n in _build.SOURCES if after[n] != before[n]] == \
+        ["fused_dropout_add_ln", "layer_norm"]

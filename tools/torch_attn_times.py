@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Times of paddle_tpu_torch's attention kernels, and of the row kernels'
-backwards with sum_partials, on one CUDA card, for comparing two
-checkouts of the port in one call to the card.
+"""Times of paddle_tpu_torch's attention kernels, and of the row kernels
+with sum_partials, on one CUDA card, for comparing two checkouts of the
+port in one call to the card.
 
-    cd <checkout> && python3 <this file> <tag> [--rows]
+    cd <checkout> && python3 <this file> <tag> [--rows | --sass]
 
 Imports the port and chip_smoke.py's timers from the current directory,
 builds libflash_attention, libflash_tiled, libring_block,
 libfused_dropout_add_ln, liblayer_norm and libsum_partials there, and
-prints lines starting with "[<tag>]": the card's name and power limit; an
-instruction count and digest of each D=64 fp32 kernel of the three
-attention libraries' SASS (cuobjdump -sass), so that an unchanged kernel
-shows as unchanged; and one JSON object of median device times in ms,
-fp32 unless named, dropout 0.1 in training:
+prints lines starting with "[<tag>]": the card's name and power limit;
+for each kernel of the libraries it built, its instances, SASS
+instructions and a digest of them all (cuobjdump -sass), so that an
+unchanged kernel shows as unchanged; and one JSON object of median
+device times in ms, fp32 unless named, dropout 0.1 in training:
 
     #1, #3 dq / dkv   fused_attention_qkv and its backward pair, at
                       BERT's B=32, S=512, H=12, D=64 with a key bias, and
@@ -31,21 +31,28 @@ fp32 unless named, dropout 0.1 in training:
                       and #8) on [4, 12, 2048, 64] head views;
     #12, #13, #14     the ring-block kernels at the SP path's
                       [1, 12, 8192, 64], causal, offsets (0, 0);
-    #4                the residual LayerNorm backward at BERT's R=16384,
-                      N=768 through its wrapper, x, y and dO fp32, then
-                      bf16 (BERT AMP's activations; g fp32), with "row"
-                      and "sum" its row kernel and sum_partials apart;
-                      "row r=<n>" the row kernel at n rows a row group
-                      (bwd_groups' constants set for the call);
-    #11 bf16          the LayerNorm backward at GPT AMP's R=8192, N=768
-                      through its wrapper, and its two kernels apart;
-    sum_partials      alone at its users' shapes: [2, 256, 768] (#11),
-                      [32, 12, 512] (#3/#6's dbias at BERT's shape),
-                      [4, 12, 2048] (#8's dbias, the 4-D op past S=1024)
-                      and [2, bwd_groups(16384), 768] (#4).
+    #2, #4            the residual LayerNorm forward and backward at
+                      BERT's R=16384, N=768, the backward through its
+                      wrapper, x, y and dO fp32, then bf16 (BERT AMP's
+                      activations; g fp32), with "row" and "sum" its row
+                      kernel and sum_partials apart; "row r=<n>" the row
+                      kernel at n rows a row group (bwd_groups' constants
+                      set for the call);
+    #10, #11          the LayerNorm forward and backward at GPT AMP's
+                      R=8192, N=768, bf16 then fp32 (scale of x's
+                      dtype), the backward through its wrapper and its two
+                      kernels apart; "#11 <dtype> R=<R> r=<n>" its row
+                      kernel at R = 8192 and 16384 and n rows a group;
+    sum_partials      alone at its users' shapes: [2, bwd_groups(8192),
+                      768] (#11), [32, 12, 512] (#3/#6's dbias at BERT's
+                      shape), [4, 12, 2048] (#8's dbias, the 4-D op past
+                      S=1024) and [2, bwd_groups(16384), 768] (#4).
 
-With --rows only the last three are built and timed. The backward
-kernels are timed apart by CUDA events around each launch
+With --rows only the row libraries are built, digested and timed; with
+--sass every library is built and digested and nothing is timed. Run
+from an older checkout, the row timings take what it has (its own
+groups' constants; #11's groups only where its wrapper has them). The
+backward kernels are timed apart by CUDA events around each launch
 (chip_smoke.launch_ms). Run it from both checkouts in turns (A, B, B, A):
 machines differ between calls.
 """
@@ -84,23 +91,34 @@ RES_BWD = (("fused_dropout_add_ln", "fused_dropout_add_ln_bwd"),
 LN_BWD = (("layer_norm", "layer_norm_bwd"), ("sum_partials", "sum_partials"))
 
 
-def sass_digests():
-    """{kernel: (SASS instructions, digest)} of the D=64 fp32 kernels of
-    LIBS."""
+def sass_digests(libs):
+    """{kernel: (instances, SASS instructions, digest)} of every kernel of
+    the libraries, the digest over its instances' SASS in the order of
+    their mangled names. (The names themselves are left out: nvcc gives
+    an unnamed namespace a prefix that differs between checkouts.)"""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = {}
-    for lib in LIBS:
+    found = {}
+    for lib in libs:
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-            name = fn.split("\n", 1)[0]
-            kernel = re.search(r"(\w+_kernel)IfLi64E", name)
+            name = fn.split("\n", 1)[0].strip()
+            kernel = re.search(r"\d([a-z_]+_kernel)[IE]", name)
             if kernel:
-                body = [re.sub(r"/\*[0-9a-f]+\*/", "", line).strip()
+                # addresses out, and runs of blanks as one: cuobjdump
+                # pads its columns to the widest line of the library
+                body = [" ".join(re.sub(r"/\*[0-9a-f]+\*/", "",
+                                        line).split())
                         for line in fn.splitlines()[1:] if "/*" in line]
-                out[kernel.group(1)] = (len(body), hashlib.sha1(
-                    "\n".join(body).encode()).hexdigest()[:10])
+                found.setdefault(kernel.group(1), []).append((name, body))
+    out = {}
+    for kernel, fns in found.items():
+        h = hashlib.sha1()
+        for _, body in sorted(fns):
+            h.update("\n".join(body).encode() + b"\0")
+        out[kernel] = (len(fns), sum(len(b) for _, b in fns),
+                       h.hexdigest()[:10])
     return out
 
 
@@ -189,15 +207,32 @@ def times():
     return res
 
 
+# the module that owns bwd_groups' constants: sum_partials since both
+# row backwards share them, fused_residual in older checkouts
+GROUPS_OWNER = sp if hasattr(sp, "BWD_GROUPS") else fr
+
+
+def at_group_rows(rows, fn):
+    """fn() with every row backward's groups set to `rows` rows."""
+    kept = GROUPS_OWNER.BWD_GROUPS, GROUPS_OWNER.BWD_MIN_ROWS
+    GROUPS_OWNER.BWD_GROUPS, GROUPS_OWNER.BWD_MIN_ROWS = 1 << 30, rows
+    try:
+        return fn()
+    finally:
+        GROUPS_OWNER.BWD_GROUPS, GROUPS_OWNER.BWD_MIN_ROWS = kept
+
+
 def row_times():
     res = {}
     R, N = 32 * 512, 768
     rkw = dict(rate=0.1, is_test=False, eps=1e-5, seed=cs.MASK_SEED)
-    x, y, g, _ = cs.res_inputs(R, N, torch.float32, cs.SEED)
+    x, y, g, c = cs.res_inputs(R, N, torch.float32, cs.SEED)
     do = torch.randn(R, N, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         xd, yd, dod = (t.to(dtype) for t in (x, y, do))
+        res[f"#2 {name}"] = cs.cuda_ms(
+            lambda: fr.fused_dropout_add_ln_fwd(xd, yd, g, c, **rkw))
 
         def bwd():
             return fr.fused_dropout_add_ln_bwd(xd, yd, g, dod, **rkw)
@@ -206,23 +241,35 @@ def row_times():
         t = cs.launch_ms(bwd, RES_BWD, iters=20)
         res[f"#4 {name} row"] = t["fused_dropout_add_ln_bwd"]
         res[f"#4 {name} sum"] = t["sum_partials"]
-        kept = fr.BWD_GROUPS, fr.BWD_MIN_ROWS
         for rows in (8, 16, 32, 64, 128):
-            fr.BWD_GROUPS, fr.BWD_MIN_ROWS = R // rows, 1
-            res[f"#4 {name} row r={rows}"] = cs.launch_ms(
-                bwd, RES_BWD, iters=20)["fused_dropout_add_ln_bwd"]
-        fr.BWD_GROUPS, fr.BWD_MIN_ROWS = kept
+            res[f"#4 {name} row r={rows}"] = at_group_rows(
+                rows, lambda: cs.launch_ms(bwd, RES_BWD, iters=20))[
+                    "fused_dropout_add_ln_bwd"]
+    del x, y, g, c, do
     Rl = cs.GPT_B * cs.GPT_S
-    xl, dyl, s, _ = cs.ln_inputs(Rl, N, torch.bfloat16, torch.bfloat16,
-                                 cs.SEED)
-    res["#11 bf16"] = cs.cuda_ms(lambda: lnk.layer_norm_bwd(xl, s, dyl,
-                                                            1e-5))
-    t = cs.launch_ms(lambda: lnk.layer_norm_bwd(xl, s, dyl, 1e-5), LN_BWD,
-                     iters=20)
-    res["#11 bf16 row"] = t["layer_norm_bwd"]
-    res["#11 bf16 sum"] = t["sum_partials"]
-    for shape in ((2, Rl // 32, N), (32, 12, 512), (4, 12, 2048),
-                  (2, fr.bwd_groups(R)[0], N)):
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for R11 in (Rl, 2 * Rl):
+            xl, dyl, s, b = cs.ln_inputs(R11, N, dtype, dtype, cs.SEED)
+
+            def bwd():
+                return lnk.layer_norm_bwd(xl, s, dyl, 1e-5)
+
+            if R11 == Rl:
+                res[f"#10 {name}"] = cs.cuda_ms(
+                    lambda: lnk.layer_norm_fwd(xl, s, b, 1e-5))
+                res[f"#11 {name}"] = cs.cuda_ms(bwd)
+                t = cs.launch_ms(bwd, LN_BWD, iters=20)
+                res[f"#11 {name} row"] = t["layer_norm_bwd"]
+                res[f"#11 {name} sum"] = t["sum_partials"]
+            if hasattr(lnk, "bwd_groups"):
+                for rows in (8, 16, 32, 64):
+                    res[f"#11 {name} R={R11} r={rows}"] = at_group_rows(
+                        rows, lambda: cs.launch_ms(bwd, LN_BWD, iters=20))[
+                            "layer_norm_bwd"]
+    groups = GROUPS_OWNER.bwd_groups
+    for shape in ((2, groups(Rl)[0], N), (32, 12, 512), (4, 12, 2048),
+                  (2, groups(R)[0], N)):
         part = torch.randn(*shape, device="cuda")
         res[f"sum_partials {list(shape)}"] = cs.cuda_ms(
             lambda: sp.sum_partials(part))
@@ -236,14 +283,17 @@ def main():
         return 1
     tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
     rows_only = "--rows" in sys.argv[2:]
+    libs = ROW_LIBS if rows_only else LIBS + ROW_LIBS
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(ROW_LIBS if rows_only else LIBS + ROW_LIBS)
+    _build.build(libs)
     print(f"[{tag}] {cs.gpu_line()}")
+    for kernel, (k, n, digest) in sorted(sass_digests(libs).items()):
+        print(f"[{tag}] sass {kernel}: {k} instances, {n} instructions, "
+              f"{digest}")
+    if "--sass" in sys.argv[2:]:
+        return 0
     res = {}
     if not rows_only:
-        for kernel, (n, digest) in sorted(sass_digests().items()):
-            print(f"[{tag}] sass {kernel}<f32, 64>: {n} instructions, "
-                  f"{digest}")
         res.update(times())
     res.update(row_times())
     print(f"[{tag}] " + json.dumps({k: round(v, 5) for k, v in res.items()}))
