@@ -117,7 +117,25 @@ Phases, each fatal on failure:
    once a step, nothing else of ours; then the same program at S=1024,
    two steps on the card (NCCL) and on the CPU (a 1-rank gloo mesh) from
    one state, under phase 5's tolerances;
-17. kernel times: each kernel beside its plain version, its bound and one
+17. ResNet training, reduced size: bench.py's bench_resnet program at its
+   CPU size (ResNet-18, 3x32x32, B=4, 10 classes), Momentum(0.1, 0.9),
+   fp32, two steps on the card and on the CPU, each from one state (the
+   CPU takes the card's state after the first): loss, accuracy, every
+   @GRAD, velocity, parameter update and batch-norm moving statistic;
+18. ResNet training path: bench_resnet on an accelerator, ResNet-50, B=128,
+   3x224x224, 1000 classes, Momentum(0.1, 0.9) under `_amp`: 3 warm-up
+   and 5 timed steps, one profiled (card time by kind: cuDNN convolution
+   forward, its replay in __vjp__(conv2d), backward; batch norm and
+   elementwise; casts; momentum; and by program op), one timed by op
+   type; every loss finite, parameters, velocities and moving statistics
+   moved by each of the first two steps, no kernel of ours launched;
+   step time, images/s, peak memory, the AMP program's ops and casts;
+19. ResNet serving path: bench_serving.py's resnet classifier (ResNet-18,
+   3x32x32, 10 classes, frozen: every batch_norm in test mode) behind
+   serving.Server at buckets (1, 2, 4): every answer against a direct run
+   on the card and the port's CPU run, no kernel of ours launched; then
+   requests/s, p50 and p99 at each bucket, as phase 4 times BERT;
+20. kernel times: each kernel beside its plain version, its bound and one
    PyTorch call, at the serving, the BERT training (#1, the backward
    pair #3, #2 and #4 also in bf16 at the BERT AMP path's activations,
    beside SDPA's and F.layer_norm's bf16) and the GPT shapes (#7 also in bf16
@@ -240,6 +258,21 @@ LN_FLAG = "FLAGS_paddle_tpu_pallas_layer_norm"
 # the card vs the CPU, and the top two logits of a near-tie, within 1e-4
 GEN_BATCH, GEN_CTX, GEN_MAX, GEN_NEW, GEN_ROUNDS = 8, 128, 256, 128, 3
 LOGIT_ATOL = 1e-4
+# ResNet (phases 18-20): bench_resnet's Momentum(0.1, 0.9); the served
+# classifier's buckets, bench_serving's resnet_classify mix. Card vs CPU
+# at bench_resnet's CPU size, fp32 both (cuDNN with TF32 off against the
+# CPU's convolutions), each step from one state (card_vs_cpu's resync:
+# batch norm over 4 samples of a 1x1 map divides by batch deviations near
+# sqrt(eps), and at lr 0.1 one step takes the loss from 4.4 to 13.8, so
+# the first step's rounding differences grew to 17% of a gradient in the
+# second on the H100): loss rtol 1e-4; every @GRAD, velocity and
+# parameter update (end - start) by its relative L2, 1e-3 (a step's
+# gradients 2.5e-4 apart on the H100); moving statistics atol 1e-5 +
+# rtol 1e-4
+RESNET_LR = 0.1
+RESNET_BUCKETS = (1, 2, 4)
+RESNET_TOL = dict(loss=1e-4, grad=("l2", 1e-3), velocity=("l2", 1e-3),
+                  stats=("elementwise", 1e-5, 1e-4), update=("l2", 1e-3))
 
 
 class SmokeFailure(RuntimeError):
@@ -909,26 +942,27 @@ def serve_window(srv, name, b, samples):
             lat[min(len(lat) - 1, int(0.99 * len(lat)))], n)
 
 
-def serve_times(frozen, exe, scope, samples):
+def serve_times(frozen, exe, scope, samples, buckets=BUCKETS, name="bert"):
     """Closed loop at each bucket, one endpoint per bucket, in WINDOW_REPS
     windows per bucket; the buckets run in alternating order (1, 2, 4, 8,
     8, 4, 2, 1, ...) so drift in the host's speed falls on every bucket
     alike. Prints each window, then each bucket's median and spread."""
     from paddle_tpu_torch.serving import EndpointConfig, Server
 
-    print(f"== server times (closed loop, one full bucket in flight; "
-          f"windows of >= {WINDOW_S:g} s and >= {WINDOW_REQUESTS} requests, "
-          f"{WINDOW_REPS} per bucket in alternating order)")
+    print(f"== server times, {name} (closed loop, one full bucket in "
+          f"flight; windows of >= {WINDOW_S:g} s and >= {WINDOW_REQUESTS} "
+          f"requests, {WINDOW_REPS} per bucket in alternating order)")
     srv = Server()
-    runs = {b: [] for b in BUCKETS}
+    runs = {b: [] for b in buckets}
     try:
-        for b in BUCKETS:
-            srv.add_endpoint(f"bert{b}", frozen=frozen, executor=exe,
+        for b in buckets:
+            srv.add_endpoint(f"{name}{b}", frozen=frozen, executor=exe,
                              scope=scope, config=EndpointConfig(buckets=(b,)))
         srv.warmup()
         for rep in range(WINDOW_REPS):
-            for b in (BUCKETS if rep % 2 == 0 else BUCKETS[::-1]):
-                rps, p50, p99, n = serve_window(srv, f"bert{b}", b, samples)
+            for b in (buckets if rep % 2 == 0 else buckets[::-1]):
+                rps, p50, p99, n = serve_window(srv, f"{name}{b}", b,
+                                                samples)
                 runs[b].append((rps, p50, p99))
                 print(f"  window {rep} bucket {b}: {n} requests, "
                       f"{rps:.1f} requests/s, p50 {p50:.3f} ms, "
@@ -936,7 +970,7 @@ def serve_times(frozen, exe, scope, samples):
     finally:
         check(srv.close(timeout=300), "server did not drain")
     summary = {}
-    for b in BUCKETS:
+    for b in buckets:
         rps, p50, p99 = (sorted(col) for col in zip(*runs[b]))
         summary[b] = dict(rps=statistics.median(rps), rps_min=rps[0],
                           rps_max=rps[-1], p50_ms=statistics.median(p50),
@@ -948,7 +982,8 @@ def serve_times(frozen, exe, scope, samples):
               f"p50 {s['p50_ms']:.3f} ms [{s['p50_min']:.3f}, "
               f"{s['p50_max']:.3f}], p99 {s['p99_ms']:.3f} ms "
               f"(median [min, max] of {WINDOW_REPS} windows)")
-    print("server: " + json.dumps({str(b): s for b, s in summary.items()}))
+    tag = "server: " if name == "bert" else f"{name} server: "
+    print(tag + json.dumps({str(b): s for b, s in summary.items()}))
 
 
 # ---------------------------------------------------------------------------
@@ -1047,11 +1082,18 @@ def _held(got, want, spec):
     return err, err <= spec[1]
 
 
-def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL):
-    """One Adam step per feed on the card and on the CPU from one state,
-    under `tol` (FP32_TOL or AMP_TOL): the loss, every @GRAD, the moments,
-    beta powers, lr, loss scale and counters, and each parameter's
-    update. Returns (exempt update elements, elements)."""
+def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
+                extra=(), resync=False):
+    """One optimizer step per feed on the card and on the CPU from one
+    state, under `tol` (FP32_TOL, AMP_TOL or RESNET_TOL): the loss (and
+    the fetches `extra`, equal), every @GRAD, Adam's moments, the
+    velocities and moving statistics where tol names them, beta powers,
+    lr, loss scale and counters, and each parameter's update
+    (tol["update"]: Adam's exempting rule, or ("l2", bound) on end -
+    start). With resync, the state after each step is held so and the CPU
+    then takes the card's, so every step starts from one state on both:
+    for a model whose steps amplify rounding differences (ResNet's batch
+    norms over 4 samples). Returns (exempt update elements, elements)."""
     from paddle_tpu_torch import convert
 
     gexe, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
@@ -1060,58 +1102,91 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL):
     cexe, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
     convert.state_from_numpy(start, cscope, fluid.CPUPlace(), program=main)
     cpu_main = main.clone()  # the same seed and run counter
-    fetch = [loss] + [g for _, g in pg]
-    worst = {"loss": 0.0, "grad": 0.0}
+    fetch = [loss, *extra] + [g for _, g in pg]
+    n_head = 1 + len(extra)
+    worst = {"loss": 0.0, "grad": 0.0, "scalars": 0.0}
+
+    def hold_state(before, gend, cend, grads):
+        """The state after the steps since `before` (its grads: (card,
+        CPU) per step); returns (updates line, exempt, total)."""
+        for name, c in cend.items():
+            g = gend[name]
+            kind = ("moment" if name.endswith(("_moment1_0", "_moment2_0"))
+                    else "velocity" if name.endswith("_velocity_0")
+                    else "stats" if name.startswith(("bn_mean",
+                                                     "bn_variance"))
+                    else None)
+            if name in grads:
+                continue  # parameters: their updates, below
+            if kind is not None:
+                err, ok = _held(g, c, tol[kind])
+                worst[kind] = max(worst.get(kind, 0.0), err)
+                check(ok, f"{kind} {name} differs by {err:.3e}")
+            elif c.dtype.kind == "f":  # beta powers, lr, loss scale
+                d = np.abs(g.astype(np.float64) - c)
+                worst["scalars"] = max(worst["scalars"],
+                                       float((d / np.abs(c)).max()))
+                check((d <= 1e-6 * np.abs(c)).all(),
+                      f"{name} differs by {d.max():.3e}")
+            else:
+                check(np.array_equal(g, c), f"{name}: {g} vs {c}")
+        if tol["update"][0] == "l2":
+            err = max(_held(gend[n] - before[n], cend[n] - before[n],
+                            tol["update"])[0] for n in grads)
+            worst["update"] = max(worst.get("update", 0.0), err)
+            check(err <= tol["update"][1],
+                  f"parameter updates differ by {err:.3e}")
+            return (f"parameter updates {worst['update']:.2e} (relative "
+                    f"L2 of end - start, bound {tol['update'][1]:g})"), 0, \
+                sum(before[n].size for n in grads)
+        worst_u, exempt, total = check_updates(before, gend, cend, grads,
+                                               SMALL_LR, *tol["update"])
+        return (f"parameter updates {worst_u:.2e} of (|update| + lr) over "
+                f"{total - exempt} elements ({exempt} of {total} exempt, "
+                f"{exempt / total:.2%}, gradients apart by more than "
+                f"{tol['update'][1]:g}; cap {tol['update'][2]:.0%}; bound "
+                f"{tol['update'][0]:g})"), exempt, total
+
+    before = start
     grads = {p.name: [] for p, _ in pg}  # (card, CPU) per step
     t0 = time.perf_counter()
     for step, feed in enumerate(feeds):
         gpu = gexe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
         cpu = cexe.run(cpu_main, feed=feed, fetch_list=fetch, scope=cscope)
-        for (p, _), g, c in zip(pg, gpu[1:], cpu[1:]):
-            grads[p.name].append((g, c))
         check(np.isfinite(gpu[0]).all(), f"card loss not finite: {gpu[0]}")
         rel = float(np.abs(gpu[0] - cpu[0]).max() / np.abs(cpu[0]).max())
         worst["loss"] = max(worst["loss"], rel)
         check(rel <= tol["loss"], f"step {step}: loss {gpu[0]} vs CPU "
               f"{cpu[0]}")
-        for (p, _), g, c in zip(pg, gpu[1:], cpu[1:]):
+        for v, g, c in zip(extra, gpu[1:n_head], cpu[1:n_head]):
+            check(np.array_equal(g, c), f"step {step}: {v.name} {g} vs {c}")
+        for (p, _), g, c in zip(pg, gpu[n_head:], cpu[n_head:]):
+            grads[p.name].append((g, c))
             err, ok = _held(g, c, tol["grad"])
             worst["grad"] = max(worst["grad"], err)
             check(ok, f"step {step}: {p.name}@GRAD differs by {err:.3e}")
+        if resync and step + 1 < len(feeds):
+            gmid = convert.state_to_numpy(gscope)
+            hold_state(before, gmid, convert.state_to_numpy(cscope), grads)
+            convert.state_from_numpy(gmid, cscope, fluid.CPUPlace(),
+                                     program=main)
+            before, grads = gmid, {p.name: [] for p, _ in pg}
     gend, cend = convert.state_to_numpy(gscope), convert.state_to_numpy(cscope)
-    worst_m = worst_s = 0.0
-    moved = 0
-    for name, c in cend.items():
-        g = gend[name]
-        d = np.abs(g.astype(np.float64) - c)
-        if name in grads:
-            continue  # parameters: their updates, below
-        if name.endswith(("_moment1_0", "_moment2_0")):
-            err, ok = _held(g, c, tol["moment"])
-            worst_m = max(worst_m, err)
-            check(ok, f"moment {name} differs by {err:.3e}")
-        elif c.dtype.kind == "f":  # beta powers, the lr, the loss scale
-            worst_s = max(worst_s, float((d / np.abs(c)).max()))
-            check((d <= 1e-6 * np.abs(c)).all(),
-                  f"{name} differs by {d.max():.3e}")
-        else:
-            check(np.array_equal(g, c), f"{name}: {g} vs {c}")
-        moved += not np.array_equal(start[name], c)
-    worst_u, exempt, total = check_updates(start, gend, cend, grads,
-                                           SMALL_LR, *tol["update"])
-    moved += sum(not np.array_equal(start[n], cend[n]) for n in grads)
-    check(moved > 3 * len(pg), f"only {moved} state tensors moved")
-    print(f"{len(feeds)} steps, {len(pg)} gradients, {len(cend)} state "
-          f"tensors ({moved} moved); max error vs CPU: loss "
-          f"{worst['loss']:.2e} relative, @GRAD {worst['grad']:.2e} "
-          f"({tol['grad'][0]}), moments {worst_m:.2e} ({tol['moment'][0]}), "
-          f"beta powers, lr and loss scale {worst_s:.2e} relative, "
-          f"parameter updates {worst_u:.2e} of (|update| + lr) over "
-          f"{total - exempt} elements ({exempt} of {total} exempt, "
-          f"{exempt / total:.2%}, gradients apart by more than "
-          f"{tol['update'][1]:g}; cap {tol['update'][2]:.0%}) (bounds "
-          f"{tol['loss']:g}, {tol['grad'][1:]}, {tol['moment'][1:]}, 1e-6, "
-          f"{tol['update'][0]:g}); {time.perf_counter() - t0:.1f}s")
+    updates, exempt, total = hold_state(before, gend, cend, grads)
+    moved = sum(not np.array_equal(start[n], cend[n]) for n in cend)
+    # Adam: parameters, two moments and two beta powers a parameter;
+    # Momentum: parameters and velocities (and the moving statistics)
+    per = 3 if "moment" in worst else 2
+    check(moved > per * len(pg), f"only {moved} state tensors moved")
+    errs = ", ".join(f"{k} {worst[k]:.2e} ({tol[k][0]} bound {tol[k][1:]})"
+                     for k in ("grad", "moment", "velocity", "stats")
+                     if k in worst)
+    print(f"{len(feeds)} steps{', each from one state' if resync else ''}, "
+          f"{len(pg)} gradients, {len(cend)} state tensors ({moved} moved); "
+          f"max error vs CPU: loss {worst['loss']:.2e} relative (bound "
+          f"{tol['loss']:g}), {errs}; beta powers, lr and loss scale "
+          f"{worst['scalars']:.2e} relative (bound 1e-6); {updates}; "
+          f"{time.perf_counter() - t0:.1f}s")
     return exempt, total
 
 
@@ -1165,25 +1240,98 @@ KINDS = (
 )
 
 
-def profile_step(run):
+def op_ranges(events):
+    """(op_of, its state) for profile_step's `op:` record_function
+    ranges. An event inside a range on the executor's thread belongs to
+    that range's op. A `__vjp__` op's backward runs on the autograd
+    engine's thread, whose events carry no range and whose clock reads
+    later than the executor's (0.2-0.9 ms on the H100): each belongs
+    to the op whose replayed forward created its autograd node, found by
+    the node's sequence number (the evaluate_function range's
+    sequence_nr, equal to the creating forward op's; of the forward events
+    with that number, the latest: the counter moves on once it is
+    taken)."""
+    def ranged(ev):
+        while ev is not None:
+            if ev.name.startswith("op:"):
+                return ev.name[3:]
+            ev = ev.cpu_parent
+        return None
+
+    seq = {}
+    for ev in events:
+        if ev.sequence_nr is not None and ev.sequence_nr >= 0:
+            op = ranged(ev)
+            if op is not None and op.startswith("__vjp__("):
+                t = ev.time_range.start
+                if ev.sequence_nr not in seq or seq[ev.sequence_nr][0] < t:
+                    seq[ev.sequence_nr] = (t, op)
+
+    def op_of(ev):
+        op = ranged(ev)
+        while op is None and ev is not None:
+            if ev.name.startswith("autograd::engine::evaluate_function"):
+                op = seq.get(ev.sequence_nr, (0, None))[1]
+                break
+            ev = ev.cpu_parent
+        return op or "(outside the ops)"
+
+    return op_of
+
+
+def profile_step(run, kind_of=None):
     """One call of run() under torch.profiler: the card's busy time (the
     sum of its kernels' durations; one stream, so they do not overlap),
     its idle share of the wall time, busy time by kind of kernel, and the
     host-device synchronisations and copies inside the step by the
-    outermost op that issued them."""
+    outermost op that issued them. Kinds are KINDS' name fragments, or
+    kind_of(program op type, aten op, kernel name) of the ops that
+    launched each kernel: every run_op then runs inside a record_function
+    range `op:<type>` (a `__vjp__` op as `__vjp__(<forward type>)`), and
+    the busy time is also summed by program op type and, within each
+    kind, by kernel name."""
+    from paddle_tpu_torch.framework import executor
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kinds, syncs = {k: 0.0 for k, _ in KINDS}, {}
+    real = executor.run_op
+
+    def ranged(ctx, op, env):
+        key = (f"__vjp__({op.attr('fwd_type')})" if op.type == "__vjp__"
+               else op.type)
+        with torch.profiler.record_function("op:" + key):
+            return real(ctx, op, env)
+
+    if kind_of is not None:
+        executor.run_op = ranged
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        executor.run_op = real
+    kinds, syncs, by_op, names = {}, {}, {}, {}
+    if kind_of is None:
+        kinds = {k: 0.0 for k, _ in KINDS}
+    op_of = op_ranges(prof.events()) if kind_of is not None else None
     for ev in prof.events():
+        if kind_of is not None and ev.kernels \
+                and ev.device_type == torch.autograd.DeviceType.CPU:
+            op = op_of(ev)
+            for k in ev.kernels:
+                ms = k.duration / 1e3
+                kind = kind_of(op, ev.name, k.name)
+                kinds[kind] = kinds.get(kind, 0.0) + ms
+                by_op[op] = by_op.get(op, 0.0) + ms
+                key = (kind, k.name[:90])
+                names[key] = names.get(key, 0.0) + ms
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kind = next(k for k, frags in KINDS
-                        if any(f in ev.name for f in frags))
-            kinds[kind] += ev.device_time / 1e3
+            if kind_of is None:
+                kind = next(k for k, frags in KINDS
+                            if any(f in ev.name for f in frags))
+                kinds[kind] += ev.device_time / 1e3
         elif ev.name in ("cudaStreamSynchronize", "cudaMemcpyAsync"):
             top = ev
             while top.cpu_parent is not None:
@@ -1197,9 +1345,19 @@ def profile_step(run):
           f"idle share {1 - busy / wall:.3f}")
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k}: {ms:.1f} ms ({ms / busy:.1%} of busy)")
+        top = sorted(((t, n) for (kk, n), t in names.items() if kk == k),
+                     reverse=True)[:3]
+        for t, n in top:
+            print(f"    {t:.1f} ms {n}")
+    out = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+               busy_ms_by_kind=kinds, syncs=syncs)
+    if kind_of is not None:
+        top = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:12])
+        print("  card ms by op type: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in top.items()))
+        out["busy_ms_by_op"] = top
     print(f"  host-device syncs and copies inside the step: {syncs}")
-    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
-                busy_ms_by_kind=kinds, syncs=syncs)
+    return out
 
 
 def host_by_op(run):
@@ -1237,12 +1395,13 @@ def host_by_op(run):
 
 
 def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
-              after=None, warm=3, timed=5):
+              after=None, warm=3, timed=5, unit="tokens", kind_of=None):
     """warm + timed steps through Executor.run, then one under
-    torch.profiler and one with the host's time taken by op type; each
-    step must launch the kernels of `expect`. after(i, values) checks step
-    i's fetched scalars. Returns (every step's values, stats: step time
-    median [min, max] of the timed steps, tokens/s, the time until
+    torch.profiler (kinds by kind_of, see profile_step) and one with the
+    host's time taken by op type; each step must launch the kernels of
+    `expect`. after(i, values) checks step i's fetched scalars. Returns
+    (every step's values, stats: step time median [min, max] of the timed
+    steps, `unit`/s (`tokens` of them a step), the time until
     Executor.run returned, peak memory, the profile, the host's time by op
     type)."""
     steps = warm + timed + 2  # then one profiled, one timed by op type
@@ -1260,7 +1419,7 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
                             return_numpy=False)
 
         if i == steps - 2:
-            prof = profile_step(run)
+            prof = profile_step(run, kind_of)
         elif i == steps - 1:
             by_op = host_by_op(run)
         else:
@@ -1289,14 +1448,14 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
     stats = dict(step_ms=med * 1e3, step_ms_min=min(wall) * 1e3,
                  step_ms_max=max(wall) * 1e3,
                  host_ms=statistics.median(host) * 1e3,
-                 tokens_per_s=tokens / med,
                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                  final_loss=values[-1][0], steps=steps, profile=prof,
                  **by_op)
+    stats[f"{unit}_per_s"] = tokens / med
     print(f"step time (median [min, max] of {timed} after {warm} warm-up "
           f"steps): {stats['step_ms']:.1f} ms [{stats['step_ms_min']:.1f}, "
-          f"{stats['step_ms_max']:.1f}], {stats['tokens_per_s']:.0f} "
-          f"tokens/s; Executor.run returned after {stats['host_ms']:.1f} ms "
+          f"{stats['step_ms_max']:.1f}], {tokens / med:.0f} {unit}/s; "
+          f"Executor.run returned after {stats['host_ms']:.1f} ms "
           f"(host); peak memory {stats['peak_gib']:.2f} GiB")
     return values, stats
 
@@ -3552,6 +3711,210 @@ def ring_kernel_times(rb, sp_n):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# ResNet: bench.py's bench_resnet and bench_serving.py's resnet_classify
+# ---------------------------------------------------------------------------
+
+
+def build_bench_resnet(fluid, B, hw, depth, class_num, amp=False):
+    """bench.py's bench_resnet program: resnet_train_net (softmax-CE loss,
+    top-1 accuracy) with Momentum(0.1, 0.9), under bench_amp with
+    amp=True. Returns (main, startup, loss, accuracy, params_grads,
+    optimizer)."""
+    from paddle_tpu_torch.models import resnet_train_net
+    from paddle_tpu_torch.optimizer import Momentum
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        image = fluid.data("image", [B, 3, hw, hw])
+        label = fluid.data("label", [B, 1], "int64")
+        loss, acc = resnet_train_net(image, label, depth=depth,
+                                     class_num=class_num)
+        opt = Momentum(RESNET_LR, 0.9)
+        if amp:
+            opt = bench_amp(opt)
+        _, pg = opt.minimize(loss, startup)
+    return main, startup, loss, acc, pg, opt
+
+
+def resnet_batches(B, hw, class_num):
+    """bench_resnet's two batches: uniform images, int32 labels, from
+    RandomState(0)."""
+    rng = np.random.RandomState(0)
+    return [{"image": rng.rand(B, 3, hw, hw).astype("float32"),
+             "label": rng.randint(0, class_num, (B, 1)).astype("int32")}
+            for _ in range(2)]
+
+
+def resnet_train_small(fluid):
+    """Two Momentum(0.1, 0.9) steps of bench_resnet's program at its CPU
+    size with 10 classes, on the card and on the CPU from one state."""
+    print("== ResNet training, reduced size: bench_resnet's program at "
+          "ResNet-18, 3x32x32, B=4, 10 classes, Momentum(0.1, 0.9), fp32; "
+          "card vs CPUPlace()")
+    main, startup, loss, acc, pg, _ = build_bench_resnet(fluid, 4, 32, 18,
+                                                         10)
+    card_vs_cpu(fluid, main, startup, loss, pg, resnet_batches(4, 32, 10),
+                RESNET_TOL, extra=(acc,), resync=True)
+
+
+def resnet_kind(op, aten, kernel):
+    """The kind of a kernel of the ResNet step, by the program op and the
+    aten op that launched it."""
+    if op in ("cast", "__vjp__(cast)"):
+        return "casts"
+    if op == "momentum":
+        return "momentum"
+    if op in ("conv2d", "__vjp__(conv2d)"):
+        if "backward" in aten:
+            return "conv backward (cuDNN)"
+        if "conv" in aten:
+            return ("conv forward (cuDNN)" if op == "conv2d"
+                    else "conv forward replayed by __vjp__(conv2d)")
+        return "conv other (zeros, copies)"
+    if op.removeprefix("__vjp__(").rstrip(")") in (
+            "batch_norm", "relu", "elementwise_add", "sum", "assign"):
+        return "batch norm, relu, residual adds, grad sums"
+    return "pool, fc, loss, accuracy and other"
+
+
+def resnet_train_full(fluid, kc):
+    """bench_resnet's training step on an accelerator: ResNet-50, B=128,
+    3x224x224, 1000 classes, Momentum(0.1, 0.9) under bench_amp. No
+    kernel of ours is on this path: every counter stays 0."""
+    B, HW, DEPTH, CLASSES = 128, 224, 50, 1000
+    print(f"== ResNet training path: bench_resnet at ResNet-50, B={B}, "
+          f"3x{HW}x{HW}, {CLASSES} classes, Momentum(0.1, 0.9), AMP (bf16, "
+          "bench.py's _amp)")
+    t0 = time.perf_counter()
+    main, startup, loss, acc, pg, opt = build_bench_resnet(
+        fluid, B, HW, DEPTH, CLASSES, amp=True)
+    ops = main.global_block.ops
+    print(f"{len(ops)} ops of {len({op.type for op in ops})} types, "
+          f"{sum(op.type == 'conv2d' for op in ops)} convolutions, "
+          f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in resnet_batches(B, HW, CLASSES)]
+    watch = ("conv2d_w_0", "conv2d_w_0_velocity_0", "batch_norm_w_52",
+             "fc_w_0", "fc_w_0_velocity_0", "bn_mean_0", "bn_variance_52")
+    snap = {n: scope.find_var(n).clone() for n in watch}
+
+    def after(i, values):
+        if i < 2:  # parameters, velocities and moving statistics move
+            moved = [n for n in watch
+                     if not torch.equal(scope.find_var(n), snap[n])]
+            check(len(moved) == len(watch), f"step {i} moved only {moved}")
+            snap.update((n, scope.find_var(n).clone()) for n in watch)
+
+    _, stats = run_steps(exe, main, scope, batches, [loss, acc],
+                         ("loss", "accuracy"), kc, dict.fromkeys(kc, 0), B,
+                         after, unit="images", kind_of=resnet_kind)
+    counts = read_counts(kc)
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+    amp_checks(main, opt, scope, stats["steps"],
+               {"conv2d": ("Input", "Filter"), "mul": ("X", "Y")})
+    bn_in = {main.global_block.var(op.inputs["X"][0]).dtype
+             for op in ops if op.type == "batch_norm"}
+    check(bn_in == {"float32"}, f"batch_norm reads {bn_in}")
+    stats["ops"] = len(ops)
+    print("resnet amp training: " + json.dumps(stats))
+    del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+
+
+def build_resnet_classifier(fluid, layers):
+    """bench_serving.py's resnet classifier (_build_classifier_endpoint):
+    ResNet-18 on [-1, 3, 32, 32], softmax, Adam(1e-3).minimize appended,
+    frozen to the probabilities. Returns (startup, frozen)."""
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.serving import freeze_program
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.data("image", [-1, 3, 32, 32], "float32")
+        logits = resnet(img, class_num=10, depth=18, is_test=False)
+        prob = layers.softmax(logits)
+        lab = fluid.data("lab", [-1, 1], "int64")
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, lab))
+        Adam(1e-3).minimize(loss, startup)
+    return startup, freeze_program(main, [prob], feed_names=("image",))
+
+
+def resnet_serving(fluid, layers, kc):
+    """The frozen ResNet-18 classifier behind serving.Server at buckets
+    (1, 2, 4): answers against a direct run on the card and the port's CPU
+    run, no kernel of ours launched; then the server's times."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.serving import EndpointConfig, Server
+
+    print("== ResNet serving path: bench_serving's resnet classifier "
+          f"(ResNet-18, 3x32x32, 10 classes) frozen, serving.Server at "
+          f"buckets {RESNET_BUCKETS}")
+    startup, frozen = build_resnet_classifier(fluid, layers)
+    ops = frozen.program.global_block.ops
+    bns = [op for op in ops if op.type == "batch_norm"]
+    check(len(bns) == 20 and all(op.attr("is_test") for op in bns),
+          "a frozen batch_norm is not in test mode")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    groups = (4, 3, 1, 2, 4, 1)
+    samples = [{"image": rng.randn(3, 32, 32).astype(np.float32)}
+               for _ in range(sum(groups))]
+    srv = Server()
+    try:
+        ep = srv.add_endpoint(
+            "resnet", frozen=frozen, executor=exe, scope=scope,
+            config=EndpointConfig(buckets=RESNET_BUCKETS, max_wait_ms=20.0))
+        srv.warmup()
+        torch.cuda.synchronize()
+        reset_counts(kc)
+        served, i = [], 0
+        for g in groups:
+            futs = [srv.submit("resnet", samples[j]) for j in range(i, i + g)]
+            served += [f.result(timeout=300)[0] for f in futs]
+            i += g
+        counts = read_counts(kc)
+        batches = list(ep.batches)
+    finally:
+        check(srv.close(timeout=300), "server did not drain")
+    served = np.stack(served)
+    print(f"{len(ops)} frozen ops; served {len(served)} requests in "
+          f"{len(batches)} batches (bucket, rows): {batches}; launches of "
+          f"our kernels: {sum(counts.values())}")
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+    check(served.shape == (len(samples), 10) and np.isfinite(served).all(),
+          f"served probabilities: shape {served.shape} or not finite")
+    direct = np.concatenate([
+        exe.run(frozen.program, feed={"image": s["image"][None]},
+                fetch_list=list(frozen.fetch_names), scope=scope)[0]
+        for s in samples])
+    d_err = np.abs(served - direct).max()
+    cpu_scope = fluid.Scope()
+    convert.state_from_numpy(convert.state_to_numpy(scope), cpu_scope,
+                             fluid.CPUPlace())
+    cpu, = fluid.Executor(fluid.CPUPlace()).run(
+        frozen.program, feed={"image": np.stack([s["image"]
+                                                 for s in samples])},
+        fetch_list=list(frozen.fetch_names), scope=cpu_scope)
+    c_err = np.abs(served - cpu).max()
+    print(f"served vs direct run on the card, one sample each: "
+          f"max_abs_err={d_err:.3e}; vs the port on CPUPlace(): "
+          f"max_abs_err={c_err:.3e} (tol {PROB_ATOL:g})")
+    check(d_err <= PROB_ATOL, f"served and direct answers differ: {d_err}")
+    check(c_err <= PROB_ATOL, f"card and CPU answers differ: {c_err}")
+    check(np.abs(served - served.mean(0)).max() > 1e-6,
+          "every request got the same answer")
+    serve_times(frozen, exe, scope, samples, RESNET_BUCKETS, "resnet")
+    del exe, scope
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3607,6 +3970,9 @@ def main():
     mha_train_small(fluid, layers)
     mha_train_n, mha_pred_n, _ = mha_path(fluid, layers, kc)
     sp_n = sp_path(fluid, layers, kc)
+    resnet_train_small(fluid)
+    resnet_train_full(fluid, kc)
+    resnet_serving(fluid, layers, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n, amp_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n,

@@ -9,17 +9,23 @@ from .attention import (  # noqa: F401
     ulysses_attention,
 )
 from .control_flow import increment  # noqa: F401
+from .functional_ext import pad2d, space_to_depth  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     linear_lr_warmup,
     polynomial_decay,
 )
 from .nn import (  # noqa: F401
+    accuracy,
+    adaptive_pool2d,
+    batch_norm,
+    conv2d,
     data,
     dropout,
     embedding,
     fc,
     layer_norm,
     mean,
+    pool2d,
     softmax_with_cross_entropy,
 )
 from .tensor import (  # noqa: F401
@@ -38,7 +44,9 @@ from .tensor import (  # noqa: F401
     not_equal,
     pow,
     range,
+    reduce_mean,
     reduce_sum,
+    relu,
     reshape,
     scale,
     slice,

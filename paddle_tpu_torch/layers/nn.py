@@ -1,15 +1,17 @@
-"""Functional layers of the serving and training slices (counterpart of
+"""Functional layers of the port's slices (counterpart of
 paddle_tpu/layers/nn.py; reference python/paddle/fluid/layers/nn.py):
-data, fc, embedding, layer_norm, dropout, softmax_with_cross_entropy,
-mean."""
+data, fc, embedding, conv2d, pool2d, adaptive_pool2d, batch_norm,
+layer_norm, dropout, softmax_with_cross_entropy, mean, accuracy."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..framework import unique_name
 from ..framework.program import default_main_program
-from ..initializer import Constant, Xavier
-from .helper import LayerHelper
+from ..initializer import Constant, Normal, Xavier
+from ..param_attr import ParamAttr
+from .helper import LayerHelper, main_block
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=False):
@@ -67,6 +69,119 @@ def embedding(input, size, is_sparse=False, padding_idx=None, param_attr=None,
             if (input.shape and input.shape[-1] != 1) else "lookup_table"
         ),
     )
+
+
+def _two(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 2
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None,
+           data_format="NCHW"):
+    """NCHW convolution; the filter defaults to Normal(0, sqrt(2 /
+    fan_in)), fan_in = kh * kw * input channels."""
+    helper = LayerHelper("conv2d", name=name)
+    k = _two(filter_size)
+    groups = groups or 1
+    num_channels = input.shape[1]
+    w_shape = [num_filters, num_channels // groups, k[0], k[1]]
+    std = (2.0 / (k[0] * k[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        param_attr, w_shape, input.dtype, default_initializer=Normal(0.0, std)
+    )
+    attrs = {
+        "strides": _two(stride),
+        "paddings": _two(padding),
+        "dilations": _two(dilation),
+        "groups": groups,
+        "padding_algorithm": "EXPLICIT",
+    }
+    out = helper.create_and_append(
+        {"Input": [input], "Filter": [w]}, attrs, out_slots=("Output",)
+    )
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            bias_attr, [num_filters], input.dtype, is_bias=True
+        )
+        out = helper.create_and_append(
+            {"X": [out], "Y": [b]}, {"axis": 1}, op_type="elementwise_add"
+        )
+    return _apply_act(out, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    attrs = {
+        "ksize": _two(pool_size),
+        "pooling_type": pool_type,
+        "strides": _two(pool_stride),
+        "paddings": _two(pool_padding),
+        "global_pooling": global_pooling,
+        "exclusive": exclusive,
+    }
+    return helper.create_and_append({"X": [input]}, attrs)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    # pool_type defaults to max, as fluid's adaptive_pool2d
+    helper = LayerHelper("pool2d", name=name)
+    attrs = {
+        "ksize": _two(pool_size),
+        "pooling_type": pool_type,
+        "adaptive": True,
+    }
+    return helper.create_and_append({"X": [input]}, attrs)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW", name=None,
+               use_global_stats=False, moving_mean_name=None,
+               moving_variance_name=None):
+    """Scale and bias are trainable parameters; the running mean and
+    variance are untrainable ones (`bn_mean_N`, `bn_variance_N`, or the
+    given names, so a separately built inference program shares them),
+    which the op's MeanOut and VarianceOut overwrite each training run."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = input.dtype if input.dtype != "float16" else "float32"
+    scale = helper.create_parameter(
+        param_attr, [c], dtype, default_initializer=Constant(1.0)
+    )
+    bias = helper.create_parameter(bias_attr, [c], dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name or unique_name.generate("bn_mean"),
+                  trainable=False, initializer=Constant(0.0)),
+        [c], dtype,
+    )
+    var = helper.create_parameter(
+        ParamAttr(
+            name=moving_variance_name or unique_name.generate("bn_variance"),
+            trainable=False, initializer=Constant(1.0)),
+        [c], dtype,
+    )
+    mean.stop_gradient = True
+    var.stop_gradient = True
+
+    blk = main_block()
+    y = blk.create_var(name=unique_name.generate("batch_norm.y"),
+                       shape=input.shape, dtype=input.dtype)
+    saved_mean = blk.create_var(name=unique_name.generate("batch_norm.sm"),
+                                shape=[c], dtype=dtype, stop_gradient=True)
+    saved_var = blk.create_var(name=unique_name.generate("batch_norm.sv"),
+                               shape=[c], dtype=dtype, stop_gradient=True)
+    blk.append_op(
+        "batch_norm",
+        {"X": [input.name], "Scale": [scale.name], "Bias": [bias.name],
+         "Mean": [mean.name], "Variance": [var.name]},
+        {"Y": [y.name], "MeanOut": [mean.name], "VarianceOut": [var.name],
+         "SavedMean": [saved_mean.name], "SavedVariance": [saved_var.name]},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout, "use_global_stats": use_global_stats},
+    )
+    return _apply_act(y, act)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
@@ -128,3 +243,21 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     return helper.create_and_append({"X": [x]}, {})
+
+
+def accuracy(input, label, k=1):
+    """Top-k accuracy of `input` (scores) against `label`: a top_k op and
+    an accuracy op, neither differentiable."""
+    helper = LayerHelper("accuracy")
+    topk_out, topk_idx = helper.create_and_append(
+        {"X": [input]}, {"k": k}, op_type="top_k", out_slots=("Out", "Indices"),
+        stop_gradient=True,
+    )
+    acc, _, _ = helper.create_and_append(
+        {"Out": [topk_out], "Indices": [topk_idx], "Label": [label]},
+        {},
+        op_type="accuracy",
+        out_slots=("Accuracy", "Correct", "Total"),
+        stop_gradient=True,
+    )
+    return acc

@@ -80,13 +80,21 @@ def gather(input, index, overwrite=True):
     return _simple("gather", {"X": [input], "Index": [index]}, {})
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
+def _reduce(op_type, input, dim, keep_dim):
     attrs = {
         "dim": [dim] if isinstance(dim, int) else (list(dim) if dim else [0]),
         "keep_dim": keep_dim,
         "reduce_all": dim is None,
     }
-    return _simple("reduce_sum", {"X": [input]}, attrs)
+    return _simple(op_type, {"X": [input]}, attrs)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim)
 
 
 def square(x, name=None):
@@ -117,6 +125,10 @@ less_than = _binary("less_than")
 
 def gelu(x, name=None, **attrs):
     return _simple("gelu", {"X": [x]}, attrs)
+
+
+def relu(x, name=None, **attrs):
+    return _simple("relu", {"X": [x]}, attrs)
 
 
 def tril(x, diagonal=0, name=None):

@@ -1,0 +1,6 @@
+"""Model builders of the port's slices (counterpart of
+paddle_tpu/models/): each appends its ops into the current default
+program, fluid style. The BERT and GPT builders are imported from their
+modules (models.bert, models.gpt)."""
+
+from .resnet import resnet, resnet_train_net  # noqa: F401

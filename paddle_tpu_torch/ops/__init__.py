@@ -7,6 +7,8 @@ from . import (  # noqa: F401
     fused,
     kv_cache,
     math,
+    math_ext,
+    metrics,
     nn,
     optimizer_ops,
     random,

@@ -1,4 +1,4 @@
-"""Activation ops of the serving slice (counterpart of
+"""Activation ops of the port's slices (counterpart of
 paddle_tpu/ops/activation.py; reference operators/activation_op.cc)."""
 
 from __future__ import annotations
@@ -7,6 +7,11 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.registry import register_op
+
+
+@register_op("relu", inputs=["X"], outputs=["Out"])
+def _relu(ctx, op, ins):
+    return {"Out": [torch.relu(ins["X"][0])]}
 
 
 @register_op("gelu", inputs=["X"], outputs=["Out"])

@@ -1,6 +1,7 @@
-"""Dense math ops of the serving and training slices (counterpart of
-paddle_tpu/ops/math.py; reference elementwise ops, square_op, scale_op.cc, mul_op.cc,
-matmul_op.cc, mean_op.cc, reduce_sum_op.cc, sum_op.cc, compare_op.cc)."""
+"""Dense math ops of the port's slices (counterpart of
+paddle_tpu/ops/math.py; reference elementwise ops, square_op, scale_op.cc,
+mul_op.cc, matmul_op.cc, mean_op.cc, reduce_sum_op.cc, reduce_mean_op.cc,
+sum_op.cc, compare_op.cc)."""
 
 from __future__ import annotations
 
@@ -42,18 +43,25 @@ def _pow(ctx, op, ins):
     return {"Out": [torch.pow(ins["X"][0], op.attr("factor", 1.0))]}
 
 
-@register_op("reduce_sum", inputs=["X"], outputs=["Out"])
-def _reduce_sum(ctx, op, ins):
-    x = ins["X"][0]
-    keep = op.attr("keep_dim", False)
-    if op.attr("reduce_all", False):
-        out = x.sum()
-        if keep:
-            out = out.reshape((1,) * x.dim())
-    else:
-        dim = tuple(d % x.dim() for d in op.attr("dim", [0]))
-        out = x.sum(dim=dim, keepdim=keep)
-    return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
+def _register_reduce(op_type, fn):
+    @register_op(op_type, inputs=["X"], outputs=["Out"])
+    def emit(ctx, op, ins):
+        x = ins["X"][0]
+        keep = op.attr("keep_dim", False)
+        if op.attr("reduce_all", False):
+            out = fn(x)
+            if keep:
+                out = out.reshape((1,) * x.dim())
+        else:
+            dim = tuple(d % x.dim() for d in op.attr("dim", [0]))
+            out = fn(x, dim=dim, keepdim=keep)
+        return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
+
+    return emit
+
+
+_register_reduce("reduce_sum", torch.sum)
+_register_reduce("reduce_mean", torch.mean)
 
 
 @register_op("mean", inputs=["X"], outputs=["Out"])

@@ -1,12 +1,20 @@
 """NN ops of the port's slices (counterpart of paddle_tpu/ops/nn.py;
-reference layer_norm_op.cc, lookup_table_op.cc, lookup_table_v2_op.cc,
-dropout_op.cc, softmax_with_cross_entropy_op.cc)."""
+reference conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
+lookup_table_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
+softmax_with_cross_entropy_op.cc, pad2d_op.cc).
+
+conv2d runs through F.conv2d (cuDNN on the card), as the JAX package
+leaves its convolutions to XLA. batch_norm is the JAX package's formula,
+not F.batch_norm's: one-pass fp32 statistics, the biased variance in the
+running update, and the normalisation as one per-channel affine in the
+input's dtype."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..errors import UnimplementedError
 from ..flags import flag
@@ -15,6 +23,137 @@ from ..framework.backward import _ensure_var
 from ..framework.program import grad_var_name
 from ..framework.registry import get_op_def, register_op
 from ..kernels import layer_norm as lnk
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v, v]
+
+
+def _conv_pads(paddings, algorithm, ksize, strides, dilations, in_hw):
+    """[(top, bottom), (left, right)] of a convolution: fluid's 2- or
+    4-element paddings, or lax's SAME (the output is ceil(in / stride),
+    the odd pixel of padding at the end) and VALID."""
+    if algorithm == "VALID":
+        return [(0, 0), (0, 0)]
+    if algorithm == "SAME":
+        pads = []
+        for n, k, s, d in zip(in_hw, ksize, strides, dilations):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    p = _pair(paddings)
+    if len(p) == 2:
+        return [(p[0], p[0]), (p[1], p[1])]
+    # [top, bottom, left, right]
+    return [(p[0], p[1]), (p[2], p[3])]
+
+
+@register_op("conv2d", inputs=["Input", "Filter"], outputs=["Output"])
+def _conv2d(ctx, op, ins):
+    x, w = ins["Input"][0], ins["Filter"][0]
+    strides = _pair(op.attr("strides", [1, 1]))
+    dilations = _pair(op.attr("dilations", [1, 1]))
+    (top, bottom), (left, right) = _conv_pads(
+        op.attr("paddings", [0, 0]),
+        op.attr("padding_algorithm", "EXPLICIT"),
+        w.shape[2:], strides, dilations, x.shape[2:],
+    )
+    if top == bottom and left == right:
+        padding = (top, left)
+    else:
+        # F.conv2d pads symmetrically only
+        x = F.pad(x, (left, right, top, bottom))
+        padding = 0
+    out = F.conv2d(x, w, stride=strides, padding=padding,
+                   dilation=dilations, groups=op.attr("groups", 1) or 1)
+    return {"Output": [out]}
+
+
+@register_op("pool2d", inputs=["X"], outputs=["Out"])
+def _pool2d(ctx, op, ins):
+    x = ins["X"][0]
+    ptype = op.attr("pooling_type", "max")
+    if op.attr("global_pooling", False) or op.attr("adaptive", False) \
+            and op.attr("ksize") == [1, 1]:
+        out = (x.amax(dim=(2, 3), keepdim=True) if ptype == "max"
+               else x.mean(dim=(2, 3), keepdim=True))
+        return {"Out": [out]}
+    if op.attr("adaptive", False):
+        oh, ow = _pair(op.attr("ksize"))
+        n, c, h, wd = x.shape
+        xr = x.reshape(n, c, oh, h // oh, ow, wd // ow)
+        out = (xr.amax(dim=(3, 5)) if ptype == "max"
+               else xr.mean(dim=(3, 5)))
+        return {"Out": [out]}
+    ksize = _pair(op.attr("ksize"))
+    strides = _pair(op.attr("strides", [1, 1]))
+    p = _pair(op.attr("paddings", [0, 0]))
+    pads = (p[1], p[1], p[0], p[0])
+    if ptype == "max":
+        # padded with -inf (the JAX package's reduce_window init) before
+        # the pooling: F.max_pool2d refuses a pad above half the window
+        low = (-math.inf if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        out = F.max_pool2d(F.pad(x, pads, value=low), ksize, strides)
+    else:
+        # window sums over zero padding, divided by the window's size or,
+        # exclusive, by its count of real pixels
+        summed = F.avg_pool2d(F.pad(x, pads), ksize, strides,
+                              divisor_override=1)
+        if op.attr("exclusive", True) and (p[0] or p[1]):
+            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+            counts = F.avg_pool2d(F.pad(ones, pads), ksize, strides,
+                                  divisor_override=1)
+            out = summed / counts
+        else:
+            out = summed / (ksize[0] * ksize[1])
+    return {"Out": [out]}
+
+
+@register_op(
+    "batch_norm",
+    inputs=["X", "Scale", "Bias", "Mean", "Variance"],
+    outputs=["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+    mutates=(("MeanOut", "Mean"), ("VarianceOut", "Variance")),
+)
+def _batch_norm(ctx, op, ins):
+    x, scale, bias, mean, var = (ins[k][0] for k in
+                                 ("X", "Scale", "Bias", "Mean", "Variance"))
+    eps = op.attr("epsilon", 1e-5)
+    momentum = op.attr("momentum", 0.9)
+    channel = 1 if op.attr("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != channel)
+    bshape = [1] * x.dim()
+    bshape[channel] = x.shape[channel]
+    if op.attr("is_test", False) or op.attr("use_global_stats", False):
+        use_mean, use_var = mean, var
+        mean_out, var_out = mean, var
+    else:
+        # one pass, E[x^2] - E[x]^2 accumulated in fp32 and clamped at 0;
+        # the running statistics take the biased batch variance. The
+        # squares are products: torch.square's backward (pow's) copies
+        # its exponent to the card, a synchronisation each
+        use_mean = torch.mean(x, dim=axes, dtype=torch.float32)
+        xf = x.float()
+        m2 = torch.mean(xf * xf, dim=axes)
+        use_var = torch.clamp(m2 - use_mean * use_mean, min=0.0)
+        mean_out = mean * momentum + use_mean.to(mean.dtype) * (1 - momentum)
+        var_out = var * momentum + use_var.to(var.dtype) * (1 - momentum)
+    # y = x * a + b with a, b per channel from fp32, applied in x's dtype
+    inv = torch.rsqrt(use_var.float() + eps)
+    a = scale.float() * inv
+    b = bias.float() - use_mean.float() * a
+    y = x * a.to(x.dtype).reshape(bshape) + b.to(x.dtype).reshape(bshape)
+    return {
+        "Y": [y],
+        "MeanOut": [mean_out],
+        "VarianceOut": [var_out],
+        "SavedMean": [use_mean],
+        "SavedVariance": [use_var],
+    }
 
 
 def _ln_use_kernel(x, begin):
@@ -220,3 +359,16 @@ def _softmax_with_cross_entropy(ctx, op, ins):
     loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
     softmax = torch.exp(lf - lse).to(logits.dtype)
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("pad2d", inputs=["X"], outputs=["Out"])
+def _pad2d(ctx, op, ins):
+    p = op.attr("paddings")  # [top, bottom, left, right]
+    mode = op.attr("mode", "constant")
+    pads = (p[2], p[3], p[0], p[1])
+    if mode == "constant":
+        out = F.pad(ins["X"][0], pads, value=op.attr("pad_value", 0.0))
+    else:
+        out = F.pad(ins["X"][0], pads,
+                    mode={"reflect": "reflect", "edge": "replicate"}[mode])
+    return {"Out": [out]}

@@ -1,5 +1,5 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py;
-reference operators/optimizers/adam_op.cc, sgd_op.cc).
+reference operators/optimizers/adam_op.cc, sgd_op.cc, momentum_op.cc).
 
 ParamOut and the moment outputs reuse their inputs' variable names, so
 the executor writes the new values back to the scope. Every update op is
@@ -56,3 +56,21 @@ def _sgd(ctx, op, ins):
     p, g = ins["Param"][0], ins["Grad"][0]
     lr = ins["LearningRate"][0].reshape(())
     return {"ParamOut": [(p - lr * g.to(p.dtype)).to(p.dtype)]}
+
+
+@register_op(
+    "momentum",
+    inputs=["Param", "Grad", "Velocity", "LearningRate"],
+    outputs=["ParamOut", "VelocityOut"],
+    differentiable=False,
+)
+def _momentum(ctx, op, ins):
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    mu = op.attr("mu", 0.9)
+    lr = ins["LearningRate"][0].reshape(())
+    v_out = mu * v + g
+    if op.attr("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out.to(p.dtype)], "VelocityOut": [v_out]}

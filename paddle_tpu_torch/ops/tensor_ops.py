@@ -1,7 +1,7 @@
 """Tensor ops of the serving and training slices (counterpart of
 paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, transpose_op.cc,
 slice_op.cc, fill_constant_op.cc, range_op.cc, cast_op.cc, assign_op.cc,
-gather_op.cc, increment_op.cc, tril_triu_op.cc)."""
+gather_op.cc, increment_op.cc, tril_triu_op.cc, top_k_op.cc)."""
 
 from __future__ import annotations
 
@@ -106,3 +106,14 @@ def _tril_triu(ctx, op, ins):
     """Lower/upper triangle (reference operators/tril_triu_op.cc)."""
     fn = torch.tril if op.attr("lower", True) else torch.triu
     return {"Out": [fn(ins["X"][0], int(op.attr("diagonal", 0)))]}
+
+
+@register_op("top_k", inputs=["X"], outputs=["Out", "Indices"],
+             differentiable=False)
+def _top_k(ctx, op, ins):
+    """The k largest along the last axis, largest first; of equal values
+    the lower index first, as lax.top_k orders them (a stable sort, where
+    torch.topk leaves the order of ties open)."""
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
+    k = op.attr("k", 1)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}

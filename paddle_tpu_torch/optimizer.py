@@ -1,11 +1,11 @@
 """Op-emitting optimizers, fluid-style (counterpart of
 paddle_tpu/optimizer.py; reference python/paddle/fluid/optimizer.py:
-Optimizer.minimize :796, apply_gradients :683, Adam :1716).
+Optimizer.minimize :796, apply_gradients :683, Momentum :936, Adam :1716).
 
 minimize() = append_backward + one update op per parameter into the main
 program; the learning rate is a [1] persistable (or a schedule's
 Variable) and each accumulator a persistable created in main and startup.
-Adam and SGD are in the port's slices; gradient clipping and
+SGD, Momentum and Adam are in the port's slices; gradient clipping and
 regularization come with a later one.
 """
 
@@ -121,6 +121,33 @@ class SGDOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        lr = self._create_lr(block)
+        return block.append_op(
+            "momentum",
+            {
+                "Param": [p.name],
+                "Grad": [g.name],
+                "Velocity": [v.name],
+                "LearningRate": [lr.name],
+            },
+            {"ParamOut": [p.name], "VelocityOut": [v.name]},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -165,4 +192,5 @@ class AdamOptimizer(Optimizer):
 
 
 Adam = AdamOptimizer
+Momentum = MomentumOptimizer
 SGD = SGDOptimizer

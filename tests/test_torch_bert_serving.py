@@ -225,6 +225,9 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.parallel.transpiler
         import paddle_tpu_torch.parallel.ring_attention
         import paddle_tpu_torch.ops.collective
+        import paddle_tpu_torch.models, paddle_tpu_torch.models.resnet
+        import paddle_tpu_torch.ops.metrics, paddle_tpu_torch.ops.math_ext
+        import paddle_tpu_torch.layers.functional_ext
         sys.path.insert(0, "tests")
         import torch_sp_worker  # the multi-rank tests' rank processes
         bad = [m for m in sys.modules
