@@ -9,6 +9,7 @@ from .attention import (  # noqa: F401
     ulysses_attention,
 )
 from .control_flow import increment  # noqa: F401
+from .detection import multiclass_nms, yolo_box, yolov3_loss  # noqa: F401
 from .functional_ext import pad2d, space_to_depth  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     linear_lr_warmup,
@@ -26,10 +27,12 @@ from .nn import (  # noqa: F401
     layer_norm,
     mean,
     pool2d,
+    resize_nearest,
     softmax_with_cross_entropy,
 )
 from .tensor import (  # noqa: F401
     cast,
+    concat,
     elementwise_add,
     elementwise_div,
     elementwise_max,
@@ -39,6 +42,7 @@ from .tensor import (  # noqa: F401
     fill_constant,
     gather,
     gelu,
+    leaky_relu,
     less_than,
     matmul,
     not_equal,

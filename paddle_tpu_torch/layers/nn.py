@@ -1,7 +1,8 @@
 """Functional layers of the port's slices (counterpart of
 paddle_tpu/layers/nn.py; reference python/paddle/fluid/layers/nn.py):
 data, fc, embedding, conv2d, pool2d, adaptive_pool2d, batch_norm,
-layer_norm, dropout, softmax_with_cross_entropy, mean, accuracy."""
+layer_norm, dropout, softmax_with_cross_entropy, mean, accuracy,
+resize_nearest."""
 
 from __future__ import annotations
 
@@ -261,3 +262,23 @@ def accuracy(input, label, k=1):
         stop_gradient=True,
     )
     return acc
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    """Nearest-neighbour resize (reference layers/nn.py resize_nearest ->
+    nearest_interp_op.cc); out_shape [H, W] or a scale factor."""
+    helper = LayerHelper("nearest_interp", name=name)
+    attrs = _resize_attrs(out_shape, scale)
+    return helper.create_and_append({"X": [input]}, attrs,
+                                    op_type="nearest_interp")
+
+
+def _resize_attrs(out_shape, scale):
+    if out_shape is None and scale is None:
+        raise ValueError("one of out_shape and scale must be set")
+    attrs = {}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    return attrs

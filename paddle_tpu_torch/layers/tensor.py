@@ -76,6 +76,10 @@ def cast(x, dtype):
     return _simple("cast", {"X": [x]}, {"out_dtype": dtype})
 
 
+def concat(input, axis=0, name=None):
+    return _simple("concat", {"X": list(input)}, {"axis": axis})
+
+
 def gather(input, index, overwrite=True):
     return _simple("gather", {"X": [input], "Index": [index]}, {})
 
@@ -129,6 +133,11 @@ def gelu(x, name=None, **attrs):
 
 def relu(x, name=None, **attrs):
     return _simple("relu", {"X": [x]}, attrs)
+
+
+def leaky_relu(x, name=None, **attrs):
+    """alpha defaults to 0.02 in the op, as in the JAX package."""
+    return _simple("leaky_relu", {"X": [x]}, attrs)
 
 
 def tril(x, diagonal=0, name=None):

@@ -4,3 +4,4 @@ program, fluid style. The BERT and GPT builders are imported from their
 modules (models.bert, models.gpt)."""
 
 from .resnet import resnet, resnet_train_net  # noqa: F401
+from .yolov3 import YoloConfig, yolov3_infer, yolov3_train  # noqa: F401

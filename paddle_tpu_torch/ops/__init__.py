@@ -4,6 +4,7 @@ from . import (  # noqa: F401
     activation,
     amp_ops,
     collective,
+    detection,
     fused,
     kv_cache,
     math,

@@ -1,9 +1,11 @@
 """Shared emitter helpers (counterpart of paddle_tpu/ops/_helpers.py):
-fluid's elementwise `axis` broadcast rule and per-op random streams."""
+fluid's elementwise `axis` broadcast rule, per-op random streams and the
+stable sigmoid cross-entropy."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..framework.registry import BATCH_SENTINEL
 
@@ -43,3 +45,10 @@ def shape_attr(ctx, op):
             "concrete shape"
         )
     return shape
+
+
+def stable_sigmoid_ce(x, z):
+    """Numerically stable sigmoid cross-entropy from logits:
+    max(x, 0) - x z + log(1 + exp(-|x|)) (yolov3_loss). torch.maximum, as
+    jnp.maximum, splits the gradient at x = 0 evenly."""
+    return torch.maximum(x, x.new_zeros(())) - x * z + F.softplus(-x.abs())

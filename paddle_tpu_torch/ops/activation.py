@@ -14,6 +14,13 @@ def _relu(ctx, op, ins):
     return {"Out": [torch.relu(ins["X"][0])]}
 
 
+@register_op("leaky_relu", inputs=["X"], outputs=["Out"])
+def _leaky_relu(ctx, op, ins):
+    # alpha defaults to the JAX package's 0.02 (torch's is 0.01); the
+    # gradient at exactly 0 is alpha here, 1 in jax.nn.leaky_relu
+    return {"Out": [F.leaky_relu(ins["X"][0], op.attr("alpha", 0.02))]}
+
+
 @register_op("gelu", inputs=["X"], outputs=["Out"])
 def _gelu(ctx, op, ins):
     approximate = "tanh" if op.attr("approximate", False) else "none"

@@ -1,7 +1,7 @@
 """NN ops of the port's slices (counterpart of paddle_tpu/ops/nn.py;
 reference conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
 lookup_table_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
-softmax_with_cross_entropy_op.cc, pad2d_op.cc).
+softmax_with_cross_entropy_op.cc, pad2d_op.cc, interpolate_op.cc).
 
 conv2d runs through F.conv2d (cuDNN on the card), as the JAX package
 leaves its convolutions to XLA. batch_norm is the JAX package's formula,
@@ -372,3 +372,20 @@ def _pad2d(ctx, op, ins):
         out = F.pad(ins["X"][0], pads,
                     mode={"reflect": "reflect", "edge": "replicate"}[mode])
     return {"Out": [out]}
+
+
+@register_op("nearest_interp", inputs=["X"], outputs=["Out"])
+def _nearest_interp(ctx, op, ins):
+    x = ins["X"][0]
+    n, c, h, w = x.shape
+    oh = op.attr("out_h", 0) or int(h * op.attr("scale", 1.0))
+    ow = op.attr("out_w", 0) or int(w * op.attr("scale", 1.0))
+    if oh % h == 0 and ow % w == 0 and not op.attr("align_corners", False):
+        # an integer upscale (the FPN neck's x2): a broadcast, whose
+        # gradient is a block sum, as the JAX package's
+        fh, fw = oh // h, ow // w
+        out = x[:, :, :, None, :, None].expand(n, c, h, fh, w, fw)
+        return {"Out": [out.reshape(n, c, oh, ow)]}
+    # jax.image.resize's nearest: half-pixel centres, floor((o + 0.5) *
+    # in / out), which is nearest-exact (mode="nearest" drops the 0.5)
+    return {"Out": [F.interpolate(x, size=(oh, ow), mode="nearest-exact")]}

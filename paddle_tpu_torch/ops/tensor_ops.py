@@ -1,7 +1,7 @@
 """Tensor ops of the serving and training slices (counterpart of
 paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, transpose_op.cc,
-slice_op.cc, fill_constant_op.cc, range_op.cc, cast_op.cc, assign_op.cc,
-gather_op.cc, increment_op.cc, tril_triu_op.cc, top_k_op.cc)."""
+slice_op.cc, concat_op.cc, fill_constant_op.cc, range_op.cc, cast_op.cc,
+assign_op.cc, gather_op.cc, increment_op.cc, tril_triu_op.cc, top_k_op.cc)."""
 
 from __future__ import annotations
 
@@ -44,6 +44,12 @@ def _slice(ctx, op, ins):
     for a in sorted(op.attr("decrease_axis", []), reverse=True):
         out = out.squeeze(a)
     return {"Out": [out]}
+
+
+@register_op("concat", inputs=["X"], outputs=["Out"])
+def _concat(ctx, op, ins):
+    xs = [x for x in ins["X"] if x is not None]
+    return {"Out": [torch.cat(xs, dim=op.attr("axis", 0))]}
 
 
 @register_op("fill_constant", inputs=[], outputs=["Out"])

@@ -228,6 +228,8 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.models, paddle_tpu_torch.models.resnet
         import paddle_tpu_torch.ops.metrics, paddle_tpu_torch.ops.math_ext
         import paddle_tpu_torch.layers.functional_ext
+        import paddle_tpu_torch.ops.detection, paddle_tpu_torch.models.yolov3
+        import paddle_tpu_torch.layers.detection
         sys.path.insert(0, "tests")
         import torch_sp_worker  # the multi-rank tests' rank processes
         bad = [m for m in sys.modules
