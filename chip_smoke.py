@@ -159,7 +159,30 @@ Phases, each fatal on failure:
    1, the port's CPU run (labels and counts equal, scores and boxes
    within tolerance, near-tie rows compared as a set), no kernel of ours
    launched; ms a batch at each bucket;
-23. kernel times: each kernel beside its plain version, its bound and one
+23. CTR training, reduced size: bench.py's deepfm program at its CPU
+   config (DeepFMConfig(1000, 6, 8, (16,), 4)), B=64, Adam(1e-3), fp32,
+   three steps on the card and on the CPU from one state, plain and in
+   deepfm_fused's per-slot layout fused by embedding.fuse_lookups; then
+   the cached segment (EmbeddingEngine, hot_rows = max(B * F, V // 2),
+   Prefetcher over 8 feeds) on both: losses, residency equal, host
+   stores;
+24. CTR training path: bench.py's deepfm leg at DeepFMConfig.criteo(),
+   B=4096, Adam(1e-3), fp32: 3 warm-up and 20 timed steps, one profiled
+   (card time by kind and by program op), one timed by op type; the
+   tables, moments and tower moved, no kernel of ours launched, no
+   host-device synchronisation in the step;
+25. CTR fused-embedding path: bench.py's deepfm_fused leg, the per-slot
+   program unfused and fused in one call (the same figures for each),
+   the batches' dedup ratio, the cached and prefetched segment (hot_rows
+   500000, 16 feeds: hit rate, prefetch overlap, write-backs) and the
+   leg's structural gates (one fused gather per width, dedup active,
+   overlap recorded);
+26. CTR serving path: bench_serving.py's ctr_rank ranker frozen behind
+   serving.Server at buckets (1, 2, 4, 8), max_wait_ms 4: answers
+   against a direct run on the card and the port's CPU run within 1e-5,
+   no kernel of ours launched; a closed loop of 8 clients; requests/s,
+   p50 and p99 at each bucket;
+27. kernel times: each kernel beside its plain version, its bound and one
    PyTorch call, at the serving, the BERT training (#1, the backward
    pair #3, #2 and #4 also in bf16 at the BERT AMP path's activations,
    beside SDPA's and F.layer_norm's bf16) and the GPT shapes (#7 also in bf16
@@ -316,6 +339,25 @@ YOLO_BUCKETS = (1, 2, 4)
 YOLO_SCORE_ATOL = 2e-4
 YOLO_BOX_RTOL = 5e-4
 YOLO_TIE_EPS = 2e-4
+# CTR (phases 23-26): bench.py's deepfm and deepfm_fused legs at
+# DeepFMConfig.criteo(), B=4096, Adam(1e-3), fp32, 3 warm-up and 20 timed
+# steps as bench.py times them on an accelerator; the cached segment's
+# feeds; bench_serving's ctr_rank buckets, its closed loop of 8 clients
+# and shorter serving windows than phase 4's (the section's time). Card vs
+# CPU at bench.py's CPU config (DeepFMConfig(1000, 6, 8, (16,), 4), B=64)
+# under FP32_TOL; the cached run's host stores (end - start) and moments
+# by relative L2 1e-3 (RESNET_TOL's bound: an Adam step follows the sign
+# of a near-zero gradient), its residency equal; served probabilities
+# within 1e-5 of a direct run and of the CPU
+CTR_B, CTR_SMALL_B = 4096, 64
+CTR_WARM, CTR_TIMED = 3, 20
+CTR_FEEDS = 16
+CTR_BUCKETS = (1, 2, 4, 8)
+CTR_CLIENTS, CTR_LOOP_S = 8, 5.0
+CTR_WINDOW = (1.0, 200)
+CTR_STORE_L2 = 1e-3
+CTR_PROB_ATOL = 1e-5
+LOOKUP_OPS = ("distributed_lookup_table", "fused_lookup_table")
 
 
 class SmokeFailure(RuntimeError):
@@ -325,6 +367,12 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def on_card(batches):
+    """Host feeds (dicts of numpy arrays) as dicts of card tensors."""
+    return [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+            for b in batches]
 
 
 def counters(fa, fr, sp, ft, lnk, rb):
@@ -961,12 +1009,13 @@ def main_path(fluid, layers, kc):
     return frozen, exe, scope, samples, counts
 
 
-def serve_window(srv, name, b, samples):
+def serve_window(srv, name, b, samples, window=(WINDOW_S, WINDOW_REQUESTS)):
     """One closed-loop window at bucket b: submit a full bucket, wait for
-    every answer, repeat until WINDOW_S seconds and WINDOW_REQUESTS
-    requests have both passed. A request's latency is its round's: from
-    the bucket's first submit to its last answer. Returns (requests/s,
-    p50 ms, p99 ms, requests)."""
+    every answer, repeat until `window`'s seconds and requests (WINDOW_S
+    and WINDOW_REQUESTS unless given) have both passed. A request's
+    latency is its round's: from the bucket's first submit to its last
+    answer. Returns (requests/s, p50 ms, p99 ms, requests)."""
+    window_s, window_requests = window
     lat, n = [], 0
     t_all = time.perf_counter()
     while True:
@@ -978,22 +1027,24 @@ def serve_window(srv, name, b, samples):
         t1 = time.perf_counter()
         lat += [(t1 - t0) * 1e3] * b
         n += b
-        if t1 - t_all >= WINDOW_S and n >= WINDOW_REQUESTS:
+        if t1 - t_all >= window_s and n >= window_requests:
             break
     lat.sort()
     return (n / (t1 - t_all), lat[len(lat) // 2],
             lat[min(len(lat) - 1, int(0.99 * len(lat)))], n)
 
 
-def serve_times(frozen, exe, scope, samples, buckets=BUCKETS, name="bert"):
+def serve_times(frozen, exe, scope, samples, buckets=BUCKETS, name="bert",
+                window=(WINDOW_S, WINDOW_REQUESTS)):
     """Closed loop at each bucket, one endpoint per bucket, in WINDOW_REPS
-    windows per bucket; the buckets run in alternating order (1, 2, 4, 8,
-    8, 4, 2, 1, ...) so drift in the host's speed falls on every bucket
-    alike. Prints each window, then each bucket's median and spread."""
+    windows per bucket of `window` (seconds, requests); the buckets run in
+    alternating order (1, 2, 4, 8, 8, 4, 2, 1, ...) so drift in the
+    host's speed falls on every bucket alike. Prints each window, then
+    each bucket's median and spread, and returns them."""
     from paddle_tpu_torch.serving import EndpointConfig, Server
 
     print(f"== server times, {name} (closed loop, one full bucket in "
-          f"flight; windows of >= {WINDOW_S:g} s and >= {WINDOW_REQUESTS} "
+          f"flight; windows of >= {window[0]:g} s and >= {window[1]} "
           f"requests, {WINDOW_REPS} per bucket in alternating order)")
     srv = Server()
     runs = {b: [] for b in buckets}
@@ -1005,7 +1056,7 @@ def serve_times(frozen, exe, scope, samples, buckets=BUCKETS, name="bert"):
         for rep in range(WINDOW_REPS):
             for b in (buckets if rep % 2 == 0 else buckets[::-1]):
                 rps, p50, p99, n = serve_window(srv, f"{name}{b}", b,
-                                                samples)
+                                                samples, window)
                 runs[b].append((rps, p50, p99))
                 print(f"  window {rep} bucket {b}: {n} requests, "
                       f"{rps:.1f} requests/s, p50 {p50:.3f} ms, "
@@ -1027,6 +1078,7 @@ def serve_times(frozen, exe, scope, samples, buckets=BUCKETS, name="bert"):
               f"(median [min, max] of {WINDOW_REPS} windows)")
     tag = "server: " if name == "bert" else f"{name} server: "
     print(tag + json.dumps({str(b): s for b, s in summary.items()}))
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1571,8 +1623,7 @@ def train_full(fluid, layers, kc, amp=False):
           f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     exe.run(startup, scope=scope)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-               for b in bench_batches(cfg, B, S, P, 4)]
+    batches = on_card(bench_batches(cfg, B, S, P, 4))
     watch = ("bert_l0_attn_qkv_w", "bert_l11_ffn_out_w", "mlm_out_w")
     snap = {n: scope.find_var(n).clone() for n in watch}
     expect = dict.fromkeys(kc, 0)
@@ -1709,8 +1760,7 @@ def gpt_train_full(fluid, kc, amp=False, ln_kernels=False):
               f"{time.perf_counter() - t0:.1f}s")
         exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
         exe.run(startup, scope=scope)
-        batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-                   for b in gpt_batches(cfg, B, S)]
+        batches = on_card(gpt_batches(cfg, B, S))
         watch = ("gpt_l0_attn_qkv_w", "gpt_l11_mlp_out_w", "lm_head_w",
                  "gpt_l0_ln1_scale", "gpt_lnf_bias")
         snap = {n: scope.find_var(n).clone() for n in watch}
@@ -2902,8 +2952,7 @@ def mha_path(fluid, layers, kc):
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     exe.run(startup, scope=scope)
     host_feeds = mha_feeds(cfg, B, S, 3)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-               for b in host_feeds[:2]]
+    batches = on_card(host_feeds[:2])
     watch = ("encoder_layer_0_query_w", "encoder_layer_11_ffn_1_w",
              "cls_out_w")
     snap = {n: scope.find_var(n).clone() for n in watch}
@@ -3850,8 +3899,7 @@ def resnet_train_full(fluid, kc):
           f"{len(pg)} parameters; built in {time.perf_counter() - t0:.1f}s")
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     exe.run(startup, scope=scope)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
-               for b in resnet_batches(B, HW, CLASSES)]
+    batches = on_card(resnet_batches(B, HW, CLASSES))
     watch = ("conv2d_w_0", "conv2d_w_0_velocity_0", "batch_norm_w_52",
              "fc_w_0", "fc_w_0_velocity_0", "bn_mean_0", "bn_variance_52")
     snap = {n: scope.find_var(n).clone() for n in watch}
@@ -4059,8 +4107,7 @@ def yolov3_train_full(fluid, kc):
           f"parameters; built in {time.perf_counter() - t0:.1f}s")
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     exe.run(startup, scope=scope)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in
-                yolov3_batch(B, HW, 80).items()}]
+    batches = on_card([yolov3_batch(B, HW, 80)])
     watch = ("yolo_dark_stem_w", "yolo_dark_stem_w_velocity_0",
              "yolo_dark_stem_bn_m", "yolo_det2_tip_bn_v", "yolo_head0_w",
              "yolo_head0_w_velocity_0", "yolo_head2_b")
@@ -4107,8 +4154,7 @@ def yolov3_paper_steps(fluid, kc):
         fluid, B, HW, YoloConfig(class_num=80), amp=True)
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     exe.run(startup, scope=scope)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in
-                yolov3_batch(B, HW, 80).items()}]
+    batches = on_card([yolov3_batch(B, HW, 80)])
     watch = [p.name for p, _ in pg[:2] + pg[-2:]]
     snap = {n: scope.find_var(n).clone() for n in watch}
 
@@ -4300,6 +4346,483 @@ def yolov3_predictor(fluid, kc):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# CTR: bench.py's deepfm and deepfm_fused legs and bench_serving.py's
+# ctr_rank ranker, with the embedding engine
+# ---------------------------------------------------------------------------
+
+
+def deepfm_config(small=False):
+    """DeepFMConfig.criteo() (bench.py on an accelerator), or bench.py's
+    CPU config."""
+    from paddle_tpu_torch.models import DeepFMConfig
+
+    if small:
+        return DeepFMConfig(vocab_size=1000, num_fields=6, embed_dim=8,
+                            mlp_sizes=(16,), dense_dim=4)
+    return DeepFMConfig.criteo()
+
+
+def build_bench_deepfm(fluid, cfg, B, per_slot=False, fused=False,
+                       hot_rows=None):
+    """bench.py's deepfm program (feat, dense, label; deepfm with the
+    dense input; Adam(1e-3)), in deepfm_fused's per-slot layout with
+    per_slot, fused by embedding.fuse_lookups with fused, its tables
+    cached by an EmbeddingEngine of `hot_rows` with hot_rows. Returns
+    (main, startup, loss, params_grads, engine or None)."""
+    from paddle_tpu_torch.embedding import EmbeddingEngine, fuse_lookups
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.optimizer import Adam
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    engine = None
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feat = fluid.data("feat", [B, cfg.num_fields], "int64")
+        dense = fluid.data("dense", [B, cfg.dense_dim], "float32")
+        label = fluid.data("label", [B, 1], "float32")
+        loss, _ = deepfm(feat, label, cfg, dense_input=dense,
+                         per_slot=per_slot)
+        if fused:
+            check(fuse_lookups(main) == 2, "fuse_lookups did not make 2 "
+                  "fused sites")
+        if hot_rows:
+            engine = EmbeddingEngine(main, startup, hot_rows=hot_rows)
+        _, pg = Adam(1e-3).minimize(loss, startup)
+    return main, startup, loss, pg, engine
+
+
+def deepfm_batches(cfg, B, n, rng, power=False):
+    """bench.py's batches, drawn in its order: uniform ids (deepfm) or
+    power-law ids, V * rng.power(0.35) (deepfm_fused), uniform dense
+    features, labels 1 with probability 0.3."""
+    out = []
+    for _ in range(n):
+        shape = (B, cfg.num_fields)
+        ids = (cfg.vocab_size * rng.power(0.35, shape) if power
+               else rng.randint(0, cfg.vocab_size, shape))
+        out.append({"feat": ids.astype("int64"),
+                    "dense": rng.rand(B, cfg.dense_dim).astype("float32"),
+                    "label": (rng.rand(B, 1) < 0.3).astype("float32")})
+    return out
+
+
+def ctr_kind(op, aten, kernel):
+    """The kind of a kernel of a DeepFM step, by the program op that
+    launched it."""
+    fwd = op.removeprefix("__vjp__(").rstrip(")")
+    if fwd in LOOKUP_OPS:
+        return ("lookups: unique (sort, cumsum, scatter), gathers"
+                if op == fwd else
+                "lookup replays and table gradients (index_add)")
+    if op == "sum":
+        return "gradient sums (the per-slot tables' [V, D] gradients)"
+    if op == "adam":
+        return "adam"
+    if fwd == "mul":
+        return "tower matmuls (cuBLAS) and their replays"
+    return "elementwise, reductions, loss and other"
+
+
+def lookup_ops(main):
+    """(single lookups, fused lookups) of a program."""
+    ops = main.global_block.ops
+    return (sum(op.type == "distributed_lookup_table" for op in ops),
+            sum(op.type == "fused_lookup_table" for op in ops))
+
+
+def no_host_sync(stats, what):
+    """No cudaStreamSynchronize inside the profiled step (the lookups'
+    static unique and their replays read nothing back; a D2D copy is not
+    a synchronisation)."""
+    syncs = [k for k in stats["profile"]["syncs"]
+             if k.startswith("cudaStreamSynchronize")]
+    check(not syncs, f"{what}: host-device synchronisations {syncs}")
+
+
+def ctr_train_small(fluid):
+    """bench.py's deepfm program at its CPU config on the card and on the
+    CPU from one state, plain and per-slot fused; then the cached and
+    prefetched segment."""
+    print("== CTR training, reduced size: bench.py's deepfm program at its "
+          f"CPU config (DeepFMConfig(1000, 6, 8, (16,), 4)), B={CTR_SMALL_B},"
+          " Adam(1e-3), fp32; card vs CPUPlace()")
+    cfg, B = deepfm_config(small=True), CTR_SMALL_B
+    rng = np.random.RandomState(0)
+    main, startup, loss, pg, _ = build_bench_deepfm(fluid, cfg, B)
+    card_vs_cpu(fluid, main, startup, loss, pg,
+                deepfm_batches(cfg, B, 3, rng))
+    print("-- deepfm_fused's per-slot layout, fused, power-law ids")
+    main, startup, loss, pg, _ = build_bench_deepfm(fluid, cfg, B,
+                                                    per_slot=True,
+                                                    fused=True)
+    check(lookup_ops(main) == (0, 2), f"lookups {lookup_ops(main)}")
+    card_vs_cpu(fluid, main, startup, loss, pg,
+                deepfm_batches(cfg, B, 3, rng, power=True))
+    ctr_cached_small(fluid, cfg, B)
+
+
+def ctr_cached_small(fluid, cfg, B, n=8):
+    """deepfm_fused's cached segment at the CPU config, with a hot tier
+    just above the largest batch's unique ids, so that rows are evicted
+    and written back: Prefetcher over n feeds (bench's 4 power-law
+    batches in turn), on the card and on the CPU from the card's startup
+    state; the cold stores start from one numpy stream. Evictions on
+    both, losses under FP32_TOL, residency (slot map, access counts)
+    equal, every flushed host store's change and moment within
+    CTR_STORE_L2."""
+    from paddle_tpu_torch import convert, observability
+    from paddle_tpu_torch.embedding import Prefetcher
+
+    feeds = deepfm_batches(cfg, B, 4, np.random.RandomState(0), power=True)
+    hot = max(np.unique(f["feat"]).size for f in feeds) + 8
+    print(f"-- the cached segment: EmbeddingEngine(hot_rows={hot}) over "
+          f"the [{cfg.vocab_size}, .] tables, Prefetcher over {n} feeds")
+    runs, state, init, evicted = [], None, None, []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main, startup, loss, _, engine = build_bench_deepfm(
+            fluid, cfg, B, per_slot=True, fused=True, hot_rows=hot)
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        if state is None:
+            exe.run(startup, scope=scope)
+            state = convert.state_to_numpy(scope)
+        else:
+            convert.state_from_numpy(state, scope, place, program=main)
+        engine.attach(scope)
+        if init is None:
+            init = {k: v.copy() for g in engine.groups
+                    for k, v in g.host.items()}
+        observability.reset()
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0].reshape(-1)[0])
+                  for f in Prefetcher(engine, [feeds[i % 4]
+                                               for i in range(n)], scope)]
+        counters = observability.get_counters()
+        evicted.append((counters.get("embedding.cache_evictions", 0),
+                        counters.get("embedding.cache_writebacks", 0)))
+        runs.append((losses, engine.state_dict(scope)))
+    check(all(e > 0 for e, _ in evicted) and evicted[0] == evicted[1],
+          f"(evictions, write-backs) card, CPU: {evicted}")
+    (gl, gs), (cl, cs) = runs
+    rel = max(abs(g - c) / abs(c) for g, c in zip(gl, cl))
+    check(rel <= FP32_TOL["loss"], f"cached losses {gl} vs CPU {cl}")
+    worst = 0.0
+    for key, c in cs.items():
+        g = gs[key]
+        if key.endswith(("::counts", "::row_of")):
+            check(np.array_equal(g, c), f"{key} differs")
+            continue
+        start = init[key.split("::host::")[1]]
+        err, ok = _held(g - start, c - start, ("l2", CTR_STORE_L2))
+        worst = max(worst, err)
+        check(ok, f"{key}: change differs by {err:.3e}")
+    print(f"{n} cached steps: {evicted[0][0]} evictions and "
+          f"{evicted[0][1]} rows written back on each; "
+          f"losses {rel:.2e} relative (bound "
+          f"{FP32_TOL['loss']:g}); {len(cs)} state entries, residency "
+          f"equal, host stores' changes {worst:.2e} (relative L2, bound "
+          f"{CTR_STORE_L2:g})")
+
+
+def ctr_deepfm(fluid, kc):
+    """bench.py's deepfm leg on an accelerator: DeepFMConfig.criteo(),
+    B=4096, Adam(1e-3), fp32, uniform ids; run_steps with 3 warm-up and
+    20 timed steps, one profiled (by ctr_kind), one timed by op type; no
+    kernel of ours, no host-device synchronisation."""
+    cfg, B = deepfm_config(), CTR_B
+    print(f"== CTR training path: bench.py's deepfm leg at "
+          f"DeepFMConfig.criteo() (V={cfg.vocab_size}, {cfg.num_fields} "
+          f"sparse fields, D={cfg.embed_dim}, tower {cfg.mlp_sizes}, "
+          f"{cfg.dense_dim} dense), B={B}, Adam(1e-3), fp32")
+    t0 = time.perf_counter()
+    main, startup, loss, pg, _ = build_bench_deepfm(fluid, cfg, B)
+    ops = main.global_block.ops
+    print(f"{len(ops)} ops: {lookup_ops(main)[0]} lookups, "
+          f"{sum(op.type == '__vjp__' for op in ops)} __vjp__, "
+          f"{sum(op.type == 'adam' for op in ops)} adam; {len(pg)} "
+          f"parameters, {sum(math.prod(p.shape) for p, _ in pg) / 1e6:.2f}"
+          f"M values; built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = on_card(deepfm_batches(cfg, B, 2, np.random.RandomState(0)))
+    watch = ("deepfm_emb", "deepfm_emb_moment1_0", "deepfm_w1",
+             "deepfm_mlp0_w", "deepfm_out_b")
+    snap = {n: scope.find_var(n).clone() for n in watch}
+
+    def after(i, values):
+        if i < 2:  # the tables, their moments and the tower move
+            moved = [n for n in watch
+                     if not torch.equal(scope.find_var(n), snap[n])]
+            check(len(moved) == len(watch), f"step {i} moved only {moved}")
+            snap.update((n, scope.find_var(n).clone()) for n in watch)
+
+    _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",), kc,
+                         dict.fromkeys(kc, 0), B, after, warm=CTR_WARM,
+                         timed=CTR_TIMED, unit="examples", kind_of=ctr_kind)
+    no_host_sync(stats, "deepfm")
+    stats["ops"] = len(ops)
+    print("deepfm training: " + json.dumps(stats))
+    del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+    return stats
+
+
+def ctr_deepfm_fused(fluid, kc):
+    """bench.py's deepfm_fused leg on an accelerator: the per-slot program
+    unfused and fused in one call (examples/s each, power-law ids); the
+    batches' dedup ratio; the cached and prefetched segment (hot_rows =
+    max(B * F, V // 2), Prefetcher over 16 feeds): hot hit rate, prefetch
+    overlap, write-backs; the leg's structural gates."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.embedding import Prefetcher
+
+    cfg, B = deepfm_config(), CTR_B
+    print(f"== CTR fused-embedding path: bench.py's deepfm_fused leg at "
+          f"DeepFMConfig.criteo(), B={B}, per-slot layout, power-law ids "
+          "(V * rng.power(0.35)), unfused and fused; the cached segment")
+    host_batches = deepfm_batches(cfg, B, 4, np.random.RandomState(0),
+                                  power=True)
+    batches = on_card(host_batches)
+    figures, sites = {}, {}
+    for fused in (False, True):
+        name = "fused" if fused else "unfused"
+        main, startup, loss, pg, _ = build_bench_deepfm(
+            fluid, cfg, B, per_slot=True, fused=fused)
+        sites[name] = lookup_ops(main)
+        ops = main.global_block.ops
+        print(f"-- per-slot, {name}: {len(ops)} ops, lookups (single, "
+              f"fused) {sites[name]}, {sum(op.type == '__vjp__' for op in ops)}"
+              " __vjp__")
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",),
+                             kc, dict.fromkeys(kc, 0), B, warm=CTR_WARM,
+                             timed=CTR_TIMED, unit="examples",
+                             kind_of=ctr_kind)
+        no_host_sync(stats, f"deepfm_fused {name}")
+        stats["ops"] = len(ops)
+        figures[name] = stats
+        del exe, scope
+        torch.cuda.empty_cache()
+    ratios = [np.unique(b["feat"]).size / b["feat"].size
+              for b in host_batches]
+
+    observability.reset()
+    hot = max(B * cfg.num_fields, cfg.vocab_size // 2)
+    main, startup, loss, _, engine = build_bench_deepfm(
+        fluid, cfg, B, per_slot=True, fused=True, hot_rows=hot)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    t0 = time.perf_counter()
+    engine.attach(scope)
+    attach_s = time.perf_counter() - t0
+    stream = [host_batches[i % 4] for i in range(CTR_FEEDS)]
+    reset_counts(kc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0]
+              for f in Prefetcher(engine, stream, scope)]
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    counts = read_counts(kc)
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+    losses = [v.item() for v in losses]
+    check(len(losses) == CTR_FEEDS and all(map(math.isfinite, losses)),
+          f"cached losses {losses}")
+    gauges = observability.get_gauges()
+    hists = observability.get_histograms()
+    counters = observability.get_counters()
+    overlap = hists.get("embedding.prefetch_overlap", {})
+    g = engine.groups[0]
+    cached = dict(
+        hot_rows=hot, vocab_rows=g.vocab, attach_s=attach_s,
+        examples_per_s=CTR_FEEDS * B / cached_s, steps=CTR_FEEDS,
+        hot_hit_rate=gauges.get(f"embedding.hot_hit_rate.{g.name}"),
+        prefetch_overlap_mean=(overlap["sum"] / overlap["count"]
+                               if overlap.get("count") else None),
+        host_bytes=g.host_bytes(), device_bytes=g.device_bytes(),
+        final_loss=losses[-1], **{k.removeprefix("embedding."): v
+                                  for k, v in counters.items()
+                                  if k.startswith("embedding.")})
+    gates = {
+        "one_fused_gather_per_width": sites["fused"][1] == 2
+        and sites["fused"][0] <= 1,
+        "lookup_sites_before": sum(sites["unfused"]),
+        "lookup_sites_after": sum(sites["fused"]),
+        "dedup_active": all(r < 1.0 for r in ratios),
+        "dedup_unique_ratio": float(np.mean(ratios)),
+        "prefetch_overlap_recorded": bool(overlap.get("count")),
+    }
+    ex = {k: figures[k]["examples_per_s"] for k in figures}
+    print(f"examples/s: per-slot unfused {ex['unfused']:.0f}, fused "
+          f"{ex['fused']:.0f} ({ex['fused'] / ex['unfused']:.2f}x); dedup "
+          f"unique ratio {gates['dedup_unique_ratio']:.4f}; cached: "
+          f"{cached['examples_per_s']:.0f} examples/s over {CTR_FEEDS} "
+          f"steps, hot hit rate {cached['hot_hit_rate']}, prefetch overlap "
+          f"{cached['prefetch_overlap_mean']}, write-backs "
+          f"{cached.get('cache_writebacks', 0)}, attach {attach_s:.1f}s")
+    check(gates["one_fused_gather_per_width"] and gates["dedup_active"]
+          and gates["prefetch_overlap_recorded"],
+          f"deepfm_fused structural gates failed: {gates}")
+    print("deepfm_fused: " + json.dumps(dict(gates=gates, cached=cached,
+                                             **figures)))
+    del exe, scope, batches, engine
+    torch.cuda.empty_cache()
+
+
+def build_ctr_ranker(fluid):
+    """bench_serving.py's ctr_rank ranker: DeepFMConfig(4096, 13, 16, (64,
+    32)) over [-1, 13] ids, per_slot, fused (2 sites), Adam(1e-3)
+    minimize appended, frozen to the probabilities. Returns (cfg,
+    startup, frozen)."""
+    from paddle_tpu_torch.embedding import fuse_lookups
+    from paddle_tpu_torch.models import DeepFMConfig, deepfm
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.serving import freeze_program
+
+    cfg = DeepFMConfig(vocab_size=4096, num_fields=13, embed_dim=16,
+                       mlp_sizes=(64, 32))
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 13
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("feat_ids", [-1, cfg.num_fields], "int64")
+        label = fluid.data("label", [-1, 1], "float32")
+        loss, prob = deepfm(ids, label, cfg, per_slot=True)
+        fused = fuse_lookups(main)
+        Adam(1e-3).minimize(loss, startup)
+    check(fused == 2, f"expected 2 fused lookup sites, got {fused}")
+    return cfg, startup, freeze_program(main, [prob],
+                                        feed_names=("feat_ids",))
+
+
+def closed_loop(srv, name, samples, clients, seconds):
+    """bench_serving's _closed_loop: `clients` threads each submit one
+    request and wait for it, until `seconds` pass. Returns (requests/s,
+    p50 ms, p99 ms, requests)."""
+    import threading
+
+    lats, lock = [], threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def client(k):
+        i = k
+        while time.perf_counter() < stop:
+            t0 = time.perf_counter()
+            srv.submit(name, samples[i % len(samples)]).result(timeout=60)
+            with lock:
+                lats.append((time.perf_counter() - t0) * 1e3)
+            i += clients
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    lats.sort()
+    return (len(lats) / wall, lats[len(lats) // 2],
+            lats[min(len(lats) - 1, int(0.99 * len(lats)))], len(lats))
+
+
+def ctr_rank_serving(fluid, kc):
+    """bench_serving's ctr_rank: the frozen ranker behind serving.Server
+    at buckets (1, 2, 4, 8), max_wait_ms 4: answers against a direct run
+    on the card and the port's CPU run, no kernel of ours launched; the
+    closed loop of 8 clients (requests/s, p50, p99, the buckets run);
+    then requests/s, p50 and p99 at each bucket."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.serving import EndpointConfig, Server
+
+    print("== CTR serving path: bench_serving's ctr_rank ranker "
+          "(DeepFMConfig(4096, 13, 16, (64, 32)), per-slot, fused) frozen, "
+          f"serving.Server at buckets {CTR_BUCKETS}, max_wait_ms 4")
+    cfg, startup, frozen = build_ctr_ranker(fluid)
+    ops = frozen.program.global_block.ops
+    check(lookup_ops(frozen.program) == (0, 2),
+          f"frozen lookups {lookup_ops(frozen.program)}")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    groups = (1, 3, 8, 2, 5, 4, 8, 1)
+    samples = [{"feat_ids": (cfg.vocab_size * rng.power(
+        0.35, cfg.num_fields)).astype(np.int64)} for _ in range(sum(groups))]
+    srv = Server()
+    try:
+        ep = srv.add_endpoint(
+            "ctr_rank", frozen=frozen, executor=exe, scope=scope,
+            config=EndpointConfig(buckets=CTR_BUCKETS, max_wait_ms=4.0,
+                                  max_queue=4096))
+        srv.warmup()
+        torch.cuda.synchronize()
+        reset_counts(kc)
+        served, i = [], 0
+        for g in groups:
+            futs = [srv.submit("ctr_rank", samples[j])
+                    for j in range(i, i + g)]
+            served += [f.result(timeout=300)[0] for f in futs]
+            i += g
+        counts = read_counts(kc)
+        first = len(ep.batches)
+        rps, p50, p99, n = closed_loop(srv, "ctr_rank", samples,
+                                       CTR_CLIENTS, CTR_LOOP_S)
+        buckets = {}
+        for bucket, _ in list(ep.batches)[first:]:
+            buckets[bucket] = buckets.get(bucket, 0) + 1
+    finally:
+        check(srv.close(timeout=300), "server did not drain")
+    served = np.stack(served)
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+    check(served.shape == (len(samples), 1) and np.isfinite(served).all(),
+          f"served probabilities: shape {served.shape} or not finite")
+    direct = np.concatenate([
+        exe.run(frozen.program, feed={"feat_ids": s["feat_ids"][None]},
+                fetch_list=list(frozen.fetch_names), scope=scope)[0]
+        for s in samples])
+    d_err = float(np.abs(served - direct).max())
+    cpu_scope = fluid.Scope()
+    convert.state_from_numpy(convert.state_to_numpy(scope), cpu_scope,
+                             fluid.CPUPlace())
+    cpu, = fluid.Executor(fluid.CPUPlace()).run(
+        frozen.program, feed={"feat_ids": np.stack(
+            [s["feat_ids"] for s in samples])},
+        fetch_list=list(frozen.fetch_names), scope=cpu_scope)
+    c_err = float(np.abs(served - cpu).max())
+    print(f"{len(ops)} frozen ops; served {len(served)} requests; vs a "
+          f"direct run on the card, one request each: max_abs_err="
+          f"{d_err:.3e}; vs the port on CPUPlace(): max_abs_err={c_err:.3e}"
+          f" (tol {CTR_PROB_ATOL:g})")
+    check(d_err <= CTR_PROB_ATOL, f"served and direct answers differ: "
+          f"{d_err}")
+    check(c_err <= CTR_PROB_ATOL, f"card and CPU answers differ: {c_err}")
+    check(np.ptp(served) > 1e-4, "every request got the same answer")
+    loop = dict(clients=CTR_CLIENTS, seconds=CTR_LOOP_S, requests=n,
+                rps=rps, p50_ms=p50, p99_ms=p99,
+                batches_by_bucket=buckets)
+    print(f"closed loop of {CTR_CLIENTS} clients, {CTR_LOOP_S:g} s: {n} "
+          f"requests, {rps:.1f} requests/s, p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; batches by bucket {buckets}")
+    per_bucket = serve_times(frozen, exe, scope, samples, CTR_BUCKETS,
+                             "ctr_rank", window=CTR_WINDOW)
+    print("ctr_rank: " + json.dumps(dict(
+        ops=len(ops), direct_err=d_err, cpu_err=c_err, closed_loop=loop,
+        buckets={str(b): v for b, v in per_bucket.items()})))
+    del exe, scope
+    torch.cuda.empty_cache()
+
+
+def ctr_path(fluid, kc):
+    """The CTR phases in order; prints the section's time."""
+    t0 = time.perf_counter()
+    ctr_train_small(fluid)
+    ctr_deepfm(fluid, kc)
+    ctr_deepfm_fused(fluid, kc)
+    ctr_rank_serving(fluid, kc)
+    print(f"CTR section: {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4361,6 +4884,7 @@ def main():
     yolov3_train_small(fluid)
     yolov3_train_full(fluid, kc)
     yolov3_predictor(fluid, kc)
+    ctr_path(fluid, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n, amp_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n,

@@ -23,6 +23,8 @@ again inside its grad op (for `mul`, a second X·W).
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from ..core.dtypes import is_float
@@ -39,6 +41,10 @@ def _slots(items, prefix):
 
 @register_op("__vjp__", inputs=[], outputs=[], differentiable=False)
 def _vjp_emit(ctx, op, ins):
+    if ctx.first_run:
+        # the replay re-runs a forward op that counted its own first run
+        ctx = copy.copy(ctx)
+        ctx.first_run = False
     fwd_def = get_op_def(op.attr("fwd_type"))
     fwd_op = OpView(op.attr("fwd_type"), op.attr("fwd_attrs"))
     fwd_ins = _slots(ins.items(), "FwdIn:")

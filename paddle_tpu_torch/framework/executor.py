@@ -91,7 +91,8 @@ class Executor:
             fetch_names,
         )
         plan = self._cache.get(key)
-        if plan is None:
+        first_run = plan is None
+        if first_run:
             plan = _analyze_block(block, set(feeds), fetch_names)
             self._cache[key] = plan
             while len(self._cache) > self.CACHE_CAPACITY:
@@ -118,7 +119,7 @@ class Executor:
             self.device, seed=seed, step=step,
             # frozen serving programs run in test mode even where an op
             # missed its is_test flip
-            is_test=program._is_inference, mesh=mesh,
+            is_test=program._is_inference, mesh=mesh, first_run=first_run,
         )
         with torch.no_grad():
             for i, op in enumerate(block.ops):

@@ -41,7 +41,7 @@ class EmitContext:
     dropout mask is the forward's."""
 
     def __init__(self, device, seed=0, step=0, is_test=False, abstract=False,
-                 mesh=None):
+                 mesh=None, first_run=False):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
@@ -49,6 +49,10 @@ class EmitContext:
         # True only in infer_shapes' meta-tensor pass: emitters may then
         # substitute BATCH_SENTINEL for -1 dims; at run time -1 is an error
         self.abstract = abstract
+        # True on an executor's first run of a (program, version, feed
+        # signature, fetch set): where the JAX package traces the block.
+        # Trace-time counters (embedding.fused_lookup_*) count there
+        self.first_run = first_run
         # the program's mesh (parallel/mesh.py) under SPMD, else None
         self.mesh = mesh
         self.mesh_axes = tuple(mesh.axis_names) if mesh is not None else ()

@@ -344,17 +344,19 @@ def _restore(obj, state, keep, defaults=None, optional=(), dropped=(),
 
 _VAR_FIELDS = ("block", "name", "shape", "dtype", "persistable",
                "stop_gradient", "is_data", "lod_level")
-# the JAX package's optimizer bookkeeping and build-time initializer:
-# nothing the port reads
-_VAR_DROPPED = ("initializer", "_accum_of", "_accum_elementwise")
+# the build-time initializer: nothing the port reads
+_VAR_DROPPED = ("initializer",)
+# an optimizer accumulator's tags (optimizer.py), kept where a file has them
+_VAR_OPTIONAL = ("_accum_of", "_accum_elementwise")
 
 # each IR class of the JAX package: how its pickled fields become the port's
 _JAX_FIELDS = {
     Variable: dict(keep=_VAR_FIELDS, dropped=_VAR_DROPPED,
+                   optional=_VAR_OPTIONAL,
                    neutral={"_zero_shard_of": _unset}),
     Parameter: dict(
         keep=_VAR_FIELDS + ("trainable",),
-        dropped=_VAR_DROPPED + ("need_clip",),
+        dropped=_VAR_DROPPED + ("need_clip",), optional=_VAR_OPTIONAL,
         neutral={"_zero_shard_of": _unset, "regularizer": _unset,
                  "optimize_attr": lambda a: (
                      a or {}).get("learning_rate", 1.0) == 1.0}),

@@ -28,7 +28,9 @@ from .nn import (  # noqa: F401
     mean,
     pool2d,
     resize_nearest,
+    sigmoid_cross_entropy_with_logits,
     softmax_with_cross_entropy,
+    sparse_embedding,
 )
 from .tensor import (  # noqa: F401
     cast,
@@ -53,6 +55,7 @@ from .tensor import (  # noqa: F401
     relu,
     reshape,
     scale,
+    sigmoid,
     slice,
     softmax,
     square,

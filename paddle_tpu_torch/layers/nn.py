@@ -1,7 +1,8 @@
 """Functional layers of the port's slices (counterpart of
 paddle_tpu/layers/nn.py; reference python/paddle/fluid/layers/nn.py):
 data, fc, embedding, conv2d, pool2d, adaptive_pool2d, batch_norm,
-layer_norm, dropout, softmax_with_cross_entropy, mean, accuracy,
+layer_norm, dropout, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, sparse_embedding, mean, accuracy,
 resize_nearest."""
 
 from __future__ import annotations
@@ -239,6 +240,35 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
         out_slots=("Softmax", "Loss"),
     )
     return (loss, softmax) if return_softmax else loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False):
+    return LayerHelper("sigmoid_cross_entropy_with_logits").create_and_append(
+        {"X": [x], "Label": [label]},
+        {"ignore_index": ignore_index, "normalize": normalize},
+    )
+
+
+def sparse_embedding(input, size, param_attr=None, dtype="float32", axis="ps",
+                     pad_to_multiple=8, is_sparse=True, dedup=True):
+    """The huge-embedding lookup (reference distributed_lookup_table_op.cc).
+    `size=[vocab, dim]`; vocab is padded up to a multiple of
+    `pad_to_multiple`. `dedup` (default on) batch-uniques the ids before
+    the gather, so repeated ids read their row once and the backward is
+    one segment-sum scatter. Same-width lookups coalesce into one
+    ``fused_lookup_table`` under ``embedding.fuse_lookups``."""
+    vocab, dim = size
+    padded = (vocab + pad_to_multiple - 1) // pad_to_multiple * pad_to_multiple
+    helper = LayerHelper("sparse_embedding")
+    w = helper.create_parameter(
+        param_attr, [padded, dim], dtype, default_initializer=Xavier()
+    )
+    return helper.create_and_append(
+        {"Ids": [input], "W": [w]},
+        {"axis_name": axis, "dedup": bool(dedup)},
+        op_type="distributed_lookup_table",
+    )
 
 
 def mean(x, name=None):

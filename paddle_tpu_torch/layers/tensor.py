@@ -135,6 +135,10 @@ def relu(x, name=None, **attrs):
     return _simple("relu", {"X": [x]}, attrs)
 
 
+def sigmoid(x, name=None, **attrs):
+    return _simple("sigmoid", {"X": [x]}, attrs)
+
+
 def leaky_relu(x, name=None, **attrs):
     """alpha defaults to 0.02 in the op, as in the JAX package."""
     return _simple("leaky_relu", {"X": [x]}, attrs)

@@ -5,3 +5,4 @@ modules (models.bert, models.gpt)."""
 
 from .resnet import resnet, resnet_train_net  # noqa: F401
 from .yolov3 import YoloConfig, yolov3_infer, yolov3_train  # noqa: F401
+from .deepfm import DeepFMConfig, deepfm  # noqa: F401

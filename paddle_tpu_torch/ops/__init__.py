@@ -13,5 +13,6 @@ from . import (  # noqa: F401
     nn,
     optimizer_ops,
     random,
+    sparse,
     tensor_ops,
 )

@@ -49,6 +49,10 @@ def shape_attr(ctx, op):
 
 def stable_sigmoid_ce(x, z):
     """Numerically stable sigmoid cross-entropy from logits:
-    max(x, 0) - x z + log(1 + exp(-|x|)) (yolov3_loss). torch.maximum, as
-    jnp.maximum, splits the gradient at x = 0 evenly."""
-    return torch.maximum(x, x.new_zeros(())) - x * z + F.softplus(-x.abs())
+    max(x, 0) - x z + log(1 + exp(-|x|)) (yolov3_loss,
+    sigmoid_cross_entropy_with_logits). torch.maximum, as jnp.maximum,
+    splits the gradient at x = 0 evenly; |x| is where(x >= 0, x, -x), so
+    its gradient at 0 is 1, as jnp.abs's is (torch.abs's is 0): at x = 0
+    the gradient is -z, the JAX package's, not sigmoid(0) - z."""
+    mag = torch.where(x >= 0, x, -x)
+    return torch.maximum(x, x.new_zeros(())) - x * z + F.softplus(-mag)

@@ -30,3 +30,8 @@ def _gelu(ctx, op, ins):
 @register_op("softmax", inputs=["X"], outputs=["Out"])
 def _softmax(ctx, op, ins):
     return {"Out": [torch.softmax(ins["X"][0], dim=op.attr("axis", -1))]}
+
+
+@register_op("sigmoid", inputs=["X"], outputs=["Out"])
+def _sigmoid(ctx, op, ins):
+    return {"Out": [torch.sigmoid(ins["X"][0])]}

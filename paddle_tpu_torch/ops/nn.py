@@ -1,7 +1,8 @@
 """NN ops of the port's slices (counterpart of paddle_tpu/ops/nn.py;
 reference conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
 lookup_table_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
-softmax_with_cross_entropy_op.cc, pad2d_op.cc, interpolate_op.cc).
+softmax_with_cross_entropy_op.cc,
+sigmoid_cross_entropy_with_logits_op.cc, pad2d_op.cc, interpolate_op.cc).
 
 conv2d runs through F.conv2d (cuDNN on the card), as the JAX package
 leaves its convolutions to XLA. batch_norm is the JAX package's formula,
@@ -23,6 +24,7 @@ from ..framework.backward import _ensure_var
 from ..framework.program import grad_var_name
 from ..framework.registry import get_op_def, register_op
 from ..kernels import layer_norm as lnk
+from ._helpers import stable_sigmoid_ce
 
 
 def _pair(v):
@@ -359,6 +361,21 @@ def _softmax_with_cross_entropy(ctx, op, ins):
     loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
     softmax = torch.exp(lf - lse).to(logits.dtype)
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=["X", "Label"],
+             outputs=["Out"])
+def _sigmoid_cross_entropy_with_logits(ctx, op, ins):
+    """Elementwise stable sigmoid cross-entropy (_helpers.stable_sigmoid_ce),
+    0 where the label is ignore_index; with normalize, divided by the
+    count of labels that are not (at least 1)."""
+    x, label = ins["X"][0], ins["Label"][0]
+    ignore = op.attr("ignore_index", -100)
+    keep = label != ignore
+    loss = torch.where(keep, stable_sigmoid_ce(x, label), x.new_zeros(()))
+    if op.attr("normalize", False):
+        loss = loss / keep.to(x.dtype).sum().clamp(min=1.0)
+    return {"Out": [loss]}
 
 
 @register_op("pad2d", inputs=["X"], outputs=["Out"])

@@ -59,6 +59,7 @@ class Optimizer:
         key = (name, param.name)
         if key in self._accumulators:
             return self._accumulators[key]
+        param_shaped = shape is None
         shape = list(shape if shape is not None else param.shape)
         dtype = "float32"
         vname = unique_name.generate(f"{param.name}_{name}")
@@ -66,6 +67,12 @@ class Optimizer:
         startup = default_startup_program().global_block
         v = main.create_parameter(vname, shape, dtype, trainable=False)
         v.stop_gradient = True
+        # the JAX package's tags: spmd.spec_for gives a param-shaped
+        # accumulator its parameter's spec, and the embedding engine
+        # finds a cached table's optimizer state by _accum_of
+        v._accum_of = param.name
+        # elementwise (param-shaped) state, not the beta-pow scalars
+        v._accum_elementwise = param_shaped
         startup.create_parameter(vname, shape, dtype, trainable=False)
         Constant(fill_value)(startup, vname, shape, dtype)
         self._accumulators[key] = v

@@ -230,6 +230,9 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.layers.functional_ext
         import paddle_tpu_torch.ops.detection, paddle_tpu_torch.models.yolov3
         import paddle_tpu_torch.layers.detection
+        import paddle_tpu_torch.embedding, paddle_tpu_torch.models.deepfm
+        import paddle_tpu_torch.ops.sparse, paddle_tpu_torch.observability
+        import paddle_tpu_torch.parallel.sparse
         sys.path.insert(0, "tests")
         import torch_sp_worker  # the multi-rank tests' rank processes
         bad = [m for m in sys.modules

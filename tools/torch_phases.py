@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""One section of chip_smoke.py's phases alone, on one CUDA card, for
+iterating on a slice without the whole script. Builds no kernel: no
+section here runs one.
+
+    cd <checkout> && python3 tools/torch_phases.py yolov3|ctr
+
+yolov3: the reduced training step against the CPU (yolov3_train_small),
+bench_yolov3's AMP step at the paper's width (yolov3_train_full) and the
+paper-width predictor (yolov3_predictor).
+ctr: bench.py's deepfm program at its CPU config against the CPU, plain,
+per-slot fused and cached (ctr_train_small), its deepfm leg at
+DeepFMConfig.criteo() (ctr_deepfm), its deepfm_fused leg
+(ctr_deepfm_fused) and bench_serving.py's ctr_rank ranker
+(ctr_rank_serving).
+
+Imports the port and chip_smoke.py from the current directory, turns
+TF32 off as chip_smoke.py does, runs each phase in turn (a failed phase
+is reported and the next one runs), prints each phase's time and exits
+non-zero if any failed.
+"""
+
+import sys
+import time
+
+sys.path.insert(0, ".")
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+SECTIONS = {
+    "yolov3": (("small", lambda fluid, kc: cs.yolov3_train_small(fluid)),
+               ("full", cs.yolov3_train_full),
+               ("predictor", cs.yolov3_predictor)),
+    "ctr": (("small", lambda fluid, kc: cs.ctr_train_small(fluid)),
+            ("deepfm", cs.ctr_deepfm),
+            ("deepfm_fused", cs.ctr_deepfm_fused),
+            ("ctr_rank", cs.ctr_rank_serving)),
+}
+
+
+def main(argv):
+    if len(argv) != 1 or argv[0] not in SECTIONS:
+        print(f"usage: torch_phases.py {'|'.join(SECTIONS)}",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("torch_phases: no CUDA device is available", file=sys.stderr)
+        return 1
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import flash_tiled as ft
+    from paddle_tpu_torch.kernels import fused_residual as fr
+    from paddle_tpu_torch.kernels import layer_norm as lnk
+    from paddle_tpu_torch.kernels import ring_block as rb
+    from paddle_tpu_torch.kernels import sum_partials as sp
+
+    print(cs.gpu_line(), torch.__version__, torch.version.cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kc = cs.counters(fa, fr, sp, ft, lnk, rb)
+    failed = []
+    for name, fn in SECTIONS[argv[0]]:
+        t0 = time.perf_counter()
+        try:
+            fn(fluid, kc)
+        except Exception as e:  # report every phase
+            print(f"PHASE {name} FAILED: {type(e).__name__}: {e}")
+            failed.append(name)
+        print(f"PHASE {name}: {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
