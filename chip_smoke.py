@@ -182,7 +182,30 @@ Phases, each fatal on failure:
    against a direct run on the card and the port's CPU run within 1e-5,
    no kernel of ours launched; a closed loop of 8 clients; requests/s,
    p50 and p99 at each bucket;
-27. kernel times: each kernel beside its plain version, its bound and one
+27. Mask R-CNN training, reduced size: bench.py's mask_rcnn program at
+   its CPU config (MaskRCNNConfig.tiny(), 3x64x64, B=2, 2 boxes),
+   Momentum(0.002, 0.9), fp32, one step on the card and on the CPU from
+   one state, then the legacy per-image program at 1 image: the six
+   losses, rois_num and labels, every @GRAD, velocity, update and moving
+   statistic, behind a near-tie guard (every top-k, NMS, collect, IoU,
+   FPN-level and mask-grid decision further from its threshold than the
+   two runs could move it);
+28. Mask R-CNN training path: bench_mask_rcnn on an accelerator
+   (MaskRCNNConfig(81, scale=0.5, rpn_pre_nms=512, rpn_post_nms=128,
+   batch_size_per_im=64, depth=50), B=8, 3x256x256, 8 boxes,
+   Momentum(0.002, 0.9) under AMP with dynamic loss scaling from 2^12):
+   padding waste and the detection.* counters of the first run,
+   unroll_proxy's op counts, 3 warm-up and 5 timed steps, one profiled
+   (card time by kind and by program op), one timed by op type; the
+   loss scale and step counters, weights moved, the detection ops'
+   runtime dtypes as declared, no kernel of ours, no host-device
+   synchronisation in the step;
+29. Mask R-CNN predictor: mask_rcnn_infer at that width, 3x256x256,
+   batch 1, fp32, io.save_inference_model and
+   inference.create_paddle_predictor: detections and mask logits
+   against a direct run on the card and the port's CPU run (labels and
+   counts equal, near-tie rows as a set), no kernel of ours; ms a batch;
+30. kernel times: each kernel beside its plain version, its bound and one
    PyTorch call, at the serving, the BERT training (#1, the backward
    pair #3, #2 and #4 also in bf16 at the BERT AMP path's activations,
    beside SDPA's and F.layer_norm's bf16) and the GPT shapes (#7 also in bf16
@@ -358,6 +381,29 @@ CTR_WINDOW = (1.0, 200)
 CTR_STORE_L2 = 1e-3
 CTR_PROB_ATOL = 1e-5
 LOOKUP_OPS = ("distributed_lookup_table", "fused_lookup_table")
+# Mask R-CNN (phases 27-29): bench.py's mask_rcnn leg. Card vs CPU at its
+# CPU config (MaskRCNNConfig.tiny(), 64x64, B=2, 2 boxes; the legacy
+# program at its 1 image), fp32, one Momentum(0.002, 0.9) step from one
+# state: the six losses relative to the CPU's, rois_num and labels equal,
+# gradients, velocities and updates by relative L2, the moving statistics
+# elementwise (readings on the H100: losses 1.9e-6, gradients 1.8e-4,
+# updates 1.6e-3, statistics 4.2e-6; the gradient bound leaves room for a
+# relu input near 0 that changes sign behind batch norm over 2 images, as
+# YOLOv3's leaky_relu). The near-tie guard (mask_rcnn_guard) first
+# requires every decision of the step to lie further from its threshold
+# than the two runs could move it; the card draws its own startup state,
+# so the phase takes the first of MRCNN_SEEDS feeds whose decisions hold.
+# The accelerator config: MRCNN_ACCEL, 256x256, B=8, 8 boxes, under
+# bench's AMP with dynamic loss scaling from 2^12
+MRCNN_LR = 0.002
+MRCNN_ACCEL = dict(class_num=81, scale=0.5, rpn_pre_nms=512,
+                   rpn_post_nms=128, batch_size_per_im=64, depth=50)
+MRCNN_TOL = dict(loss=1e-5, grad=("l2", 2 ** -5), velocity=("l2", 2 ** -5),
+                 stats=("elementwise", 3e-5, 3e-5), update=("l2", 2 ** -5))
+MRCNN_MARGIN = dict(iou=1e-5, level=1e-5, pixel=1e-4)
+MRCNN_SEEDS = 8  # feeds tried for one whose decisions the guard holds
+MRCNN_FULL = (8, 256, 8)  # images a step, their side, boxes an image
+MRCNN_WARM, MRCNN_TIMED = 3, 5
 
 
 class SmokeFailure(RuntimeError):
@@ -1178,7 +1224,7 @@ def _held(got, want, spec):
 
 
 def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
-                extra=(), resync=False):
+                extra=(), resync=False, close=(), guard=None):
     """One optimizer step per feed on the card and on the CPU from one
     state, under `tol` (FP32_TOL, AMP_TOL or RESNET_TOL): the loss (and
     the fetches `extra`, equal), every @GRAD, Adam's moments, the
@@ -1197,8 +1243,9 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
     cexe, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
     convert.state_from_numpy(start, cscope, fluid.CPUPlace(), program=main)
     cpu_main = main.clone()  # the same seed and run counter
-    fetch = [loss, *extra] + [g for _, g in pg]
-    n_head = 1 + len(extra)
+    guard_names, guard_fn = guard or ((), None)
+    fetch = [loss, *extra, *close] + [g for _, g in pg] + list(guard_names)
+    n_head = 1 + len(extra) + len(close)
     worst = {"loss": 0.0, "grad": 0.0, "scalars": 0.0}
 
     def hold_state(before, gend, cend, grads):
@@ -1249,12 +1296,18 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
     for step, feed in enumerate(feeds):
         gpu = gexe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
         cpu = cexe.run(cpu_main, feed=feed, fetch_list=fetch, scope=cscope)
+        if guard_fn is not None:
+            n = len(fetch) - len(guard_names)
+            guard_fn(dict(zip(guard_names, cpu[n:])),
+                     dict(zip(guard_names, gpu[n:])))
         check(np.isfinite(gpu[0]).all(), f"card loss not finite: {gpu[0]}")
-        rel = float(np.abs(gpu[0] - cpu[0]).max() / np.abs(cpu[0]).max())
-        worst["loss"] = max(worst["loss"], rel)
-        check(rel <= tol["loss"], f"step {step}: loss {gpu[0]} vs CPU "
-              f"{cpu[0]}")
-        for v, g, c in zip(extra, gpu[1:n_head], cpu[1:n_head]):
+        for i in [0] + list(range(1 + len(extra), n_head)):
+            rel = float(np.abs(gpu[i] - cpu[i]).max()
+                        / max(np.abs(cpu[i]).max(), 1e-30))
+            worst["loss"] = max(worst["loss"], rel)
+            check(rel <= tol["loss"], f"step {step}: loss {i} {gpu[i]} vs "
+                  f"CPU {cpu[i]}")
+        for v, g, c in zip(extra, gpu[1:], cpu[1:]):
             check(np.array_equal(g, c), f"step {step}: {v.name} {g} vs {c}")
         for (p, _), g, c in zip(pg, gpu[n_head:], cpu[n_head:]):
             grads[p.name].append((g, c))
@@ -1271,9 +1324,12 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
     updates, exempt, total = hold_state(before, gend, cend, grads)
     moved = sum(not np.array_equal(start[n], cend[n]) for n in cend)
     # Adam: parameters, two moments and two beta powers a parameter;
-    # Momentum: parameters and velocities (and the moving statistics)
+    # Momentum: parameters and velocities (and the moving statistics); of
+    # the parameters whose gradient is not all 0 (Mask R-CNN's RPN heads
+    # of levels no sampled anchor lies on get none)
     per = 3 if "moment" in worst else 2
-    check(moved > per * len(pg), f"only {moved} state tensors moved")
+    live = sum(any(np.any(c != 0) for _, c in grads[n]) for n in grads)
+    check(moved > per * live, f"only {moved} state tensors moved")
     errs = ", ".join(f"{k} {worst[k]:.2e} ({tol[k][0]} bound {tol[k][1:]})"
                      for k in ("grad", "moment", "velocity", "stats")
                      if k in worst)
@@ -4823,6 +4879,593 @@ def ctr_path(fluid, kc):
     print(f"CTR section: {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Mask R-CNN: bench.py's mask_rcnn leg (the batched program, and its
+# legacy per-image program) and mask_rcnn_infer behind the predictor
+# ---------------------------------------------------------------------------
+
+
+def mask_rcnn_config(small=False):
+    """bench.py's MaskRCNNConfig on an accelerator (MRCNN_ACCEL), or its
+    CPU config, MaskRCNNConfig.tiny()."""
+    from paddle_tpu_torch.models import MaskRCNNConfig
+
+    return MaskRCNNConfig.tiny() if small else MaskRCNNConfig(**MRCNN_ACCEL)
+
+
+def build_bench_mask_rcnn(fluid, cfg, B, size, n_gt, amp=False):
+    """bench.py's bench_mask_rcnn program: mask_rcnn_train_batched over
+    [B, 3, size, size] with n_gt boxes an image, Momentum(0.002, 0.9),
+    under AMP with dynamic loss scaling as bench.py on an accelerator.
+    Returns (main, startup, losses, rois_num, params_grads, optimizer,
+    forward ops)."""
+    from paddle_tpu_torch.models import mask_rcnn_train_batched
+    from paddle_tpu_torch.optimizer import Momentum
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        images = fluid.data("images", [B, 3, size, size])
+        gt_boxes = fluid.data("gt_boxes", [B, n_gt, 4])
+        gt_classes = fluid.data("gt_classes", [B, n_gt], dtype="int32")
+        is_crowd = fluid.data("is_crowd", [B, n_gt], dtype="int32")
+        gt_segms = fluid.data("gt_segms", [B, n_gt, size, size])
+        im_info = fluid.data("im_info", [B, 3])
+        losses, aux = mask_rcnn_train_batched(
+            images, gt_boxes, gt_classes, is_crowd, gt_segms, im_info, cfg)
+        fwd_ops = len(main.global_block.ops)
+        opt = mask_rcnn_opt(fluid, amp)
+        _, pg = opt.minimize(losses[0], startup)
+    return main, startup, losses, aux["rois_num"], pg, opt, fwd_ops
+
+
+def mask_rcnn_opt(fluid, amp):
+    """Momentum(0.002, 0.9), under bench.py's AMP for its mask_rcnn leg
+    (bf16, softmax and layer_norm white-listed, dynamic loss scaling from
+    2^12)."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(MRCNN_LR, 0.9)
+    if amp:
+        opt = mp.decorate(
+            opt, amp_lists=mp.AutoMixedPrecisionLists(
+                custom_white_list={"softmax", "layer_norm"}),
+            use_dynamic_loss_scaling=True, init_loss_scaling=2.0 ** 12,
+            dest_dtype="bfloat16")
+    return opt
+
+
+def build_legacy_mask_rcnn(fluid, cfg, n_img, size, n_gt, amp=False,
+                           train=True):
+    """bench.py's bench_mask_rcnn_legacy program: n_img one-image
+    mask_rcnn_train graphs unrolled into one program, their total losses
+    averaged; train=False builds the forward alone. Returns (main,
+    startup, loss, every image's six losses, params_grads, optimizer)."""
+    from paddle_tpu_torch.models import mask_rcnn_train
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        per = []
+        for i in range(n_img):
+            per.append(mask_rcnn_train(
+                fluid.data(f"image{i}", [1, 3, size, size]),
+                fluid.data(f"gt_boxes{i}", [n_gt, 4]),
+                fluid.data(f"gt_classes{i}", [n_gt], dtype="int32"),
+                fluid.data(f"is_crowd{i}", [n_gt], dtype="int32"),
+                fluid.data(f"gt_segms{i}", [n_gt, size, size]),
+                fluid.data(f"im_info{i}", [1, 3]), cfg))
+        loss = per[0][0]
+        for losses in per[1:]:
+            loss = fluid.layers.elementwise_add(loss, losses[0])
+        if n_img > 1:
+            loss = fluid.layers.scale(loss, scale=1.0 / n_img)
+        opt, pg = mask_rcnn_opt(fluid, amp), []
+        if train:
+            _, pg = opt.minimize(loss, startup)
+    return main, startup, loss, [v for losses in per for v in losses], pg, \
+        opt
+
+
+def mask_rcnn_batch(B, size, n_gt, class_num, seed=0):
+    """bench_mask_rcnn's feed: boxes rand * size / 2 with 8 + half their
+    w, h added, uniform images, int32 classes, no crowd, random bitmaps,
+    drawn in bench's order."""
+    rng = np.random.RandomState(seed)
+    boxes = rng.rand(B, n_gt, 4).astype("float32") * (size / 2)
+    boxes[..., 2:] = boxes[..., :2] + 8 + boxes[..., 2:] / 2
+    return {
+        "images": rng.rand(B, 3, size, size).astype("float32"),
+        "gt_boxes": boxes,
+        "gt_classes": rng.randint(1, class_num, (B, n_gt)).astype("int32"),
+        "is_crowd": np.zeros((B, n_gt), "int32"),
+        "gt_segms": (rng.rand(B, n_gt, size, size) > 0.5).astype("float32"),
+        "im_info": np.tile([[size, size, 1.0]], (B, 1)).astype("float32"),
+    }
+
+
+def legacy_batch(n_img, size, n_gt, class_num, seed=0):
+    """bench_mask_rcnn_legacy's feed, image by image in bench's order."""
+    rng = np.random.RandomState(seed)
+    feed = {}
+    for i in range(n_img):
+        boxes = rng.rand(n_gt, 4).astype("float32") * (size / 2)
+        boxes[:, 2:] = boxes[:, :2] + 8 + boxes[:, 2:] / 2
+        feed.update({
+            f"image{i}": rng.rand(1, 3, size, size).astype("float32"),
+            f"gt_boxes{i}": boxes,
+            f"gt_classes{i}": rng.randint(1, class_num, n_gt).astype(
+                "int32"),
+            f"is_crowd{i}": np.zeros(n_gt, "int32"),
+            f"gt_segms{i}": (rng.rand(n_gt, size, size) > 0.5).astype(
+                "float32"),
+            f"im_info{i}": np.array([[size, size, 1.0]], "float32"),
+        })
+    return feed
+
+
+def _decode_np(scores, deltas, im_info, anchors, variances):
+    """generate_proposals' decode, clip and size filter in float64: (the
+    scores with the filtered at -inf [N, M], the boxes [N, M, 4])."""
+    N, A, H, W = scores.shape
+    sc = scores.transpose(0, 2, 3, 1).reshape(N, -1).astype(np.float64)
+    dl = deltas.reshape(N, A, 4, H, W).transpose(0, 3, 4, 1, 2).reshape(
+        N, -1, 4)
+    an = anchors.reshape(-1, 4).astype(np.float64)
+    va = variances.reshape(-1, 4)
+    aw, ah = an[:, 2] - an[:, 0] + 1, an[:, 3] - an[:, 1] + 1
+    cx = va[:, 0] * dl[..., 0] * aw + an[:, 0] + aw / 2
+    cy = va[:, 1] * dl[..., 1] * ah + an[:, 1] + ah / 2
+    w = np.exp(np.minimum(va[:, 2] * dl[..., 2], 10)) * aw
+    h = np.exp(np.minimum(va[:, 3] * dl[..., 3], 10)) * ah
+    imh, imw = im_info[:, 0:1], im_info[:, 1:2]
+    box = np.stack([np.clip(cx - w / 2, 0, imw - 1),
+                    np.clip(cy - h / 2, 0, imh - 1),
+                    np.clip(cx + w / 2 - 1, 0, imw - 1),
+                    np.clip(cy + h / 2 - 1, 0, imh - 1)], -1)
+    keep = (box[..., 2] >= box[..., 0]) & (box[..., 3] >= box[..., 1])
+    return np.where(keep, sc, -np.inf), box
+
+
+def _iou_np(a, b):
+    area = (lambda x: np.maximum(x[..., 2] - x[..., 0], 0)
+            * np.maximum(x[..., 3] - x[..., 1], 0))
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.maximum(rb - lt, 0), -1)
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return inter / np.maximum(union, 1e-10)
+
+
+def mask_rcnn_guard(main):
+    """(names, fn) of the near-tie guard of a Mask R-CNN training program
+    (batched or legacy): fn(want, got), the values of `names` by name in
+    the reference run and in the run held to it, finds the reference
+    step's decisions nearest to their thresholds and requires each to lie
+    further from it than the other run could move it: a score order by
+    more than twice the largest difference of the two runs' RPN scores
+    (if the scores differ at all), an IoU, level or pixel decision by
+    MRCNN_MARGIN. The decisions: each level's top pre_nms_topN scores
+    (the gap at the cut), its greedy NMS (IoUs about nms_thresh, the
+    score order of each suppressing pair, the gap at the post_nms_topN-th
+    survivor), collect's order of the survivors, the proposals' best IoU
+    about fg_thresh, the sampled rois' FPN levels and the fg rois' mask
+    grid about a pixel's half. Returns the nearest of each kind."""
+    ops = main.global_block.ops
+    gps = [op for op in ops if op.type == "generate_proposals"]
+    gpls = [op for op in ops if op.type == "generate_proposal_labels"]
+    cols = {op.outputs["FpnRois"][0]: op for op in ops
+            if op.type == "collect_fpn_proposals"}
+    gmls = [op for op in ops if op.type == "generate_mask_labels"]
+    names = []
+    for op in gps:
+        names += [op.inputs[s][0] for s in ("Scores", "BboxDeltas",
+                                            "ImInfo", "Anchors",
+                                            "Variances")]
+    for op, mop in zip(gpls, gmls):
+        col = cols[op.inputs["RpnRois"][0]]
+        names += [op.inputs["RpnRois"][0], op.inputs["GtBoxes"][0],
+                  op.outputs["Rois"][0], mop.outputs["MaskRois"][0]]
+        names += col.inputs["MultiLevelScores"]
+        names += col.inputs["MultiLevelRoIsNum"]
+    names = list(dict.fromkeys(names))
+
+    def fn(v, other):
+        near = dict(score=np.inf, iou=np.inf, level=np.inf, pixel=np.inf)
+        drift = max(float(np.abs(v[n].astype(np.float64) - other[n]).max())
+                    for op in gps for n in op.inputs["Scores"])
+        margin = dict(MRCNN_MARGIN, score=2 * drift)
+
+        def low(kind, x):
+            near[kind] = min(near[kind], float(x))
+
+        for op in gps:
+            sc, box = _decode_np(*(v[op.inputs[s][0]] for s in (
+                "Scores", "BboxDeltas", "ImInfo", "Anchors", "Variances")))
+            pre, post = op.attr("pre_nms_topN"), op.attr("post_nms_topN")
+            thresh = op.attr("nms_thresh")
+            for s, b in zip(sc, box):
+                order = np.argsort(-s, kind="stable")
+                k = min(pre, len(s))
+                s, b = s[order], b[order]
+                if k < len(s) and np.isfinite(s[k]):
+                    low("score", s[k - 1] - s[k])
+                s, b = s[:k], b[:k]
+                live = np.isfinite(s)
+                iou = _iou_np(b, b)
+                pair = np.triu(live[:, None] & live[None, :], 1)
+                low("iou", np.abs(iou - thresh)[pair].min(initial=np.inf))
+                sup = pair & (iou > thresh)
+                gap = (s[:, None] - s[None, :])[sup]
+                low("score", gap.min(initial=np.inf))
+                alive = np.zeros(k, bool)
+                for i in range(k):
+                    alive[i] = live[i] and not (alive & sup[:, i]).any()
+                kept = s[alive]
+                if len(kept) > post:
+                    low("score", kept[post - 1] - kept[post])
+        for op, mop in zip(gpls, gmls):
+            col = cols[op.inputs["RpnRois"][0]]
+            topn = col.attr("post_nms_topN")
+            lv = [v[n] for n in col.inputs["MultiLevelScores"]]
+            nums = [v[n] for n in col.inputs["MultiLevelRoIsNum"]]
+            rois, gt = v[op.inputs["RpnRois"][0]], v[op.inputs["GtBoxes"][0]]
+            n_img = gt.shape[0] if gt.ndim == 3 else 1
+            rois, gt = rois.reshape(n_img, -1, 4), gt.reshape(n_img, -1, 4)
+            out = v[op.outputs["Rois"][0]].reshape(n_img, -1, 4)
+            mrois = v[mop.outputs["MaskRois"][0]].reshape(n_img, -1, 4)
+            M = mop.attr("resolution")
+            for i in range(n_img):
+                s = np.concatenate([
+                    l.reshape(n_img, -1)[i][:int(c.reshape(-1)[i])]
+                    for l, c in zip(lv, nums)]).astype(np.float64)
+                s = np.sort(s)[::-1][:topn + 1]
+                if len(s) > 1:
+                    low("score", np.diff(-s).min())
+                g = gt[i][gt[i][:, 2] > gt[i][:, 0]]
+                cand = np.concatenate([rois[i][rois[i][:, 2] > rois[i][:, 0]],
+                                       g])
+                if len(g):
+                    best = _iou_np(cand, g).max(1)
+                    low("iou", np.abs(best - op.attr("fg_thresh")).min())
+                r = out[i][(out[i][:, 2] > out[i][:, 0])
+                           & (out[i][:, 3] > out[i][:, 1])]
+                lvl = 4 + np.log2(np.sqrt((r[:, 2] - r[:, 0])
+                                          * (r[:, 3] - r[:, 1])) / 224
+                                  + 1e-6)
+                if len(r):
+                    low("level", np.abs(lvl[:, None] - [3, 4, 5]).min())
+                m = mrois[i][mrois[i][:, 2] > mrois[i][:, 0]]
+                grid = (np.arange(M) + 0.5) / M
+                for a, c in ((0, 2), (1, 3)):
+                    p = m[:, a:a + 1] + (m[:, c:c + 1] - m[:, a:a + 1]) * grid
+                    if p.size:
+                        low("pixel", np.abs(p - np.floor(p) - 0.5).min())
+        for kind, gap in near.items():
+            check(gap > margin[kind] or kind == "score" and drift == 0,
+                  f"near-tie guard: a {kind} decision {gap:.3g} from its "
+                  f"threshold (margin {margin[kind]:.3g})")
+        print("near-tie guard, the decisions nearest their thresholds: "
+              + ", ".join(f"{k} {g:.3g} (margin {margin[k]:.3g})"
+                          for k, g in near.items()))
+        return near
+
+    return names, fn
+
+
+def mask_rcnn_train_small(fluid, kc):
+    """bench.py's mask_rcnn leg at its CPU config on the card and on the
+    CPU from one state, one Momentum step, the batched program and the
+    legacy one: the six losses, rois_num and labels, gradients and the
+    state after, behind the near-tie guard; no kernel of ours."""
+    reset_counts(kc)
+    print("== Mask R-CNN training, reduced size: bench.py's mask_rcnn "
+          "program at MaskRCNNConfig.tiny(), 3x64x64, B=2, 2 boxes, "
+          f"Momentum({MRCNN_LR:g}, 0.9), fp32; card vs CPUPlace()")
+    cfg = mask_rcnn_config(small=True)
+    main, startup, losses, rois_num, pg, _, _ = build_bench_mask_rcnn(
+        fluid, cfg, 2, 64, 2)
+    labels = next(op.outputs["LabelsInt32"][0] for op in
+                  main.global_block.ops
+                  if op.type == "generate_proposal_labels")
+    guarded(lambda seed: card_vs_cpu(
+        fluid, main, startup, losses[0], pg,
+        [mask_rcnn_batch(2, 64, 2, cfg.class_num, seed)], MRCNN_TOL,
+        extra=(rois_num, main.global_block.var(labels)), close=losses[1:],
+        guard=mask_rcnn_guard(main)))
+    print("-- the legacy per-image program (PADDLE_TPU_BATCHED_DETECTION=0)"
+          " at bench's CPU config: 1 image")
+    main, startup, loss, per, pg, _ = build_legacy_mask_rcnn(
+        fluid, cfg, 1, 64, 2)
+    guarded(lambda seed: card_vs_cpu(
+        fluid, main, startup, loss, pg,
+        [legacy_batch(1, 64, 2, cfg.class_num, seed)], MRCNN_TOL,
+        close=per[1:], guard=mask_rcnn_guard(main)))
+    counts = read_counts(kc)
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+
+
+def guarded(run):
+    """run(seed) with bench's feed seed 0, and while the near-tie guard
+    refuses a seed's decisions, with the next, up to MRCNN_SEEDS (the
+    card draws the startup state from its own generator, so which feeds
+    give well-separated decisions is known only there)."""
+    for seed in range(MRCNN_SEEDS):
+        try:
+            run(seed)
+            print(f"feed seed {seed} ({seed} refused by the guard)")
+            return
+        except SmokeFailure as e:
+            if "near-tie guard" not in str(e) or seed + 1 == MRCNN_SEEDS:
+                raise
+            print(f"feed seed {seed}: {e}")
+
+
+def mask_rcnn_kind(op, aten, kernel):
+    """The kind of a kernel of a Mask R-CNN step, by the program op that
+    launched it."""
+    fwd = op.removeprefix("__vjp__(").rstrip(")")
+    if fwd == "roi_align":
+        return ("roi_align: corner gathers" if op == fwd else
+                "roi_align backward: index_add into the maps")
+    if fwd in ("conv2d", "conv2d_transpose"):
+        return "convolutions (cuDNN) and their replays"
+    if fwd == "batch_norm":
+        return "batch_norm and its replay"
+    if fwd == "generate_proposals":
+        return "generate_proposals (decode, sort, greedy NMS)"
+    if fwd in ("rpn_target_assign", "generate_proposal_labels",
+               "generate_mask_labels", "distribute_fpn_proposals",
+               "collect_fpn_proposals", "anchor_generator"):
+        return "target assignment, labels, FPN routing"
+    if fwd == "cast":
+        return "casts"
+    if fwd in ("momentum", "check_finite_and_unscale",
+               "update_loss_scaling"):
+        return "momentum and loss scaling"
+    return "elementwise, reductions, losses and other"
+
+
+def mask_rcnn_step_dtypes(exe, main, scope, feed):
+    """One more step fetching the detection ops' outputs as tensors: each
+    runtime dtype is the program's declared one, roi_align reads and gives
+    bf16 under AMP, the proposals' boxes are fp32 and their counts and
+    the labels int32."""
+    slots = {"roi_align": ("X", "Out"),
+             "generate_proposals": ("RpnRois", "RpnRoiProbs", "RpnRoisNum"),
+             "generate_proposal_labels": ("Rois", "LabelsInt32", "RoisNum"),
+             "rpn_target_assign": ("ScoreIndex", "TargetBBox")}
+    blk = main.global_block
+    where = {}
+    for op in blk.ops:
+        for slot in slots.get(op.type, ()):
+            n = (op.inputs.get(slot) or op.outputs[slot])[0]
+            where.setdefault(n, f"{op.type}.{slot}")
+    names = list(where)
+    outs = exe.run(main, feed=feed, fetch_list=names, scope=scope,
+                   return_numpy=False)
+    got = {}
+    for n, t in zip(names, outs):
+        want = blk.var(n).dtype
+        have = str(t.dtype).removeprefix("torch.")
+        check(have == want or ("int" in want and have == "int32"),
+              f"{n}: runs as {have}, declared {want}")
+        got.setdefault(where[n], set()).add(have)
+    check(got["roi_align.X"] == {"bfloat16"},
+          f"roi_align reads {got['roi_align.X']}")
+    print(f"runtime dtypes as declared ({len(names)} tensors): "
+          + ", ".join(f"{k} {'/'.join(sorted(v))}"
+                      for k, v in sorted(got.items())))
+    return len(names)
+
+
+def mask_rcnn_train_full(fluid, kc):
+    """bench_mask_rcnn on an accelerator: MRCNN_ACCEL, B=8, 256x256, 8
+    boxes an image, Momentum(0.002, 0.9) under AMP with dynamic loss
+    scaling; bench's padding waste from record_roi_stats, the detection.*
+    counters of the first run and unroll_proxy's op counts; run_steps (3
+    warm-up and 5 timed steps, one profiled, one timed by op type); the
+    loss scale and step counters, weights moved, no kernel of ours, no
+    host-device synchronisation in the step."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops.detection_stats import record_roi_stats
+
+    B, size, n_gt = MRCNN_FULL
+    cfg = mask_rcnn_config()
+    print(f"== Mask R-CNN training path: bench_mask_rcnn at MaskRCNNConfig("
+          f"{', '.join(f'{k}={v}' for k, v in MRCNN_ACCEL.items())}), B={B},"
+          f" 3x{size}x{size}, {n_gt} boxes, Momentum({MRCNN_LR:g}, 0.9), AMP"
+          " (bf16, dynamic loss scaling from 2^12)")
+    t0 = time.perf_counter()
+    main, startup, losses, rois_num, pg, opt, fwd_ops = \
+        build_bench_mask_rcnn(fluid, cfg, B, size, n_gt, amp=True)
+    legacy = build_legacy_mask_rcnn(fluid, cfg, 1, size, n_gt,
+                                    train=False)[0]
+    ops = main.global_block.ops
+    proxy = dict(programs_per_step=1, images_per_program=B,
+                 batched_op_count=len(ops), batched_fwd_ops=fwd_ops,
+                 legacy_fwd_ops_per_image=len(legacy.global_block.ops),
+                 legacy_fwd_ops_if_unrolled=len(legacy.global_block.ops) * B)
+    print(f"{len(ops)} ops of {len({op.type for op in ops})} types, "
+          f"{sum(op.type == 'cast' for op in ops)} casts, {len(pg)} "
+          f"parameters; unroll_proxy {proxy}; built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = on_card([mask_rcnn_batch(B, size, n_gt, cfg.class_num)])
+    before = {k: v for k, v in metrics.get_counters().items()
+              if k.startswith("detection.")}
+    first, live = exe.run(main, feed=batches[0],
+                          fetch_list=[losses[0], rois_num], scope=scope)
+    waste = record_roi_stats(live, cfg.batch_size_per_im)
+    tally = {k: v - before.get(k, 0) for k, v in
+             metrics.get_counters().items()
+             if k.startswith("detection.") and v != before.get(k, 0)}
+    print(f"first step: loss {first}, rois_num {live.tolist()}, padding "
+          f"waste {waste:.3f}; detection counters {tally}")
+    check(tally.get("detection.roi_align.batched_instantiations") == 8
+          and tally.get("detection.generate_proposals"
+                        ".batched_instantiations") == 4,
+          f"detection counters {tally}")
+    watch = [p.name for p, _ in pg[:2] + pg[-2:]]
+    snap = {n: scope.find_var(n).clone() for n in watch}
+
+    def after(i, values):
+        if i < 2:  # the first and the last layers' weights move
+            moved = [n for n in watch
+                     if not torch.equal(scope.find_var(n), snap[n])]
+            check(len(moved) == len(watch), f"step {i} moved only {moved}")
+            snap.update((n, scope.find_var(n).clone()) for n in watch)
+
+    _, stats = run_steps(exe, main, scope, batches, [losses[0]], ("loss",),
+                         kc, dict.fromkeys(kc, 0), B, after,
+                         warm=MRCNN_WARM, timed=MRCNN_TIMED, unit="images",
+                         kind_of=mask_rcnn_kind)
+    no_host_sync(stats, "mask_rcnn")
+    state = opt.state_dict(scope)
+    steps = 1 + stats["steps"]
+    check(state == {"loss_scaling": 2.0 ** 12, "good_steps": steps,
+                    "bad_steps": 0}, f"loss-scale state {state}")
+    n_dt = mask_rcnn_step_dtypes(exe, main, scope, batches[0])
+    counts = read_counts(kc)
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+    stats.update(ops=len(ops), casts=sum(op.type == "cast" for op in ops),
+                 padding_waste=waste, detection_counters=tally,
+                 unroll_proxy=proxy, loss_scale=state, dtypes_checked=n_dt)
+    print("mask_rcnn amp training: " + json.dumps(stats))
+    del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+    return stats
+
+
+def mask_rcnn_legacy_full(fluid, kc):
+    """bench_mask_rcnn_legacy on an accelerator: four one-image graphs
+    unrolled into one program at MRCNN_ACCEL, 256x256, 8 boxes, under AMP
+    with dynamic loss scaling; 1 warm-up and 3 timed steps, one profiled,
+    one timed by op type. tools/torch_phases.py runs it; chip_smoke.py
+    does not (its time)."""
+    n_img, (_, size, n_gt) = 4, MRCNN_FULL
+    cfg = mask_rcnn_config()
+    print(f"== Mask R-CNN legacy leg: {n_img} one-image graphs unrolled, "
+          f"3x{size}x{size}, {n_gt} boxes, AMP")
+    t0 = time.perf_counter()
+    main, startup, loss, _, pg, opt = build_legacy_mask_rcnn(
+        fluid, cfg, n_img, size, n_gt, amp=True)
+    ops = main.global_block.ops
+    print(f"{len(ops)} ops, {sum(op.type == 'cast' for op in ops)} casts; "
+          f"built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = on_card([legacy_batch(n_img, size, n_gt, cfg.class_num)])
+    _, stats = run_steps(exe, main, scope, batches, [loss], ("loss",), kc,
+                         dict.fromkeys(kc, 0), n_img, warm=1, timed=3,
+                         unit="images", kind_of=mask_rcnn_kind)
+    no_host_sync(stats, "mask_rcnn legacy")
+    counts = read_counts(kc)
+    check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+    stats.update(ops=len(ops), loss_scale=opt.state_dict(scope))
+    print("mask_rcnn legacy amp training: " + json.dumps(stats))
+    del exe, scope, batches
+    torch.cuda.empty_cache()
+    return stats
+
+
+def mask_rcnn_predictor(fluid, kc):
+    """mask_rcnn_infer at MRCNN_ACCEL's width, 3x256x256, batch 1 (its
+    graph flattens the rois over the batch), fp32, test mode, random
+    weights from the seed: io.save_inference_model and
+    inference.create_paddle_predictor; the detections and mask logits
+    against a direct run on the card and the port's CPU run (labels and
+    counts equal, near-tie rows as a set: hold_detections); ms a batch."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import convert, inference, io
+    from paddle_tpu_torch.models import mask_rcnn_infer
+
+    size = MRCNN_FULL[1]
+    print(f"== Mask R-CNN predictor: mask_rcnn_infer at MaskRCNNConfig("
+          f"class_num=81, scale=0.5, depth=50), 3x{size}x{size}, batch 1, "
+          "fp32, io.save_inference_model, create_paddle_predictor")
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        image = fluid.data("image", [1, 3, size, size])
+        im_info = fluid.data("im_info", [1, 3])
+        out, mlogits = mask_rcnn_infer(image, im_info, mask_rcnn_config())
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    feed = {"image": rng.rand(1, 3, size, size).astype(np.float32),
+            "im_info": np.array([[size, size, 1.0]], np.float32)}
+    tmp = tempfile.mkdtemp(prefix="mask_rcnn_model_")
+    try:
+        with fluid.scope_guard(scope):
+            io.save_inference_model(tmp, ["image", "im_info"],
+                                    [out, mlogits], exe, main)
+        pred = inference.create_paddle_predictor(
+            inference.AnalysisConfig(tmp))
+        ops = pred.program.global_block.ops
+        reset_counts(kc)
+        got, masks = (t.as_ndarray() for t in pred.run(
+            [feed["image"], feed["im_info"]]))
+        n = int((got[0, :, 0] >= 0).sum())
+        check(np.isfinite(got).all() and np.isfinite(masks).all() and n > 0,
+              f"detections {n}, finite {np.isfinite(got).all()}")
+        d_out, d_masks = pred.executor.run(
+            pred.program, feed=feed, fetch_list=pred.get_output_names(),
+            scope=pred.scope)
+        tied, s_err, b_err = hold_detections(got, d_out, [n],
+                                             "predictor vs direct")
+        check(np.array_equal(masks, d_masks), "mask logits differ from a "
+              "direct run's")
+        counts = read_counts(kc)
+        check(not any(counts.values()), f"a kernel of ours ran: {counts}")
+        cpu_scope = fluid.Scope()
+        convert.state_from_numpy(convert.state_to_numpy(pred.scope),
+                                 cpu_scope, fluid.CPUPlace())
+        t0 = time.perf_counter()
+        c_out, c_masks = fluid.Executor(fluid.CPUPlace()).run(
+            pred.program, feed=feed, fetch_list=pred.get_output_names(),
+            scope=cpu_scope)
+        cpu_s = time.perf_counter() - t0
+        c_n = int((c_out[0, :, 0] >= 0).sum())
+        check(c_n == n, f"{n} detections vs CPU {c_n}")
+        tied, s_err, b_err = hold_detections(got, c_out, [n], "vs CPU")
+        print(f"{len(ops)} predictor ops; {n} detections of {got.shape[1]}; "
+              f"vs the port on CPUPlace() ({cpu_s:.1f}s): scores "
+              f"{s_err:.2e}, boxes {b_err:.2e}, {tied} valid rows in "
+              "near-tie groups")
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.run([feed["image"], feed["im_info"]])
+            times.append((time.perf_counter() - t0) * 1e3)
+        figures = dict(ops=len(ops), detections=n, batch_ms=statistics.median(
+            times), batch_ms_min=min(times), batch_ms_max=max(times),
+            cpu_score_err=s_err, cpu_box_err=b_err, cpu_near_tie_rows=tied)
+        del pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"ms a batch (median [min, max] of 7): {figures['batch_ms']:.1f} "
+          f"[{figures['batch_ms_min']:.1f}, {figures['batch_ms_max']:.1f}]; "
+          "mask_rcnn predictor: " + json.dumps(figures))
+    del exe, scope
+    torch.cuda.empty_cache()
+    return figures
+
+
+def mask_rcnn_path(fluid, kc):
+    """The Mask R-CNN phases in order; prints the section's time."""
+    t0 = time.perf_counter()
+    mask_rcnn_train_small(fluid, kc)
+    mask_rcnn_train_full(fluid, kc)
+    mask_rcnn_predictor(fluid, kc)
+    print(f"Mask R-CNN section: {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4885,6 +5528,7 @@ def main():
     yolov3_train_full(fluid, kc)
     yolov3_predictor(fluid, kc)
     ctr_path(fluid, kc)
+    mask_rcnn_path(fluid, kc)
     rows = kernel_times(fa, fr, main_err, serve_n)
     rows += train_kernel_times(fa, fr, sp, train_err, train_n, amp_n)
     rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n,

@@ -20,8 +20,9 @@ knobs that act:
 
 The JAX package's XLA-only knobs (a persistent compilation cache, AOT
 executables) have nothing to act on in an eager executor that compiles
-nothing; they raise UnimplementedError (ROADMAP Queue 1 item 5). The
-parity shims (glog, IR optim, memory optim) are accepted and do nothing.
+nothing; they raise UnimplementedError (ROADMAP Queue 1, "the rest of
+serving and the operations planes"). The parity shims (glog, IR optim,
+memory optim) are accepted and do nothing.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from .errors import (
 )
 
 _XLA_ONLY = ("the eager executor compiles nothing to cache or serialize "
-             "(ROADMAP Queue 1 item 5: the XLA-only predictor knobs)")
+             "(ROADMAP Queue 1, the rest of serving and the operations "
+             "planes: the XLA-only predictor knobs)")
 
 
 class AnalysisConfig:

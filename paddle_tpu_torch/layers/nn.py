@@ -1,7 +1,7 @@
 """Functional layers of the port's slices (counterpart of
 paddle_tpu/layers/nn.py; reference python/paddle/fluid/layers/nn.py):
-data, fc, embedding, conv2d, pool2d, adaptive_pool2d, batch_norm,
-layer_norm, dropout, softmax_with_cross_entropy,
+data, fc, embedding, conv2d, conv2d_transpose, pool2d, adaptive_pool2d,
+batch_norm, layer_norm, dropout, softmax_with_cross_entropy,
 sigmoid_cross_entropy_with_logits, sparse_embedding, mean, accuracy,
 resize_nearest."""
 
@@ -105,6 +105,32 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         b = helper.create_parameter(
             bias_attr, [num_filters], input.dtype, is_bias=True
         )
+        out = helper.create_and_append(
+            {"X": [out], "Y": [b]}, {"axis": 1}, op_type="elementwise_add"
+        )
+    return _apply_act(out, act)
+
+
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     groups=1, param_attr=None, bias_attr=None, act=None,
+                     name=None):
+    """Transposed NCHW convolution; the filter [in_c, num_filters /
+    groups, kh, kw] defaults to Xavier."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    k = _two(filter_size)
+    w_shape = [input.shape[1], num_filters // (groups or 1), k[0], k[1]]
+    w = helper.create_parameter(param_attr, w_shape, input.dtype)
+    attrs = {
+        "strides": _two(stride),
+        "paddings": _two(padding),
+        "groups": groups or 1,
+    }
+    out = helper.create_and_append(
+        {"Input": [input], "Filter": [w]}, attrs, out_slots=("Output",)
+    )
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
         out = helper.create_and_append(
             {"X": [out], "Y": [b]}, {"axis": 1}, op_type="elementwise_add"
         )

@@ -3,6 +3,8 @@ paddle_tpu/layers/tensor.py; reference python/paddle/fluid/layers/tensor.py)."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from .helper import LayerHelper
 
 
@@ -125,6 +127,37 @@ elementwise_max = _binary("elementwise_max")
 elementwise_min = _binary("elementwise_min")
 not_equal = _binary("not_equal")
 less_than = _binary("less_than")
+greater_equal = _binary("greater_equal")
+
+
+def abs(x, name=None):
+    return _simple("abs", {"X": [x]}, {})
+
+
+def log(x, name=None):
+    return _simple("log", {"X": [x]}, {})
+
+
+def clip(x, min, max, name=None):
+    return _simple("clip", {"X": [x]}, {"min": float(min), "max": float(max)})
+
+
+def take_along_axis(x, index, axis=-1):
+    return _simple(
+        "take_along_axis", {"Input": [x], "Index": [index]}, {"Axis": axis},
+        out_slots=("Result",),
+    )
+
+
+def assign_value(values, dtype="float32"):
+    """A constant tensor from a Python or numpy literal."""
+    arr = np.asarray(values)
+    return _simple(
+        "assign_value", {},
+        {"values": arr.reshape(-1).tolist(), "shape": list(arr.shape),
+         "dtype": dtype},
+        stop_gradient=True,
+    )
 
 
 def gelu(x, name=None, **attrs):

@@ -5,6 +5,7 @@ from . import (  # noqa: F401
     amp_ops,
     collective,
     detection,
+    detection_ext,
     fused,
     kv_cache,
     math,

@@ -1,6 +1,6 @@
 """Shared emitter helpers (counterpart of paddle_tpu/ops/_helpers.py):
-fluid's elementwise `axis` broadcast rule, per-op random streams and the
-stable sigmoid cross-entropy."""
+fluid's elementwise `axis` broadcast rule, per-op random streams, the
+detection ops' sampling jitter and the stable sigmoid cross-entropy."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.registry import BATCH_SENTINEL
+from ..kernels.prng_mask import MASK32, philox4x32_10
 
 
 def fluid_broadcast(x, y, axis):
@@ -31,6 +32,31 @@ def op_generator(ctx, op):
         gen.manual_seed(int(seed) + int(op.uid))
         return gen
     return ctx.key_for(op.uid, op.type)
+
+
+def sampling_jitter(ctx, op, n, size, device):
+    """[n, size] fp32 uniform draws in [0, 1) on the 2^-23 grid, the
+    random priority the detection ops' fg/bg subsampling adds (the JAX
+    package draws jax.random.uniform, one key an image, which the port
+    cannot reproduce): element i of image b is the top 23 bits of word 0
+    of Philox-4x32-10 at counter (i, b, 0, 0), keyed on the op's seed
+    words, or on seed + uid where the op has a `seed` attr. A pure
+    function of the key and the coordinates, so the CPU and the card draw
+    the same values and nothing is read from the host. Zeros while
+    inferring shapes."""
+    if ctx.abstract:
+        return torch.zeros((n, size), dtype=torch.float32, device=device)
+    seed = op.attr("seed", 0)
+    if seed:
+        s = int(seed) + int(op.uid)
+        words = (s & MASK32, (s >> 32) & MASK32)
+    else:
+        words = ctx.seed_words(op.uid, op.type)
+    i = torch.arange(size, dtype=torch.int64, device=device)
+    b = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    w0 = philox4x32_10(i, b, zero, zero, words)[0].expand(n, size)
+    return (w0 >> 9).to(torch.float32) * 2.0 ** -23
 
 
 def shape_attr(ctx, op):

@@ -1,6 +1,7 @@
-"""Detection ops of the YOLOv3 slice (counterpart of
+"""Detection ops of the YOLOv3 and Mask R-CNN slices (counterpart of
 paddle_tpu/ops/detection.py; reference operators/detection/:
-yolo_box_op.cc, multiclass_nms_op.cc, yolov3_loss_op.h).
+yolo_box_op.cc, multiclass_nms_op.cc, yolov3_loss_op.h,
+anchor_generator_op.h, generate_proposals_op.cc, roi_align_op.h).
 
 The JAX package's static-shape design is kept: NMS returns a fixed
 keep_top_k set padded with label -1 plus a count, and every emitter is
@@ -10,19 +11,40 @@ JAX emitters do for the TPU's sake is done the card's way: yolov3_loss
 gathers each box's cell by index (its gradient a scatter-add), where the
 JAX package multiplies by a one-hot matrix; the greedy suppression is one
 loop over the ranked boxes, batched over images and classes, where the
-JAX package unrolls it in blocks of 64. Small constant tables (anchors,
-the anchor mask) are made on a device once and kept.
+JAX package unrolls it in blocks of 64; roi_align gathers its bilinear
+corners from a channels-last copy of the map by one flat index (its
+gradient one index_add), where the JAX package vmaps a 4-D gather over
+images. Small constant tables (YOLO anchors, the anchor mask, the RPN
+anchors of a map size) are made on a device once and kept.
+
+The roi family takes a leading batch dim, as the JAX package's does:
+ROIs [B, R, 4] against X [B, C, H, W], a fixed RoI cap R an image whose
+padded rows are degenerate boxes the consumers mask.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..framework.registry import register_op
+from ..observability import metrics as _metrics
 from ._helpers import stable_sigmoid_ce as _sce  # yolov3_loss_op.h:35
 from .nn import _opt
 
 _CONSTS = {}
+
+
+def _tally(ctx, name, batched):
+    """detection.<name>.instantiations (and .batched_instantiations): one
+    bump on an executor's first run of a program (EmitContext.first_run),
+    where the JAX package traces it; none in shape inference or in the
+    __vjp__ replay (nor without a context)."""
+    if not getattr(ctx, "first_run", False):
+        return
+    _metrics.add(f"detection.{name}.instantiations")
+    if batched:
+        _metrics.add(f"detection.{name}.batched_instantiations")
 
 
 def _const(values, device, dtype=torch.float32):
@@ -159,6 +181,7 @@ def multiclass_nms_core(boxes, scores, attrs):
 )
 def _multiclass_nms(ctx, op, ins):
     """Fixed-size NMS: Out [B, keep_top_k, 6], NmsRoisNum [B]."""
+    _tally(ctx, "multiclass_nms", batched=ins["BBoxes"][0].shape[0] > 1)
     out, num, _ = multiclass_nms_core(
         ins["BBoxes"][0], ins["Scores"][0], op.attrs)
     return {"Out": [out], "NmsRoisNum": [num]}
@@ -316,3 +339,206 @@ def _yolov3_loss(ctx, op, ins):
         "ObjectnessMask": [obj_mask],
         "GTMatchMask": [gt_match.to(torch.int32)],
     }
+
+
+def _roi_batch_idx(rois_num, R, N, abstract=False):
+    """Each roi's image from RoisNum [N], the per-image roi counts (the
+    reference's ROIs LoD): roi r belongs to image sum(r >= cumsum)."""
+    if rois_num is None:
+        if N != 1 and not abstract:
+            # every roi on image 0 would be silently wrong
+            raise ValueError("roi op over a multi-image batch needs RoisNum "
+                             "(per-image roi counts)")
+        return None
+    bounds = rois_num.to(torch.int32).cumsum(0)
+    r = torch.arange(R, dtype=torch.int32, device=rois_num.device)
+    return (r[:, None] >= bounds).sum(1)
+
+
+def _axis_weights(coord, size):
+    """(low index, high index, weight low, weight high, in bounds) of
+    bilinear sampling along one axis of `size` pixels."""
+    inb = (coord >= -1.0) & (coord <= size)
+    c = coord.clamp(min=0.0)
+    low = c.to(torch.int32).clamp(max=size - 1)
+    high = (low + 1).clamp(max=size - 1)
+    frac = torch.where(low >= size - 1, 0.0, c - low)
+    return low, high, 1.0 - frac, frac, inb
+
+
+def _roi_align_compute(x, rois, bidx, ph, pw, scale, s):
+    """RoIAlign body: x [N, C, H, W], rois [..., R, 4] (fp32), bidx [...,
+    R] each roi's image (None: image 0) -> [..., R, C, ph, pw] fp32, the
+    mean of s x s bilinear samples a bin. The four corners of every sample
+    are one index_select from x laid out [N*H*W, C], so the gradient is
+    one index_add into the map."""
+    N, C, H, W = x.shape
+    dev = rois.device
+    xmin, ymin, xmax, ymax = (rois[..., i] * scale for i in range(4))
+    bw = (xmax - xmin).clamp(min=1.0) / pw
+    bh = (ymax - ymin).clamp(min=1.0) / ph
+    iy = torch.arange(s, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(ph, dtype=torch.float32, device=dev)
+    px = torch.arange(pw, dtype=torch.float32, device=dev)
+    # sample coordinates [..., R, ph (pw), s], in the JAX package's order
+    bh3, bw3 = bh[..., None, None], bw[..., None, None]
+    ys = ymin[..., None, None] + py[:, None] * bh3 + iy * bh3 / s
+    xs = xmin[..., None, None] + px[:, None] * bw3 + iy * bw3 / s
+    yl, yh, wyl, wyh, yin = _axis_weights(ys, H)
+    xl, xh, wxl, wxh, xin = _axis_weights(xs, W)
+
+    def rows(v):  # [..., R, ph, s] -> [..., R, ph, 1, s, 1]
+        return v[..., :, None, :, None]
+
+    def cols(v):  # [..., R, pw, s] -> [..., R, 1, pw, 1, s]
+        return v[..., None, :, None, :]
+
+    base = 0 if bidx is None else bidx[..., None, None, None, None] * H
+    corners = [(base + rows(yi)) * W + cols(xi)
+               for yi in (yl, yh) for xi in (xl, xh)]
+    weights = [rows(wy) * cols(wx) for wy in (wyl, wyh) for wx in (wxl, wxh)]
+    idx = torch.stack(torch.broadcast_tensors(*corners))  # [4, ..., s, s]
+    flat = x.permute(0, 2, 3, 1).reshape(N * H * W, C)
+    g = torch.index_select(flat, 0, idx.reshape(-1).long()).reshape(
+        idx.shape + (C,))
+    val = (g[0] * weights[0][..., None] + g[1] * weights[1][..., None]
+           + g[2] * weights[2][..., None] + g[3] * weights[3][..., None])
+    inb = (rows(yin) & cols(xin))[..., None]
+    val = torch.where(inb, val, 0.0).mean(dim=(-3, -2))  # [..., ph, pw, C]
+    return val.movedim(-1, -3)
+
+
+@register_op("roi_align", inputs=["X", "ROIs", "RoisNum"], outputs=["Out"])
+def _roi_align(ctx, op, ins):
+    """RoIAlign (roi_align_op.h) on a fixed sampling grid (sampling_ratio,
+    2 where it is <= 0): ROIs [R, 4] (with RoisNum [N] over a batch of N
+    maps) -> Out [R, C, ph, pw]; ROIs [B, R, 4] against X [B, C, H, W],
+    image b's rois on map b alone -> Out [B, R, C, ph, pw]. Computed in
+    fp32, given in X's dtype."""
+    x = ins["X"][0]
+    rois = ins["ROIs"][0].float()
+    rois_num = _opt(ins, "RoisNum")
+    ph = int(op.attr("pooled_height", 1))
+    pw = int(op.attr("pooled_width", 1))
+    scale = float(op.attr("spatial_scale", 1.0))
+    sr = int(op.attr("sampling_ratio", -1))
+    s = sr if sr > 0 else 2
+    if rois.dim() == 3:  # [B, R, 4] cross-image batched form
+        _tally(ctx, "roi_align", batched=True)
+        bidx = torch.arange(rois.shape[0], device=rois.device)[:, None]
+    else:
+        _tally(ctx, "roi_align", batched=False)
+        bidx = _roi_batch_idx(rois_num, rois.shape[0], x.shape[0],
+                              ctx.abstract)
+    out = _roi_align_compute(x, rois, bidx, ph, pw, scale, s)
+    return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("anchor_generator", inputs=["Input"],
+             outputs=["Anchors", "Variances"], differentiable=False)
+def _anchor_generator(ctx, op, ins):
+    """RPN anchors of every cell of a map (anchor_generator_op.h:38-85):
+    Anchors [H, W, A, 4] with A = len(aspect_ratios) * len(anchor_sizes),
+    Variances the same shape. Made on a device once a (map size, attrs)."""
+    feat = ins["Input"][0]
+    H, W = feat.shape[2], feat.shape[3]
+    sizes = [float(v) for v in op.attr("anchor_sizes")]
+    ars = [float(v) for v in op.attr("aspect_ratios", [1.0])]
+    variances = [float(v) for v in op.attr("variances", [0.1, 0.1, 0.2, 0.2])]
+    sw, sh = (float(v) for v in op.attr("stride"))
+    offset = float(op.attr("offset", 0.5))
+    key = ("anchors", H, W, tuple(sizes), tuple(ars), tuple(variances), sw,
+           sh, offset, str(feat.device))
+    if key not in _CONSTS:
+        whs = []
+        for ar in ars:
+            base_w = np.round(np.sqrt(sw * sh / ar))
+            base_h = np.round(base_w * ar)
+            for size in sizes:
+                whs += [size / sw * base_w, size / sh * base_h]
+        dev = feat.device
+        whs = torch.tensor(whs, dtype=torch.float32, device=dev).reshape(
+            -1, 2)
+        xc = torch.arange(W, dtype=torch.float32, device=dev) * sw \
+            + offset * (sw - 1)
+        yc = torch.arange(H, dtype=torch.float32, device=dev) * sh \
+            + offset * (sh - 1)
+        xg, yg = torch.meshgrid(xc, yc, indexing="xy")  # [H, W]
+        ctr = torch.stack([xg, yg], -1)[:, :, None, :]  # [H, W, 1, 2]
+        half = (whs - 1.0) / 2.0
+        anchors = torch.cat([ctr - half, ctr + half], -1)  # [H, W, A, 4]
+        var = torch.tensor(variances, dtype=torch.float32,
+                           device=dev).expand(anchors.shape)
+        _CONSTS[key] = (anchors, var)
+    anchors, var = _CONSTS[key]
+    return {"Anchors": [anchors], "Variances": [var]}
+
+
+@register_op(
+    "generate_proposals",
+    inputs=["Scores", "BboxDeltas", "ImInfo", "Anchors", "Variances"],
+    outputs=["RpnRois", "RpnRoiProbs", "RpnRoisNum"],
+    differentiable=False,
+)
+def _generate_proposals(ctx, op, ins):
+    """RPN proposals (generate_proposals_op.cc) in static shapes, for
+    every image at once: decode all anchors, clip them to the image, drop
+    boxes under min_size, take the pre_nms_topN best scores (ties: the
+    lower index first), suppress greedily, and emit exactly post_nms_topN
+    rois an image, left-packed in score order and zero-padded, with
+    RpnRoisNum [N] counting the live ones."""
+    scores = ins["Scores"][0]  # [N, A, H, W]
+    deltas = ins["BboxDeltas"][0]  # [N, A*4, H, W]
+    _tally(ctx, "generate_proposals", batched=scores.shape[0] > 1)
+    im_info = ins["ImInfo"][0].float()  # [N, 3]
+    anchors = ins["Anchors"][0].reshape(-1, 4).float()
+    variances = ins["Variances"][0].reshape(-1, 4).float()
+    pre_n = int(op.attr("pre_nms_topN", 6000))
+    post_n = int(op.attr("post_nms_topN", 1000))
+    nms_thresh = float(op.attr("nms_thresh", 0.7))
+    min_size = float(op.attr("min_size", 0.1))
+
+    N, A, H, W = scores.shape
+    M = A * H * W
+    sc = scores.permute(0, 2, 3, 1).reshape(N, M)
+    dl = deltas.reshape(N, A, 4, H, W).permute(0, 3, 4, 1, 2).reshape(
+        N, M, 4)
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    acx = anchors[:, 0] + aw * 0.5
+    acy = anchors[:, 1] + ah * 0.5
+    cx = variances[:, 0] * dl[..., 0] * aw + acx
+    cy = variances[:, 1] * dl[..., 1] * ah + acy
+    w = torch.exp((variances[:, 2] * dl[..., 2]).clamp(max=10.0)) * aw
+    h = torch.exp((variances[:, 3] * dl[..., 3]).clamp(max=10.0)) * ah
+    imh, imw = im_info[:, 0:1], im_info[:, 1:2]
+    x0 = (cx - 0.5 * w).clamp(min=0.0).minimum(imw - 1.0)
+    y0 = (cy - 0.5 * h).clamp(min=0.0).minimum(imh - 1.0)
+    x1 = (cx + 0.5 * w - 1.0).clamp(min=0.0).minimum(imw - 1.0)
+    y1 = (cy + 0.5 * h - 1.0).clamp(min=0.0).minimum(imh - 1.0)
+    boxes = torch.stack([x0, y0, x1, y1], -1)  # [N, M, 4]
+
+    # FilterBoxes (generate_proposals_op.cc:168): the box's size in the
+    # original image's units, w / im_scale + 1, reaches max(min_size, 1)
+    ms = max(min_size, 1.0)
+    im_scale = im_info[:, 2:3]
+    keep = ((x1 - x0) / im_scale + 1.0 >= ms) & (
+        (y1 - y0) / im_scale + 1.0 >= ms)
+    sc = torch.where(keep, sc, -torch.inf)
+
+    k = min(pre_n, M)
+    top_sc, top_i = _sorted_desc(sc)
+    top_sc, top_i = top_sc[:, :k], top_i[:, :k]
+    top_boxes = torch.gather(boxes, 1, top_i[..., None].expand(N, k, 4))
+    alive = _greedy_nms(top_boxes, torch.isfinite(top_sc), nms_thresh)
+    # the first post_n survivors in score order; the suppressed and the
+    # overflow land on a dump row post_n
+    rank = alive.to(torch.int32).cumsum(1) - 1
+    slot = torch.where(alive & (rank < post_n), rank, post_n)
+    out_boxes = boxes.new_zeros(N, post_n + 1, 4).scatter_(
+        1, slot[..., None].expand(N, k, 4), top_boxes)[:, :post_n]
+    out_probs = sc.new_zeros(N, post_n + 1).scatter_(
+        1, slot, top_sc)[:, :post_n]
+    num = alive.sum(1).clamp(max=post_n).to(torch.int32)
+    return {"RpnRois": [out_boxes], "RpnRoiProbs": [out_probs[..., None]],
+            "RpnRoisNum": [num]}

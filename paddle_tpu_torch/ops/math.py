@@ -1,7 +1,11 @@
 """Dense math ops of the port's slices (counterpart of
 paddle_tpu/ops/math.py; reference elementwise ops, square_op, scale_op.cc,
 mul_op.cc, matmul_op.cc, mean_op.cc, reduce_sum_op.cc, reduce_mean_op.cc,
-sum_op.cc, compare_op.cc)."""
+sum_op.cc, compare_op.cc, abs_op, log_op, clip_op.cc).
+
+Where jnp's gradient differs from torch's at a kink, the emitter is
+written so that torch autograd (the `__vjp__` replay) gives the JAX
+package's: abs has gradient 1 at 0, clip 0.5 at either bound."""
 
 from __future__ import annotations
 
@@ -31,11 +35,36 @@ _register_elementwise("elementwise_max", torch.maximum)
 _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("not_equal", torch.ne, differentiable=False)
 _register_elementwise("less_than", torch.lt, differentiable=False)
+_register_elementwise("greater_equal", torch.ge, differentiable=False)
 
 
 @register_op("square", inputs=["X"], outputs=["Out"])
 def _square(ctx, op, ins):
     return {"Out": [torch.square(ins["X"][0])]}
+
+
+@register_op("abs", inputs=["X"], outputs=["Out"])
+def _abs(ctx, op, ins):
+    # where(x >= 0, x, -x): gradient 1 at 0, as jnp.abs's (torch.abs's
+    # is 0)
+    x = ins["X"][0]
+    return {"Out": [torch.where(x >= 0, x, -x)]}
+
+
+@register_op("log", inputs=["X"], outputs=["Out"])
+def _log(ctx, op, ins):
+    return {"Out": [torch.log(ins["X"][0])]}
+
+
+@register_op("clip", inputs=["X"], outputs=["Out"])
+def _clip(ctx, op, ins):
+    """min(max(x, lo), hi), as jnp.clip: torch.maximum and torch.minimum
+    split the gradient evenly at a tie, so it is 0.5 at either bound
+    (torch.clamp's is 1)."""
+    x = ins["X"][0]
+    lo = torch.full((), float(op.attr("min")), dtype=x.dtype, device=x.device)
+    hi = torch.full((), float(op.attr("max")), dtype=x.dtype, device=x.device)
+    return {"Out": [torch.minimum(torch.maximum(x, lo), hi)]}
 
 
 @register_op("pow", inputs=["X"], outputs=["Out"])

@@ -1,6 +1,6 @@
 """NN ops of the port's slices (counterpart of paddle_tpu/ops/nn.py;
-reference conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
-lookup_table_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
+reference conv_op.cc, conv_transpose_op.cc, pool_op.cc, batch_norm_op.cc,
+layer_norm_op.cc, lookup_table_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
 softmax_with_cross_entropy_op.cc,
 sigmoid_cross_entropy_with_logits_op.cc, pad2d_op.cc, interpolate_op.cc).
 
@@ -70,6 +70,21 @@ def _conv2d(ctx, op, ins):
         padding = 0
     out = F.conv2d(x, w, stride=strides, padding=padding,
                    dilation=dilations, groups=op.attr("groups", 1) or 1)
+    return {"Output": [out]}
+
+
+@register_op("conv2d_transpose", inputs=["Input", "Filter"],
+             outputs=["Output"])
+def _conv2d_transpose(ctx, op, ins):
+    """The gradient of a convolution with respect to its input: fluid's
+    filter [in_c, out_c / groups, kh, kw] is F.conv_transpose2d's layout,
+    and the output side is (in - 1) * stride - 2 * padding + k, the JAX
+    package's lhs-dilated form with kh - 1 - padding a side."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    out = F.conv_transpose2d(
+        x, w, stride=_pair(op.attr("strides", [1, 1])),
+        padding=_pair(op.attr("paddings", [0, 0]))[:2],
+        groups=op.attr("groups", 1) or 1)
     return {"Output": [out]}
 
 

@@ -1,13 +1,15 @@
 """Tensor ops of the serving and training slices (counterpart of
 paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, transpose_op.cc,
 slice_op.cc, concat_op.cc, fill_constant_op.cc, range_op.cc, cast_op.cc,
-assign_op.cc, gather_op.cc, increment_op.cc, tril_triu_op.cc, top_k_op.cc)."""
+assign_op.cc, assign_value_op.cc, gather_op.cc, take_along_axis_op.cc,
+increment_op.cc, tril_triu_op.cc, top_k_op.cc)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..core.dtypes import to_torch_dtype
+from ..core.dtypes import to_numpy_dtype, to_torch_dtype
 from ..framework.registry import register_op
 from ._helpers import shape_attr
 
@@ -97,6 +99,28 @@ def _gather(ctx, op, ins):
     if idx.dim() == 2 and idx.shape[1] == 1:
         idx = idx[:, 0]
     return {"Out": [torch.index_select(x, op.attr("axis", 0), idx.long())]}
+
+
+@register_op("assign_value", inputs=[], outputs=["Out"])
+def _assign_value(ctx, op, ins):
+    """A constant from the op's `values`, `shape` and `dtype` attrs."""
+    dtype = op.attr("dtype", "float32")
+    vals = np.array(op.attr("values"), dtype=to_numpy_dtype(dtype))
+    return {"Out": [torch.as_tensor(vals.reshape(op.attr("shape")),
+                                    device=ctx.device)]}
+
+
+@register_op("take_along_axis", inputs=["Input", "Index"],
+             outputs=["Result"])
+def _take_along_axis(ctx, op, ins):
+    """jnp.take_along_axis: the index broadcasts against the input on
+    every axis but `Axis` (torch.gather does not broadcast, so it is
+    expanded first). Its gradient is a scatter-add."""
+    x, idx = ins["Input"][0], ins["Index"][0]
+    axis = op.attr("Axis", 0) % x.dim()
+    shape = [n if d == axis else max(n, m)
+             for d, (n, m) in enumerate(zip(idx.shape, x.shape))]
+    return {"Result": [torch.gather(x, axis, idx.long().expand(shape))]}
 
 
 @register_op("increment", inputs=["X"], outputs=["Out"], differentiable=False)

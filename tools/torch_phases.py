@@ -3,7 +3,7 @@
 iterating on a slice without the whole script. Builds no kernel: no
 section here runs one.
 
-    cd <checkout> && python3 tools/torch_phases.py yolov3|ctr
+    cd <checkout> && python3 tools/torch_phases.py yolov3|ctr|mask_rcnn
 
 yolov3: the reduced training step against the CPU (yolov3_train_small),
 bench_yolov3's AMP step at the paper's width (yolov3_train_full) and the
@@ -13,6 +13,12 @@ per-slot fused and cached (ctr_train_small), its deepfm leg at
 DeepFMConfig.criteo() (ctr_deepfm), its deepfm_fused leg
 (ctr_deepfm_fused) and bench_serving.py's ctr_rank ranker
 (ctr_rank_serving).
+mask_rcnn: bench.py's mask_rcnn leg at its CPU config against the CPU,
+batched and legacy (mask_rcnn_train_small), its batched AMP step on an
+accelerator (mask_rcnn_train_full), mask_rcnn_infer behind the predictor
+(mask_rcnn_predictor), and, which chip_smoke.py does not run, the legacy
+leg's four-image unroll under AMP on an accelerator
+(mask_rcnn_legacy_full).
 
 Imports the port and chip_smoke.py from the current directory, turns
 TF32 off as chip_smoke.py does, runs each phase in turn (a failed phase
@@ -36,6 +42,10 @@ SECTIONS = {
             ("deepfm", cs.ctr_deepfm),
             ("deepfm_fused", cs.ctr_deepfm_fused),
             ("ctr_rank", cs.ctr_rank_serving)),
+    "mask_rcnn": (("small", cs.mask_rcnn_train_small),
+                  ("full", cs.mask_rcnn_train_full),
+                  ("predictor", cs.mask_rcnn_predictor),
+                  ("legacy", cs.mask_rcnn_legacy_full)),
 }
 
 
