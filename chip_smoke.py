@@ -205,7 +205,24 @@ Phases, each fatal on failure:
    inference.create_paddle_predictor: detections and mask logits
    against a direct run on the card and the port's CPU run (labels and
    counts equal, near-tie rows as a set), no kernel of ours; ms a batch;
-30. kernel times: each kernel beside its plain version, its bound and one
+30. dygraph (the eager mode), reduced depth: the eager BERT classifier
+   (build_dygraph_bert: Embedding, LayerNorm, per layer Linear,
+   layers.fused_qkv_attention, Linear, a traced fused_dropout_add_ln,
+   the gelu FFN and fused_dropout_add_ln again; tanh pooler, 2-way head)
+   at BERT-base width, 2 layers, B=2, S=128, no dropout, Adam(1e-3):
+   two eager steps on the card (its kernels, through torch autograd) and
+   on the CPU (their plain versions) from one state, loss and every
+   gradient under phase 5's tolerances, the parameters under its update
+   rule, the eval logits; then the full width (BertConfig.base()),
+   B=32, S=128, dropout 0.1, Adam under bench_bert's schedule as dygraph
+   objects: 2 warm-up and 5 timed steps and one profiled, each launching
+   #1 12, #3 12 + 12, #2 24 and #4 24 times; a step with
+   FLAGS_paddle_tpu_pallas_layer_norm on (#10/#11 once each, the
+   embedding LayerNorm); evaluation under no_grad at B=8 (#1 12, #2 24,
+   no backward); save_dygraph / load_dygraph into a fresh net (bit-equal
+   parameters and next loss); DataParallel on a 1-rank NCCL group (the
+   plain step's gradients);
+31. kernel times: each kernel beside its plain version, its bound and one
    PyTorch call, at the serving, the BERT training (#1, the backward
    pair #3, #2 and #4 also in bf16 at the BERT AMP path's activations,
    beside SDPA's and F.layer_norm's bf16) and the GPT shapes (#7 also in bf16
@@ -222,7 +239,10 @@ Phases, each fatal on failure:
    causal as the yardstick; #13/#14 with two launches that give the same
    bits). The kernels on the tensor cores, the forwards #1/#5 and #12
    and the backward pairs, carry their TFLOP/s of products and the bound
-   of their 3xTF32 arithmetic, with the fp32 CUDA-core bound beside it.
+   of their 3xTF32 arithmetic, with the fp32 CUDA-core bound beside it;
+   and the dygraph path's #1, #3, #2, #4 (B=32, S=128, training
+   dropout), #1 and #2 in eval (B=8) and #10/#11 at the embedding
+   LayerNorm's [4096, 768].
 
 The line before the last is the card's name and power limit; the line
 before that is a JSON object with one entry per kernel and path. The last
@@ -3231,16 +3251,42 @@ MMA_KERNELS = (
 )
 
 
-def sass_hmma(lib_name, kernels):
-    """{"kernel<dtype, D>": HMMA (tensor-core) instructions} of each
-    instance of the named kernels in the SASS of a kernel library
-    (cuobjdump -sass)."""
+def sass_texts(lib_names):
+    """{library: its SASS} from cuobjdump -sass, one process per library,
+    all started together (each takes seconds), each writing to a file of
+    its own so that none waits on a full pipe."""
+    import tempfile
+
     from paddle_tpu_torch.kernels import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(lib_name))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
+    files = {name: tempfile.TemporaryFile(mode="w+") for name in lib_names}
+    procs = {}
+    try:
+        for name, f in files.items():
+            procs[name] = subprocess.Popen(
+                [str(tool), "-sass", str(_build.lib_path(name))], stdout=f,
+                stderr=subprocess.STDOUT, text=True)
+        out = {}
+        for name, proc in procs.items():
+            proc.wait(timeout=300)
+            files[name].seek(0)
+            out[name] = files[name].read()
+            check(proc.returncode == 0,
+                  f"cuobjdump -sass {name} failed: {out[name][-2000:]}")
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files.values():
+            f.close()
+
+
+def sass_hmma(sass, kernels):
+    """{"kernel<dtype, D>": HMMA (tensor-core) instructions} of each
+    instance of the named kernels in a kernel library's SASS."""
     pattern = re.compile(rf"({'|'.join(kernels)})I(\w+?)Li(\d+)E")
     hmma, name = {}, None
     for line in sass.splitlines():
@@ -3272,8 +3318,9 @@ def tensor_cores():
 
     print("== kernels on the tensor cores as built: tensor-core "
           "instructions, blocks an SM")
+    sass = sass_texts([lib_name for lib_name, _, _ in MMA_KERNELS])
     for lib_name, kernels, entry in MMA_KERNELS:
-        hmma = sass_hmma(lib_name, kernels)
+        hmma = sass_hmma(sass[lib_name], kernels)
         occupancy = getattr(_build.load(lib_name), entry)
         pair = len(kernels) == 2
         occupancy.argtypes = [ctypes.c_int] * (3 if pair else 2) + [
@@ -5466,6 +5513,702 @@ def mask_rcnn_path(fluid, kc):
     print(f"Mask R-CNN section: {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# dygraph: the eager mode (paddle_tpu_torch.dygraph), a BERT-base-width
+# encoder classifier trained and evaluated through torch autograd
+# ---------------------------------------------------------------------------
+
+# bench_bert's schedule as dygraph objects: linear warmup from 0 to 1e-4
+# over 1000 steps, over polynomial decay from 1e-4 to 1e-5 in 100000
+DG_B, DG_S, DG_EVAL_B = 32, 128, 8
+DG_WARM, DG_TIMED, DG_EVAL_BATCHES = 2, 5, 3
+DG_SMALL = (2, 2, 128)  # layers, B, S of the card-vs-CPU network
+
+
+def build_dygraph_bert(dg, layers, cfg):
+    """The eager BERT classifier at cfg's widths, written in the dygraph
+    API of the package whose `dygraph` module is `dg` (and whose layers
+    are `layers`), so either package builds it. It follows
+    models/bert.py's encoder op for op: word, position and type
+    Embedding, LayerNorm and dropout; per layer Linear(H, 3H),
+    layers.fused_qkv_attention with the mask's key bias, Linear(H, H), a
+    traced fused_dropout_add_ln on the layer's own scale and bias,
+    Linear(H, F, act="gelu"), Linear(F, H) and the second
+    fused_dropout_add_ln; then the first token through a tanh pooler,
+    Linear(H, 2), and with labels softmax_with_cross_entropy and
+    reduce_mean. forward(ids, types, mask[, label]) returns (loss,
+    logits) with a label, else the logits [B, 2]."""
+    import importlib
+
+    from_pkg = importlib.import_module(dg.__name__.rpartition(".")[0])
+    init = from_pkg.initializer
+    trace_op_multi = importlib.import_module(
+        dg.__name__ + ".tracer").trace_op_multi
+    h, nh = cfg.hidden_size, cfg.num_heads
+
+    def weight():
+        return from_pkg.ParamAttr(
+            initializer=init.Normal(0.0, cfg.initializer_range))
+
+    class ResidualLN(dg.Layer):
+        """LN(x + dropout(y)) as one traced fused_dropout_add_ln."""
+
+        def __init__(self):
+            super().__init__()
+            self.scale = self.create_parameter([h],
+                                               initializer=init.Constant(1.0))
+            self.bias = self.create_parameter([h], is_bias=True)
+
+        def forward(self, x, y):
+            return trace_op_multi(
+                "fused_dropout_add_ln",
+                {"X": [x], "Y": [y], "Scale": [self.scale],
+                 "LnBias": [self.bias]},
+                {"dropout_prob": cfg.hidden_dropout,
+                 "is_test": not self.training,
+                 "dropout_implementation": "downgrade_in_infer",
+                 "epsilon": 1e-5})["Out"][0]
+
+    class EncoderLayer(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.qkv = dg.Linear(h, 3 * h, param_attr=weight())
+            self.out = dg.Linear(h, h, param_attr=weight())
+            self.ln1 = ResidualLN()
+            self.ffn_in = dg.Linear(h, cfg.intermediate_size,
+                                    param_attr=weight(), act="gelu")
+            self.ffn_out = dg.Linear(cfg.intermediate_size, h,
+                                     param_attr=weight())
+            self.ln2 = ResidualLN()
+
+        def forward(self, x, key_bias):
+            ctx = layers.fused_qkv_attention(
+                self.qkv(x), nh, key_bias=key_bias,
+                scale=1.0 / math.sqrt(h // nh),
+                dropout_prob=cfg.attention_dropout,
+                is_test=not self.training)
+            x = self.ln1(x, self.out(ctx))
+            return self.ln2(x, self.ffn_out(self.ffn_in(x)))
+
+    class BertClassifier(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = dg.Embedding([cfg.vocab_size, h], param_attr=weight())
+            self.pos = dg.Embedding([cfg.max_position, h],
+                                    param_attr=weight())
+            self.type = dg.Embedding([cfg.type_vocab_size, h],
+                                     param_attr=weight())
+            self.emb_ln = dg.LayerNorm(h)
+            self.encoder = dg.LayerList(
+                [EncoderLayer() for _ in range(cfg.num_layers)])
+            self.pooler = dg.Linear(h, h, param_attr=weight(), act="tanh")
+            self.cls = dg.Linear(h, 2, param_attr=weight())
+
+        def forward(self, ids, types, mask, label=None):
+            s = ids.shape[1]
+            pos = layers.reshape(layers.range(0, s, 1, "int64"), [1, s])
+            emb = self.word(ids) + self.pos(pos) + self.type(types)
+            x = layers.dropout(self.emb_ln(emb), cfg.hidden_dropout,
+                               is_test=not self.training)
+            key_bias = layers.scale(mask, scale=1e4, bias=-1e4)
+            for layer in self.encoder:
+                x = layer(x, key_bias)
+            first = layers.reshape(layers.slice(x, [1], [0], [1]), [-1, h])
+            logits = self.cls(self.pooler(first))
+            if label is None:
+                return logits
+            loss = layers.reduce_mean(
+                layers.softmax_with_cross_entropy(logits, label))
+            return loss, logits
+
+    return BertClassifier()
+
+
+def dygraph_batches(cfg, B, S, n, seed=0):
+    """n eager batches from RandomState(seed) as numpy: ids, types, a
+    padded tail of keys in every other sample, labels [B, 1]."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        mask = np.ones((B, S), "float32")
+        mask[1::2, S - S // 4:] = 0.0
+        out.append({
+            "ids": rng.randint(0, cfg.vocab_size, (B, S)).astype("int64"),
+            "types": rng.randint(0, cfg.type_vocab_size,
+                                 (B, S)).astype("int64"),
+            "mask": mask,
+            "label": rng.randint(0, 2, (B, 1)).astype("int64"),
+        })
+    return out
+
+
+def dygraph_vars(dg, batch):
+    """A batch as VarBases on the guard's device, in forward()'s order."""
+    return [dg.to_variable(batch[k]) for k in ("ids", "types", "mask",
+                                               "label")]
+
+
+def dygraph_grads(net):
+    return {n: p.gradient() for n, p in net.named_parameters()}
+
+
+def dygraph_small(fluid):
+    """The small eager network (BERT-base width, DG_SMALL's depth, batch
+    and sequence, no dropout, Adam at SMALL_LR) on the card, through the
+    kernels, and on the CPU, through their plain versions, from one
+    state: two eager steps, the loss and every gradient of each under
+    FP32_TOL, the parameters after them under its update rule, then the
+    eval-mode logits of the updated nets under no_grad."""
+    from paddle_tpu_torch import convert, dygraph as dg, layers
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    n_layers, B, S = DG_SMALL
+    print(f"== dygraph, reduced depth: BERT-base width, {n_layers} layers, "
+          f"B={B}, S={S}, no dropout, Adam({SMALL_LR:g}); eager on the card "
+          "vs CPUPlace()")
+    cfg = BertConfig.base()
+    cfg.num_layers = n_layers
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    batches = dygraph_batches(cfg, B, S, 2, seed=1)
+    runs, start = [], None
+    t0 = time.perf_counter()
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        with dg.guard(place):
+            net = build_dygraph_bert(dg, layers, cfg)
+            if start is None:
+                start = net.state_dict()
+            else:
+                convert.layer_state_from_numpy(net, start)
+            opt = fluid.optimizer.Adam(SMALL_LR,
+                                       parameter_list=net.parameters())
+            losses, grads = [], []
+            for b in batches:
+                loss, _ = net(*dygraph_vars(dg, b))
+                loss.backward()
+                grads.append(dygraph_grads(net))
+                opt.minimize(loss)
+                net.clear_gradients()
+                losses.append(loss.numpy())
+            net.eval()
+            with dg.no_grad():
+                logits = net(*dygraph_vars(dg, batches[0])[:3]).numpy()
+            runs.append((losses, grads, net.state_dict(), logits))
+    (gl, gg, gend, glog), (cl, cg, cend, clog) = runs
+    worst = 0.0
+    for step in range(len(batches)):
+        rel = float(np.abs(gl[step] - cl[step]).max() / np.abs(cl[step]).max())
+        check(np.isfinite(gl[step]).all() and rel <= FP32_TOL["loss"],
+              f"dygraph step {step}: loss {gl[step]} vs CPU {cl[step]}")
+        for n, c in cg[step].items():
+            check(gg[step][n] is not None and c is not None,
+                  f"dygraph step {step}: no gradient reached {n}")
+            err, ok = _held(gg[step][n], c, FP32_TOL["grad"])
+            worst = max(worst, err)
+            check(ok, f"dygraph step {step}: {n} gradient differs by "
+                  f"{err:.3e}")
+    pairs = {n: [(gg[i][n], cg[i][n]) for i in range(len(batches))]
+             for n in cg[0]}
+    worst_u, exempt, total = check_updates(start, gend, cend, pairs,
+                                           SMALL_LR, *FP32_TOL["update"])
+    moved = sum(not np.array_equal(start[n], cend[n]) for n in pairs)
+    check(moved == len(pairs), f"{moved} of {len(pairs)} parameters moved")
+    e_log = float(np.abs(glog - clog).max())
+    check(np.isfinite(glog).all() and e_log <= PROB_ATOL,
+          f"dygraph eval logits differ by {e_log:.3e}")
+    print(f"{len(batches)} eager steps, {len(pairs)} parameters: loss "
+          f"{[float(v[0]) for v in gl]} (card) vs {[float(v[0]) for v in cl]}"
+          f" (CPU); every gradient within {FP32_TOL['grad']} (worst "
+          f"{worst:.2e}); updates {worst_u:.2e} of (|update| + lr), "
+          f"{exempt} of {total} exempt; eval logits max_abs_err "
+          f"{e_log:.2e} (atol {PROB_ATOL:g}); {time.perf_counter() - t0:.1f}s")
+
+
+def dygraph_lr(dg):
+    """bench_bert's schedule as dygraph objects (its static form is
+    layers.linear_lr_warmup over layers.polynomial_decay)."""
+    return dg.LinearLrWarmup(dg.PolynomialDecay(1e-4, 100000, 1e-5), 1000,
+                             0.0, 1e-4)
+
+
+def dygraph_train_step(net, opt, vars_):
+    """One eager training step; returns the loss VarBase (not read)."""
+    loss, _ = net(*vars_)
+    loss.backward()
+    opt.minimize(loss)
+    net.clear_gradients()
+    return loss
+
+
+def dygraph_expect(n_layers, ln=False):
+    """The kernel launches of one eager training step: per layer one
+    attention forward (#1), its dq and dkv (#3), two residual forwards
+    (#2) and backwards (#4, each with its sum_partials); with the flag,
+    the embedding LayerNorm's #10 and #11 (and #11's sum_partials)."""
+    n = {k: 0 for k in DG_COUNTERS}
+    n.update(attention_fwd=n_layers, attention_bwd_dq=n_layers,
+             attention_bwd_dkv=n_layers, residual_fwd=2 * n_layers,
+             residual_bwd=2 * n_layers, sum_partials=2 * n_layers)
+    if ln:
+        n.update(layer_norm_fwd=1, layer_norm_bwd=1,
+                 sum_partials=2 * n_layers + 1)
+    return n
+
+
+DG_COUNTERS = ("ring_fwd", "ring_bwd_dq", "ring_bwd_dkv", "layer_norm_fwd",
+               "layer_norm_bwd", "attention_fwd", "attention_bwd_dq",
+               "attention_bwd_dkv", "residual_fwd", "residual_bwd",
+               "sum_partials", "tiled_fwd", "tiled_bwd_dq", "tiled_bwd_dkv",
+               "mha_fwd", "mha_bwd_dq", "mha_bwd_dkv")
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def timed_eager(fn, n):
+    """n calls of fn: (wall ms, host ms until fn returned) of each."""
+    wall, host = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wall.append((t2 - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+    return wall, host
+
+
+def dygraph_train_full(fluid, kc):
+    """bench_bert's widths (BertConfig.base(): vocab 30522, 12 layers,
+    hidden 768, 12 heads, FFN 3072) as the eager classifier, B=32, S=128,
+    dropout 0.1, Adam under dygraph_lr, fp32: DG_WARM warm-up and
+    DG_TIMED timed steps, each launching dygraph_expect's kernels, and one
+    under torch.profiler (card busy and idle share, host-device
+    synchronisations); one step with FLAGS_paddle_tpu_pallas_layer_norm
+    on (#10/#11 once each); evaluation (net.eval() under no_grad, B=8)
+    with #1 and #2 only; then
+    save_dygraph -> load_dygraph into a fresh net (set_dict): every
+    parameter bit-equal and the next step's loss bit-equal to the
+    original net's from the same tracer state; and DataParallel on a
+    1-rank NCCL group, whose gradients are the plain step's. Returns the
+    launches of the training run's steps, of the flag-on step and of the
+    eval batches."""
+    import tempfile
+
+    from paddle_tpu_torch import dygraph as dg, layers
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.parallel import make_mesh, mesh_guard
+
+    cfg = BertConfig.base()
+    print(f"== dygraph training path: the eager BERT classifier at "
+          f"BertConfig.base(), B={DG_B}, S={DG_S}, dropout "
+          f"{cfg.hidden_dropout}, Adam under linear warmup over polynomial "
+          "decay, fp32")
+    expect = dygraph_expect(cfg.num_layers)
+    batches = dygraph_batches(cfg, DG_B, DG_S, 2)
+    t_sec = time.perf_counter()
+    fluid.default_startup_program().random_seed = SEED
+    with dg.guard():
+        t0 = time.perf_counter()
+        net = build_dygraph_bert(dg, layers, cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.value.numel() for p in net.parameters())
+        print(f"built on the card in {time.perf_counter() - t0:.2f}s: "
+              f"{n_params / 1e6:.1f}M parameters in "
+              f"{len(net.parameters())} tensors")
+        check(all(p.value.is_cuda for p in net.parameters()),
+              "a parameter is off the card")
+        opt = fluid.optimizer.Adam(dygraph_lr(dg),
+                                   parameter_list=net.parameters())
+        staged = [dygraph_vars(dg, b) for b in batches]
+        torch.cuda.reset_peak_memory_stats()
+        first = {n: p.numpy() for n, p in net.named_parameters()}
+        losses, steps = [], DG_WARM + DG_TIMED
+        step_i = [0]
+
+        def step():
+            before = read_counts(kc)
+            losses.append(dygraph_train_step(net, opt,
+                                             staged[step_i[0] % 2]))
+            now = read_counts(kc)
+            got = {k: now[k] - before[k] for k in DG_COUNTERS}
+            check(got == expect, f"eager step {step_i[0]} launched {got}, "
+                  f"want {expect}")
+            step_i[0] += 1
+
+        reset_counts(kc)
+        step()  # lr 0 at warmup's step 0: Adam moves nothing
+        check(all(np.array_equal(first[n], p.numpy())
+                  for n, p in net.named_parameters()),
+              "a weight moved at lr 0")
+        wall, host = timed_eager(step, steps - 1)
+        print("  one eager step under torch.profiler:")
+        prof = profile_step(step)
+        # the training run's launches, every step's checked above
+        train_n = {k: read_counts(kc)[k] for k in DG_COUNTERS}
+        moved = sum(not np.array_equal(first[n], p.numpy())
+                    for n, p in net.named_parameters())
+        check(moved == len(first), f"{moved} of {len(first)} weights moved")
+        vals = [float(v.numpy()[0]) for v in losses]
+        check(all(math.isfinite(v) for v in vals), f"losses {vals}")
+        t_wall = statistics.median(wall[DG_WARM - 1:])
+        t_host = statistics.median(host[DG_WARM - 1:])
+        print(f"  losses {vals}")
+        print(f"eager step (median [min, max] of {DG_TIMED} after {DG_WARM} "
+              f"warm-up): {t_wall:.1f} ms [{min(wall[DG_WARM - 1:]):.1f}, "
+              f"{max(wall[DG_WARM - 1:]):.1f}], "
+              f"{DG_B * DG_S / t_wall * 1e3:.0f} tokens/s; the step's "
+              f"Python returned after {t_host:.1f} ms (host share "
+              f"{t_host / t_wall:.2f}; card idle share of the profiled "
+              f"step {prof['idle_share']:.3f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"launches a step {nonzero(expect)}")
+
+        fluid.set_flags({LN_FLAG: True})
+        try:
+            reset_counts(kc)
+            w_ln, h_ln = timed_eager(
+                lambda: dygraph_train_step(net, opt, staged[0]), 1)
+            ln_n = {k: read_counts(kc)[k] for k in DG_COUNTERS}
+        finally:
+            fluid.set_flags({LN_FLAG: False})
+        want_ln = dygraph_expect(cfg.num_layers, ln=True)
+        check(ln_n == want_ln,
+              f"flag-on eager step launched {ln_n}, want {want_ln}")
+        print(f"flag-on step (embedding LayerNorm on #10/#11): "
+              f"{w_ln[0]:.1f} ms, host {h_ln[0]:.1f} ms; launches "
+              f"{nonzero(ln_n)}")
+
+        net.eval()
+        evals = [dygraph_vars(dg, b)[:3] for b in
+                 dygraph_batches(cfg, DG_EVAL_B, DG_S, DG_EVAL_BATCHES, 7)]
+        out = []
+
+        def eval_batch(i=[0]):
+            with dg.no_grad():
+                out.append(net(*evals[i[0] % len(evals)]))
+            i[0] += 1
+
+        reset_counts(kc)
+        w_ev, h_ev = timed_eager(eval_batch, DG_EVAL_BATCHES)
+        per_batch = {k: 0 for k in DG_COUNTERS}
+        per_batch.update(attention_fwd=cfg.num_layers,
+                         residual_fwd=2 * cfg.num_layers)
+        eval_n = {k: read_counts(kc)[k] for k in DG_COUNTERS}
+        check(eval_n == {k: v * DG_EVAL_BATCHES
+                         for k, v in per_batch.items()},
+              f"eval launched {eval_n} in {DG_EVAL_BATCHES} batches, want "
+              f"{per_batch} a batch")
+        logits = np.stack([o.numpy() for o in out])
+        check(logits.shape == (DG_EVAL_BATCHES, DG_EVAL_B, 2)
+              and np.isfinite(logits).all(),
+              f"eval logits {logits.shape} or not finite")
+        check(all(o.value.grad_fn is None for o in out),
+              "an eval output records a graph under no_grad")
+        print(f"eval (net.eval() under no_grad, B={DG_EVAL_B}): "
+              f"{statistics.median(w_ev):.1f} ms a batch (host "
+              f"{statistics.median(h_ev):.1f} ms); launches a batch "
+              f"{nonzero(per_batch)}")
+        net.train()
+
+    # checkpoint: the reloaded net's next step against the original's,
+    # each from a fresh tracer (one op sequence, so one dropout stream)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/bert"
+        t0 = time.perf_counter()
+        dg.save_dygraph(net.state_dict(), path)
+        params, opt_state = dg.load_dygraph(path)
+        t_io = time.perf_counter() - t0
+    with dg.guard():
+        fresh = build_dygraph_bert(dg, layers, cfg)
+        fresh.set_dict(params)
+    check(opt_state is None, "load_dygraph found a .pdopt")
+    check(all(np.array_equal(p.numpy(), params[n])
+              for n, p in fresh.named_state()),
+          "a reloaded parameter differs from the saved one")
+    run_loss = {}
+    for name, model in (("saved", net), ("loaded", fresh)):
+        with dg.guard():
+            loss, _ = model(*dygraph_vars(dg, batches[0]))
+            loss.backward()
+            run_loss[name] = (loss.numpy(), dygraph_grads(model))
+            model.clear_gradients()
+    check(np.array_equal(run_loss["saved"][0], run_loss["loaded"][0]),
+          f"loss after reload {run_loss['loaded'][0]} vs "
+          f"{run_loss['saved'][0]}")
+    print(f"save_dygraph + load_dygraph of {len(params)} arrays: "
+          f"{t_io:.2f}s; every parameter bit-equal; the next step's loss "
+          f"{float(run_loss['saved'][0][0]):.9g} bit-equal")
+
+    # DataParallel over a 1-rank NCCL group: its gradients are the plain
+    # step's (run_loss["saved"]'s, from the same tracer state)
+    mesh = make_mesh({"dp": 1}, place=fluid.CUDAPlace(0))
+    try:
+        with dg.guard(), mesh_guard(mesh):
+            dp = dg.DataParallel(net)
+            check(dp.nranks == 1, f"DataParallel nranks {dp.nranks}")
+            loss, _ = dp(*dygraph_vars(dg, batches[0]))
+            dp.scale_loss(loss).backward()
+            dp.apply_collective_grads()
+            dp_grads = dygraph_grads(net)
+            net.clear_gradients()
+    finally:
+        mesh.close()
+    worst = 0.0
+    for n, want in run_loss["saved"][1].items():
+        err, ok = _held(dp_grads[n], want, FP32_TOL["grad"])
+        worst = max(worst, err)
+        check(ok, f"DataParallel gradient {n} differs by {err:.3e}")
+    check(np.array_equal(loss.numpy(), run_loss["saved"][0]),
+          "DataParallel's loss differs from the plain step's")
+    print(f"DataParallel on a 1-rank NCCL group: loss bit-equal, "
+          f"{len(dp_grads)} gradients within {FP32_TOL['grad']} of the "
+          f"plain step's (worst {worst:.2e})")
+    del net, fresh, opt, staged, params, dp
+    torch.cuda.empty_cache()
+    print(f"dygraph training path: {time.perf_counter() - t_sec:.1f}s")
+    return train_n, ln_n, eval_n
+
+
+def dygraph_kernel_times(fa, fr, lnk, train_n, ln_n, eval_n):
+    """The dygraph path's kernels at its shapes, fp32, each against its
+    plain version (max_abs_err under TOL), beside the plain version's time,
+    its bound and one PyTorch call: training (B=32, S=128, H=12, D=64,
+    dropout 0.1) #1, #3's dq and dkv (timed apart by launch_ms), #2 and
+    #4 (R = 4096 rows of N = 768); #10/#11 at the embedding LayerNorm's
+    [4096, 768] (the flag-on step); eval (B=8, test mode) #1 and #2. The
+    bounds are train_kernel_times' and ln_kernel_times'. Each time is the
+    median of 3 repetitions of 10 calls (cuda_ms's 7 of 40 spend most of
+    their time in the sleep that holds the stream)."""
+    import torch.nn.functional as F
+
+    def dg_ms(fn):
+        return cuda_ms(fn, iters=10, reps=3)
+
+    B, S, H, D, N = DG_B, DG_S, 12, 64, 768
+    R = B * S
+    f32 = torch.float32
+    print(f"== kernel times, dygraph path (B={B}, S={S}, H={H}, D={D}; "
+          f"R={R}, N={N}; fp32, dropout {TRAIN_RATE} in training; eval "
+          f"B={DG_EVAL_B} in test mode)")
+    rows = []
+    for path, b_, test, n in (("dygraph", B, False, train_n),
+                              ("dygraph_eval", DG_EVAL_B, True, eval_n)):
+        kw = dict(scale=0.125, dropout_rate=TRAIN_RATE, is_test=test,
+                  seed=None if test else MASK_SEED)
+        qkv, bias = attn_inputs(b_, H, D, f32, SEED, S=S)
+        q, k, v = qkv.view(b_, S, 3, H, D).permute(2, 0, 3, 1, 4)
+        mask = bias[:, None, None, :]
+        e = compare(fa.fused_attention_qkv(qkv, H, bias, **kw),
+                    fa.reference_qkv(qkv, H, bias, **kw), "attention", f32,
+                    f"attention fwd B={b_} S={S} ({path})")
+        t_k = dg_ms(lambda: fa.fused_attention_qkv(qkv, H, bias, **kw))
+        t_p = dg_ms(lambda: fa.reference_qkv(qkv, H, bias, **kw))
+        drop = 0.0 if test else TRAIN_RATE
+        t_l = dg_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=drop, scale=0.125))
+        b, _, _ = attn_bound(qkv, bias, H)
+        print(f"attention fwd ({path}): kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]})")
+        rows.append(row("flash_attention_qkv_fwd", path, "flash_attention.cu",
+                        "paddle_tpu/kernels/flash_attention.py:329",
+                        n["attention_fwd"], e, t_k, t_p, b, t_l))
+        if not test:
+            do = torch.randn(b_, S, H * D, device="cuda")
+            dqkv, _ = fa.fused_attention_qkv_bwd(qkv, H, bias, do, **kw)
+            want, _ = fa.reference_qkv_bwd(qkv, H, bias, do, **kw)
+            e = compare(dqkv, want, "attention_bwd", f32,
+                        f"attention bwd dqkv B={b_} S={S} ({path})")
+            t = launch_ms(lambda: fa.fused_attention_qkv_bwd(qkv, H, bias,
+                                                             do, **kw),
+                          (("flash_attention", "flash_attention_bwd_dq"),
+                           ("flash_attention", "flash_attention_bwd_dkv")))
+            t_p = dg_ms(lambda: fa.reference_qkv_bwd(qkv, H, bias, do,
+                                                     **kw))
+            qg, kg, vg = (x.detach().contiguous().requires_grad_()
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, dropout_p=TRAIN_RATE,
+                scale=0.125)
+            do4 = do.view(b_, S, H, D).transpose(1, 2)
+            t_l = dg_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do4, retain_graph=True))
+            esz, pairs = 4, b_ * H * S * S
+            head = b_ * S * H * D * esz
+            reads = qkv.numel() * esz + head + bias.numel() * 4
+            ops = 3 * 4 * pairs * D  # 3xTF32, as train_kernel_times
+            for which, nb in (("dq", head), ("dkv", 2 * head)):
+                b = bound(reads / 2 + nb, ops, "tf32")
+                t_k = t[f"flash_attention_bwd_{which}"]
+                print(f"attention bwd {which} ({path}): kernel {t_k:.4f} ms"
+                      f", plain (the pair) {t_p:.4f} ms, sdpa backward "
+                      f"{t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+                rows.append(row(f"flash_attention_qkv_bwd_{which}", path,
+                                "flash_attention.cu",
+                                "paddle_tpu/kernels/flash_attention.py:342",
+                                n[f"attention_bwd_{which}"], e, t_k, t_p, b,
+                                t_l))
+            del do, dqkv, want, qg, kg, vg, out, do4
+        del qkv, bias, q, k, v, mask
+
+        rows_ = b_ * S
+        x, y, g, c = res_inputs(rows_, N, f32, SEED)
+        rkw = dict(rate=TRAIN_RATE, is_test=test, eps=1e-5,
+                   seed=None if test else MASK_SEED)
+        e = compare(fr.fused_dropout_add_ln_fwd(x, y, g, c, **rkw),
+                    fr.reference_fwd(x, y, g, c, **rkw), "residual", f32,
+                    f"residual fwd R={rows_} ({path})")
+        t_k = dg_ms(lambda: fr.fused_dropout_add_ln_fwd(x, y, g, c, **rkw))
+        t_p = dg_ms(lambda: fr.reference_fwd(x, y, g, c, **rkw))
+        t_l = dg_ms(lambda: F.layer_norm(x + y, (N,), g, c, 1e-5))
+        b = res_bound(x, N)
+        print(f"residual fwd ({path}): kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, F.layer_norm {t_l:.4f} ms, bound {b[0]:.4f} "
+              f"ms ({b[1]})")
+        rows.append(row("fused_dropout_add_ln_fwd", path,
+                        "fused_dropout_add_ln.cu",
+                        "paddle_tpu/kernels/fused_residual.py:90",
+                        n["residual_fwd"], e, t_k, t_p, b, t_l))
+        if not test:
+            do = torch.randn(rows_, N, device="cuda")
+            got = fr.fused_dropout_add_ln_bwd(x, y, g, do, **rkw)
+            want = fr.reference_bwd(x, y, g, do, **rkw)
+            e = max(compare(a, w, "residual_bwd", f32,
+                            f"residual bwd {nm} R={rows_} ({path})")
+                    for a, w, nm in zip(got[:2], want[:2], ("dx", "dy")))
+            for a, w, nm in zip(got[2:], want[2:], ("dg", "dc")):
+                compare(a, w, "residual_sums", f32,
+                        f"residual bwd {nm} R={rows_} ({path})")
+            t = launch_ms(lambda: fr.fused_dropout_add_ln_bwd(x, y, g, do,
+                                                              **rkw),
+                          (("fused_dropout_add_ln",
+                            "fused_dropout_add_ln_bwd"),
+                           ("sum_partials", "sum_partials")), iters=20)
+            t_p = dg_ms(lambda: fr.reference_bwd(x, y, g, do, **rkw))
+            xg, yg, gg, cg = (v.detach().requires_grad_()
+                              for v in (x, y, g, c))
+            ln = F.layer_norm(xg + yg, (N,), gg, cg, 1e-5)
+            t_l = dg_ms(lambda: torch.autograd.grad(
+                ln, (xg, yg, gg, cg), do, retain_graph=True))
+            b = bound(5 * rows_ * N * 4 + 3 * N * 4, 20 * rows_ * N, f32)
+            t_k = t["fused_dropout_add_ln_bwd"]
+            print(f"residual bwd ({path}): row kernel {t_k:.4f} ms "
+                  f"(sum_partials {t['sum_partials']:.4f} ms), plain "
+                  f"{t_p:.4f} ms, F.layer_norm backward {t_l:.4f} ms, "
+                  f"bound {b[0]:.4f} ms ({b[1]})")
+            rows.append(row("fused_dropout_add_ln_bwd", path,
+                            "fused_dropout_add_ln.cu",
+                            "paddle_tpu/kernels/fused_residual.py:104",
+                            n["residual_bwd"], e, t_k, t_p, b, t_l))
+            del do, got, want, xg, yg, gg, cg, ln
+        del x, y, g, c
+
+    # the flag-on step's embedding LayerNorm: [R, N] fp32, fp32 affine
+    x, dy, sc, bi = ln_inputs(R, N, f32, f32, SEED)
+    got, want = lnk.layer_norm_fwd(x, sc, bi, 1e-5), lnk.reference_fwd(
+        x, sc, bi, 1e-5)
+    e_f = compare(got[0], want[0], "layer_norm", f32,
+                  f"layer_norm fwd R={R} (dygraph_ln)")
+    got, want = lnk.layer_norm_bwd(x, sc, dy, 1e-5), lnk.reference_bwd(
+        x, sc, dy, 1e-5)
+    e_b = compare(got[0], want[0], "layer_norm_bwd", f32,
+                  f"layer_norm bwd dx R={R} (dygraph_ln)")
+    t_k = dg_ms(lambda: lnk.layer_norm_fwd(x, sc, bi, 1e-5))
+    t_p = dg_ms(lambda: lnk.reference_fwd(x, sc, bi, 1e-5))
+    t_l = dg_ms(lambda: F.layer_norm(x, (N,), sc, bi, 1e-5))
+    b = bound(2 * R * N * 4 + 2 * N * 4 + 2 * R * 4, 8 * R * N, f32)
+    print(f"layer_norm fwd (dygraph_ln): kernel {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, F.layer_norm {t_l:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]})")
+    rows.append(row("layer_norm_fwd", "dygraph_ln", "layer_norm.cu",
+                    "paddle_tpu/kernels/layer_norm.py:50",
+                    ln_n["layer_norm_fwd"], e_f, t_k, t_p, b, t_l))
+    t = launch_ms(lambda: lnk.layer_norm_bwd(x, sc, dy, 1e-5),
+                  (("layer_norm", "layer_norm_bwd"),
+                   ("sum_partials", "sum_partials")), iters=20)
+    t_p = dg_ms(lambda: lnk.reference_bwd(x, sc, dy, 1e-5))
+    xg, sg, bg = (v.detach().requires_grad_() for v in (x, sc, bi))
+    out = F.layer_norm(xg, (N,), sg, bg, 1e-5)
+    t_l = dg_ms(lambda: torch.autograd.grad(out, (xg, sg, bg), dy,
+                                              retain_graph=True))
+    b = bound(3 * R * N * 4 + 3 * N * 4, 16 * R * N, f32)
+    print(f"layer_norm bwd (dygraph_ln): row kernel "
+          f"{t['layer_norm_bwd']:.4f} ms (sum_partials "
+          f"{t['sum_partials']:.4f} ms), plain {t_p:.4f} ms, F.layer_norm "
+          f"backward {t_l:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    rows.append(row("layer_norm_bwd", "dygraph_ln", "layer_norm.cu",
+                    "paddle_tpu/kernels/layer_norm.py:65",
+                    ln_n["layer_norm_bwd"], e_b, t["layer_norm_bwd"], t_p, b,
+                    t_l))
+    return rows
+
+
+def dygraph_path(fluid, kc):
+    """The dygraph phases in order; returns its kernel rows' launches
+    (training, flag-on, eval)."""
+    dygraph_small(fluid)
+    return dygraph_train_full(fluid, kc)
+
+
+def dygraph_static(fluid):
+    """The port's static program of the eager classifier (models/bert.py's
+    encoder, the tanh pooler and the 2-way head, Adam under bench_bert's
+    schedule) at BertConfig.base(), B=DG_B, S=DG_S, dropout 0.1: 3
+    warm-up and DG_TIMED timed steps through Executor.run, then one under
+    torch.profiler; prints the median step, the median time until
+    Executor.run returned and the profile, to set beside
+    dygraph_train_full's eager step. chip_smoke.py does not run it;
+    tools/torch_phases.py dygraph does."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models.bert import BertConfig, bert_encoder
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = BertConfig.base()
+    print(f"== dygraph's static twin: the same classifier as a static "
+          f"program at BertConfig.base(), B={DG_B}, S={DG_S}, dropout "
+          f"{cfg.hidden_dropout}, Adam under bench_bert's schedule, fp32")
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    h = cfg.hidden_size
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [DG_B, DG_S], "int64")
+        types = fluid.data("types", [DG_B, DG_S], "int64")
+        mask = fluid.data("mask", [DG_B, DG_S], "float32")
+        label = fluid.data("label", [DG_B, 1], "int64")
+        seq = bert_encoder(ids, types, mask, cfg)
+        first = layers.reshape(layers.slice(seq, [1], [0], [1]), [-1, h])
+        logits = layers.fc(layers.fc(first, h, act="tanh"), 2)
+        loss = layers.reduce_mean(
+            layers.softmax_with_cross_entropy(logits, label))
+        lr = layers.linear_lr_warmup(
+            layers.polynomial_decay(1e-4, 100000, 1e-5), 1000, 0.0, 1e-4)
+        Adam(lr).minimize(loss, startup)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = on_card(dygraph_batches(cfg, DG_B, DG_S, 2))
+    i = [0]
+
+    def step():
+        exe.run(main, feed=feeds[i[0] % 2], fetch_list=[loss], scope=scope,
+                return_numpy=False)
+        i[0] += 1
+
+    wall, host = timed_eager(step, 3 + DG_TIMED)
+    print("  one static step under torch.profiler:")
+    profile_step(step)
+    t_wall, t_host = statistics.median(wall[3:]), statistics.median(host[3:])
+    print(f"static step (median [min, max] of {DG_TIMED} after 3 warm-up): "
+          f"{t_wall:.1f} ms [{min(wall[3:]):.1f}, {max(wall[3:]):.1f}], "
+          f"{DG_B * DG_S / t_wall * 1e3:.0f} tokens/s; Executor.run "
+          f"returned after {t_host:.1f} ms (host share "
+          f"{t_host / t_wall:.2f})")
+    del exe, scope
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5496,46 +6239,64 @@ def main():
             print(f"  {name}: {kernel} {regs} registers, {spill}")
 
     kc = counters(fa, fr, sp, ft, lnk, rb)
-    main_err = parity(fa, fr)
-    train_err = train_parity(fa, fr, pm)
-    tiled_err = tiled_parity(ft)
-    ln_err = ln_parity(lnk)
-    mha_err = mha_parity(fa)
-    tensor_cores()
-    ring_parity(rb)
-    ring_schedule(rb, kc)
-    routed_attention(fa, ft, kc)
-    frozen, exe, scope, samples, serve_n = main_path(fluid, layers, kc)
-    serve_times(frozen, exe, scope, samples)
+    start = time.perf_counter()
+
+    def phase(fn, *args, **kwargs):
+        """fn(*args, **kwargs), then its seconds and the script's so far,
+        so that a slice sees what its section adds to the time limit
+        (the script aims to finish in half of it)."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        now = time.perf_counter()
+        name = " ".join([fn.__name__] + [f"{k}={v}" for k, v in
+                                          kwargs.items()])
+        print(f"[lap] {name}: {now - t0:.1f}s (at {now - start:.1f}s)")
+        return out
+
+    main_err = phase(parity, fa, fr)
+    train_err = phase(train_parity, fa, fr, pm)
+    tiled_err = phase(tiled_parity, ft)
+    ln_err = phase(ln_parity, lnk)
+    mha_err = phase(mha_parity, fa)
+    phase(tensor_cores)
+    phase(ring_parity, rb)
+    phase(ring_schedule, rb, kc)
+    phase(routed_attention, fa, ft, kc)
+    frozen, exe, scope, samples, serve_n = phase(main_path, fluid, layers,
+                                                 kc)
+    phase(serve_times, frozen, exe, scope, samples)
     del frozen, exe, scope
     torch.cuda.empty_cache()
-    train_small(fluid, layers)
-    train_n = train_full(fluid, layers, kc)
-    gpt_train_small(fluid)
-    gpt_train_n, _ = gpt_train_full(fluid, kc)
-    gpt_serve_n = gpt_serving(fluid, kc)
-    gpt_train_small(fluid, amp=True)
-    amp_n = train_full(fluid, layers, kc, amp=True)
-    gpt_amp_n, _ = gpt_train_full(fluid, kc, amp=True)
-    gpt_ln_n, _ = gpt_train_full(fluid, kc, amp=True, ln_kernels=True)
-    mha_train_small(fluid, layers)
-    mha_train_n, mha_pred_n, _ = mha_path(fluid, layers, kc)
-    sp_n = sp_path(fluid, layers, kc)
-    resnet_train_small(fluid)
-    resnet_train_full(fluid, kc)
-    resnet_serving(fluid, layers, kc)
-    yolov3_train_small(fluid)
-    yolov3_train_full(fluid, kc)
-    yolov3_predictor(fluid, kc)
-    ctr_path(fluid, kc)
-    mask_rcnn_path(fluid, kc)
-    rows = kernel_times(fa, fr, main_err, serve_n)
-    rows += train_kernel_times(fa, fr, sp, train_err, train_n, amp_n)
-    rows += gpt_kernel_times(fa, ft, tiled_err, gpt_train_n, gpt_serve_n,
-                             gpt_amp_n)
-    rows += ln_kernel_times(lnk, ln_err, gpt_ln_n)
-    rows += mha_kernel_times(fa, mha_err, mha_train_n, mha_pred_n)
-    rows += ring_kernel_times(rb, sp_n)
+    phase(train_small, fluid, layers)
+    train_n = phase(train_full, fluid, layers, kc)
+    phase(gpt_train_small, fluid)
+    gpt_train_n, _ = phase(gpt_train_full, fluid, kc)
+    gpt_serve_n = phase(gpt_serving, fluid, kc)
+    phase(gpt_train_small, fluid, amp=True)
+    amp_n = phase(train_full, fluid, layers, kc, amp=True)
+    gpt_amp_n, _ = phase(gpt_train_full, fluid, kc, amp=True)
+    gpt_ln_n, _ = phase(gpt_train_full, fluid, kc, amp=True,
+                        ln_kernels=True)
+    phase(mha_train_small, fluid, layers)
+    mha_train_n, mha_pred_n, _ = phase(mha_path, fluid, layers, kc)
+    sp_n = phase(sp_path, fluid, layers, kc)
+    phase(resnet_train_small, fluid)
+    phase(resnet_train_full, fluid, kc)
+    phase(resnet_serving, fluid, layers, kc)
+    phase(yolov3_train_small, fluid)
+    phase(yolov3_train_full, fluid, kc)
+    phase(yolov3_predictor, fluid, kc)
+    phase(ctr_path, fluid, kc)
+    phase(mask_rcnn_path, fluid, kc)
+    dg_n = phase(dygraph_path, fluid, kc)
+    rows = phase(kernel_times, fa, fr, main_err, serve_n)
+    rows += phase(train_kernel_times, fa, fr, sp, train_err, train_n, amp_n)
+    rows += phase(gpt_kernel_times, fa, ft, tiled_err, gpt_train_n,
+                  gpt_serve_n, gpt_amp_n)
+    rows += phase(ln_kernel_times, lnk, ln_err, gpt_ln_n)
+    rows += phase(mha_kernel_times, fa, mha_err, mha_train_n, mha_pred_n)
+    rows += phase(ring_kernel_times, rb, sp_n)
+    rows += phase(dygraph_kernel_times, fa, fr, lnk, *dg_n)
 
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -54,3 +54,17 @@ def state_to_numpy(scope):
             t = t.float()
         out[name] = t.cpu().numpy()
     return out
+
+
+def layer_state_from_numpy(layer, arrays):
+    """Load {structured name: np.ndarray} (a dygraph `Layer.state_dict()`
+    of either package) into the port's dygraph `layer`, each array in the
+    dtype and on the device of the parameter or buffer it fills (the
+    dygraph twin of state_from_numpy). Names the layer lacks are not
+    carried; returns the names loaded."""
+    loaded = []
+    for name, var in layer.named_state():
+        if name in arrays:
+            var.set_value(arrays[name])
+            loaded.append(name)
+    return loaded

@@ -10,6 +10,7 @@ from .program import (  # noqa: F401
     default_main_program,
     default_startup_program,
     grad_var_name,
+    in_dygraph_mode,
     program_guard,
 )
 from .scope import Scope, global_scope, scope_guard  # noqa: F401

@@ -143,6 +143,10 @@ def dedicated_grad_maker(grad_type, slots, optional=(), saved=None):
         append_grad_op(op, block, contribs, needs_grad, grad_type, inputs,
                        tuple(slots) + tuple(optional))
 
+    # what the eager tracer reads to run the same grad op under autograd
+    # (dygraph/tracer.py); in place of `saved` it passes the forward
+    # outputs the grad op declares as inputs, where the forward made all
+    maker.dedicated = (grad_type, tuple(slots), tuple(optional))
     return maker
 
 

@@ -281,3 +281,21 @@ def program_guard(main_program, startup_program=None):
         yield
     finally:
         _main_program, _startup_program = old_main, old_startup
+
+
+# --- dygraph mode switch (framework.py:180 in the reference): the eager
+# tracer of a `dygraph.guard()`, or None in static mode ---
+_dygraph_tracer = None
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer is not None
+
+
+def _set_dygraph_tracer(tracer):
+    global _dygraph_tracer
+    _dygraph_tracer = tracer
+
+
+def _current_tracer():
+    return _dygraph_tracer

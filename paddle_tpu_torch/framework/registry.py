@@ -97,11 +97,14 @@ class EmitContext:
 
 class OpView:
     """Stand-in for an Operator when a grad op replays its forward op's
-    emitter: the same attrs, so the same `__uid__` and random stream."""
+    emitter: the same attrs, so the same `__uid__` and random stream.
+    The eager tracer (dygraph/tracer.py) runs ops through it too, with
+    `outputs` naming the output slots an emitter is asked for."""
 
-    def __init__(self, op_type, attrs):
+    def __init__(self, op_type, attrs, outputs=None):
         self.type = op_type
         self.attrs = dict(attrs or {})
+        self.outputs = dict(outputs or {})
 
     @property
     def uid(self):

@@ -7,7 +7,11 @@ from __future__ import annotations
 
 from ..errors import InvalidArgumentError
 from ..framework import unique_name
-from ..framework.program import default_main_program, default_startup_program
+from ..framework.program import (
+    _current_tracer,
+    default_main_program,
+    default_startup_program,
+)
 from ..framework.registry import infer_shapes
 from ..initializer import Constant, Xavier
 from ..param_attr import ParamAttr
@@ -60,8 +64,18 @@ class LayerHelper:
         stop_gradient=False,
     ):
         """Append an op, creating one output var per inferred output of
-        each slot. inputs: {slot: [Variable]}. Returns var or tuple."""
+        each slot. inputs: {slot: [Variable]}. Returns var or tuple.
+
+        Under `dygraph.guard()` the op runs eagerly through the tracer
+        instead, on VarBase inputs (the JAX package's branch, reference
+        framework.py:180), so parameter-free layers run in both modes."""
         op_type = op_type or self.layer_type
+        tracer = _current_tracer()
+        if tracer is not None:
+            outs = tracer.trace_op(op_type, inputs, attrs or {})
+            vals = [(vs[0] if len(vs) == 1 else vs)
+                    for vs in (outs.get(s, []) for s in out_slots)]
+            return vals[0] if len(vals) == 1 else tuple(vals)
         blk = main_block()
         in_names = {
             slot: [v.name if v is not None else "" for v in vs]

@@ -35,3 +35,8 @@ def _softmax(ctx, op, ins):
 @register_op("sigmoid", inputs=["X"], outputs=["Out"])
 def _sigmoid(ctx, op, ins):
     return {"Out": [torch.sigmoid(ins["X"][0])]}
+
+
+@register_op("tanh", inputs=["X"], outputs=["Out"])
+def _tanh(ctx, op, ins):
+    return {"Out": [torch.tanh(ins["X"][0])]}

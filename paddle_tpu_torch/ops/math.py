@@ -36,6 +36,13 @@ _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("not_equal", torch.ne, differentiable=False)
 _register_elementwise("less_than", torch.lt, differentiable=False)
 _register_elementwise("greater_equal", torch.ge, differentiable=False)
+# the rest of the VarBase operators' ops (dygraph/varbase.py): Python's
+# floor division and modulo, as jnp.floor_divide and jnp.mod
+_register_elementwise("elementwise_floordiv", torch.floor_divide)
+_register_elementwise("elementwise_mod", torch.remainder)
+_register_elementwise("equal", torch.eq, differentiable=False)
+_register_elementwise("less_equal", torch.le, differentiable=False)
+_register_elementwise("greater_than", torch.gt, differentiable=False)
 
 
 @register_op("square", inputs=["X"], outputs=["Out"])
@@ -77,13 +84,16 @@ def _register_reduce(op_type, fn):
     def emit(ctx, op, ins):
         x = ins["X"][0]
         keep = op.attr("keep_dim", False)
-        if op.attr("reduce_all", False):
+        dim = op.attr("dim", [0])
+        # reduce_all, or dim None, reduces every axis; an int dim is one
+        # axis (the JAX package's reduce_axes)
+        if op.attr("reduce_all", False) or dim is None:
             out = fn(x)
             if keep:
                 out = out.reshape((1,) * x.dim())
         else:
-            dim = tuple(d % x.dim() for d in op.attr("dim", [0]))
-            out = fn(x, dim=dim, keepdim=keep)
+            dim = [dim] if isinstance(dim, int) else dim
+            out = fn(x, dim=tuple(d % x.dim() for d in dim), keepdim=keep)
         return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
 
     return emit

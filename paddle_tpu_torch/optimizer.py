@@ -7,9 +7,19 @@ program; the learning rate is a [1] persistable (or a schedule's
 Variable) and each accumulator a persistable created in main and startup.
 SGD, Momentum and Adam are in the port's slices; gradient clipping and
 regularization come with a later one.
+
+Eager mode (dygraph): `minimize` on a VarBase loss, after
+`loss.backward()` filled the parameters' `.grad`, updates each
+parameter in place on its device (the JAX package's `_eager_minimize`,
+paddle_tpu/optimizer.py:130-193): the learning rate is a Python float
+(a dygraph schedule advances once per minimize), the accumulators are
+fp32 tensors per parameter (`_eager_accs`), and nothing is read back
+to the host.
 """
 
 from __future__ import annotations
+
+import torch
 
 from .errors import UnimplementedError
 from .framework import unique_name
@@ -99,6 +109,12 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from .dygraph.varbase import VarBase
+
+        if isinstance(loss, VarBase):
+            # eager mode: loss.backward() has filled the parameters'
+            # gradients; update them in place (reference dygraph minimize)
+            return self._eager_minimize(parameter_list), []
         # the ops land in the loss's program even when minimize() is called
         # outside its program_guard (fluid wraps minimize the same way)
         with program_guard(loss.block.program,
@@ -107,6 +123,58 @@ class Optimizer:
                                          parameter_list, no_grad_set)
             ops = self.apply_gradients(params_grads)
         return ops, params_grads
+
+    # -- eager (dygraph) path ---------------------------------------------
+    def _eager_lr(self):
+        """The learning rate of this minimize, a Python float: a schedule
+        advances its step on every call, so it is called once per
+        minimize (cached in _eager_lr_value), not once per parameter."""
+        cached = getattr(self, "_eager_lr_value", None)
+        if cached is not None:
+            return cached
+        lr = self._learning_rate
+        if isinstance(lr, Variable):
+            raise UnimplementedError(
+                "an eager optimizer takes a float or a dygraph LR schedule "
+                "as its learning rate, not a static-graph Variable")
+        return float(lr() if callable(lr) else lr)
+
+    def _eager_acc(self, name, p, fill=0.0, shape=None):
+        """The fp32 accumulator `name` of parameter p (param-shaped
+        unless `shape`), filled with `fill` on first use."""
+        store = self.__dict__.setdefault("_eager_accs", {})
+        key = (name, p.name)
+        if key not in store:
+            store[key] = torch.full(
+                list(shape if shape is not None else p.shape), float(fill),
+                dtype=torch.float32, device=p.value.device)
+        return store[key]
+
+    def _eager_minimize(self, parameter_list=None):
+        params = parameter_list or self._parameter_list or []
+        updated = []
+        self._eager_lr_value = None
+        self._eager_lr_value = self._eager_lr()  # advance the schedule once
+        try:
+            with torch.no_grad():
+                for p in params:
+                    g = p.value.grad
+                    if not getattr(p, "trainable", True) or g is None:
+                        continue
+                    if getattr(p, "regularizer", None) is not None:
+                        raise UnimplementedError(
+                            f"parameter {p.name!r} has a regularizer: "
+                            "regularization is not in the port yet "
+                            "(ROADMAP Queue 1, item 4 — training breadth)")
+                    self._eager_update(p, g)
+                    updated.append(p)
+        finally:
+            self._eager_lr_value = None
+        return updated
+
+    def _eager_update(self, p, g):
+        raise UnimplementedError(
+            f"{type(self).__name__} has no eager-mode update in the port")
 
     # -- per-optimizer hooks ----------------------------------------------
     def _create_accumulators(self, block, parameters):
@@ -126,6 +194,9 @@ class SGDOptimizer(Optimizer):
             {"ParamOut": [p.name]},
             {},
         )
+
+    def _eager_update(self, p, g):
+        p.value.sub_(self._eager_lr() * g)
 
 
 class MomentumOptimizer(Optimizer):
@@ -153,6 +224,15 @@ class MomentumOptimizer(Optimizer):
             {"ParamOut": [p.name], "VelocityOut": [v.name]},
             {"mu": self._momentum, "use_nesterov": self._use_nesterov},
         )
+
+    def _eager_update(self, p, g):
+        lr = self._eager_lr()
+        v = self._eager_acc("velocity", p)
+        v.mul_(self._momentum).add_(g)
+        if self._use_nesterov:
+            p.value.sub_(lr * (g + self._momentum * v))
+        else:
+            p.value.sub_(lr * v)
 
 
 class AdamOptimizer(Optimizer):
@@ -196,6 +276,22 @@ class AdamOptimizer(Optimizer):
             {"beta1": self._beta1, "beta2": self._beta2,
              "epsilon": self._epsilon},
         )
+
+    def _eager_update(self, p, g):
+        """The JAX package's `_adam_eager` (paddle_tpu/optimizer.py:375),
+        in its order of operations, on the accumulators in place."""
+        lr = self._eager_lr()
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m1 = self._eager_acc("moment1", p)
+        m2 = self._eager_acc("moment2", p)
+        b1p = self._eager_acc("beta1_pow", p, b1, shape=[1])
+        b2p = self._eager_acc("beta2_pow", p, b2, shape=[1])
+        m1.mul_(b1).add_((1 - b1) * g)
+        m2.mul_(b2).add_((1 - b2) * g * g)
+        lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+        p.value.sub_((lr_t * m1 / (torch.sqrt(m2) + eps)).reshape(p.shape))
+        b1p.mul_(b1)
+        b2p.mul_(b2)
 
 
 Adam = AdamOptimizer

@@ -233,6 +233,12 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.embedding, paddle_tpu_torch.models.deepfm
         import paddle_tpu_torch.ops.sparse, paddle_tpu_torch.observability
         import paddle_tpu_torch.parallel.sparse
+        import paddle_tpu_torch.dygraph, paddle_tpu_torch.dygraph.tracer
+        import paddle_tpu_torch.dygraph.varbase
+        import paddle_tpu_torch.dygraph.layers, paddle_tpu_torch.dygraph.nn
+        import paddle_tpu_torch.dygraph.parallel
+        import paddle_tpu_torch.dygraph.checkpoint
+        import paddle_tpu_torch.dygraph.learning_rate_scheduler
         sys.path.insert(0, "tests")
         import torch_sp_worker  # the multi-rank tests' rank processes
         bad = [m for m in sys.modules

@@ -135,6 +135,63 @@ def sp_leg_worker(rank, world, store, inputs, op, steps, out):
     dist.destroy_process_group()
 
 
+def dygraph_dp_steps(tf, dg, state, x, y, steps, data_parallel):
+    """`steps` eager Adam steps of a small tanh MLP from `state` on rows
+    (x, y) with a mean squared loss, under DataParallel (scale_loss,
+    backward, apply_collective_grads) or plainly: per step the loss and
+    every gradient, and the parameters after the last step."""
+    from paddle_tpu_torch import convert
+
+    res = {}
+    with dg.guard(tf.CPUPlace()):
+        net = dg.Sequential(dg.Linear(6, 16, act="tanh"), dg.Linear(16, 3))
+        convert.layer_state_from_numpy(net, state)
+        model = dg.DataParallel(net) if data_parallel else net
+        res["nranks"] = np.asarray(model.nranks if data_parallel else 1)
+        opt = tf.optimizer.Adam(0.01, parameter_list=net.parameters())
+        for i in range(steps):
+            d = model(dg.to_variable(x)) - dg.to_variable(y)
+            loss = tf.layers.reduce_mean(d * d)
+            if data_parallel:
+                model.scale_loss(loss).backward()
+                model.apply_collective_grads()
+            else:
+                loss.backward()
+            res[f"{i}/loss"] = loss.numpy()
+            for n, p in net.named_parameters():
+                res[f"{i}/grad/{n}"] = p.gradient()
+            opt.minimize(loss)
+            net.clear_gradients()
+        for n, v in net.state_dict().items():
+            res[f"state/{n}"] = v
+    return res
+
+
+def dygraph_dp_worker(rank, world, store, inputs, steps, out):
+    """This rank's share of dygraph_dp_steps under DataParallel over the
+    "dp" axis of a mesh of every rank: rows rank*n .. (rank+1)*n of the
+    global batch in `inputs`, n = B / world."""
+    import paddle_tpu_torch as tf
+    from paddle_tpu_torch import dygraph as dg
+    from paddle_tpu_torch.parallel import make_mesh, mesh_guard
+
+    _init(rank, world, store)
+    mesh = make_mesh({"dp": world}, place=tf.CPUPlace())
+    data = np.load(inputs)
+    n = len(data["x"]) // world
+    rows = slice(rank * n, (rank + 1) * n)
+    state = {k[len("state/"):]: data[k] for k in data.files
+             if k.startswith("state/")}
+    with mesh_guard(mesh):
+        res = dygraph_dp_steps(tf, dg, state, data["x"][rows],
+                               data["y"][rows], steps, True)
+    res["imported_jax"] = np.asarray(_imported_jax())
+    np.savez(out, **res)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
 def stall_worker(rank, world, store, plan, out):
     """A rank that follows plan[rank]: sleep that many seconds (a
     positive float), exit with that code (a negative int, negated), or,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """One section of chip_smoke.py's phases alone, on one CUDA card, for
-iterating on a slice without the whole script. Builds no kernel: no
-section here runs one.
+iterating on a slice without the whole script. Only the dygraph section
+runs kernels of ours; it builds them first (all sources at once).
 
-    cd <checkout> && python3 tools/torch_phases.py yolov3|ctr|mask_rcnn
+    cd <checkout> && python3 tools/torch_phases.py yolov3|ctr|mask_rcnn|dygraph
 
 yolov3: the reduced training step against the CPU (yolov3_train_small),
 bench_yolov3's AMP step at the paper's width (yolov3_train_full) and the
@@ -19,6 +19,14 @@ accelerator (mask_rcnn_train_full), mask_rcnn_infer behind the predictor
 (mask_rcnn_predictor), and, which chip_smoke.py does not run, the legacy
 leg's four-image unroll under AMP on an accelerator
 (mask_rcnn_legacy_full).
+
+dygraph: the eager BERT classifier at BERT-base width on the card against
+the CPU (dygraph_small), the full-width eager training, flag-on step,
+evaluation, checkpoint and DataParallel phases (dygraph_train_full),
+and, which chip_smoke.py does not run, the static program of the same
+network at the same B and S, timed and profiled to set beside the eager
+step (dygraph_static), then the dygraph path's kernel rows
+(dygraph_kernel_times).
 
 Imports the port and chip_smoke.py from the current directory, turns
 TF32 off as chip_smoke.py does, runs each phase in turn (a failed phase
@@ -47,6 +55,25 @@ SECTIONS = {
                   ("predictor", cs.mask_rcnn_predictor),
                   ("legacy", cs.mask_rcnn_legacy_full)),
 }
+
+
+def _dygraph_sections():
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_residual as fr
+    from paddle_tpu_torch.kernels import layer_norm as lnk
+
+    launches = []
+    return (("build", lambda fluid, kc: _build.build()),
+            ("small", lambda fluid, kc: cs.dygraph_small(fluid)),
+            ("full", lambda fluid, kc: launches.extend(
+                cs.dygraph_train_full(fluid, kc))),
+            ("static", lambda fluid, kc: cs.dygraph_static(fluid)),
+            ("kernels", lambda fluid, kc: print(
+                cs.dygraph_kernel_times(fa, fr, lnk, *launches))))
+
+
+SECTIONS["dygraph"] = _dygraph_sections()
 
 
 def main(argv):
