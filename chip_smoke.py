@@ -273,7 +273,7 @@ RATE = 0.1
 # requests; each bucket gets WINDOW_REPS windows
 WINDOW_S = 5.0
 WINDOW_REQUESTS = 1000
-WINDOW_REPS = 3
+WINDOW_REPS = 2
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; operations/s of fp32
 # outside the tensor cores, and of dense bf16 and TF32 ("tf32") on them
 HBM_BYTES_PER_S = 3.35e12
@@ -1167,14 +1167,14 @@ def bench_amp(opt):
     )
 
 
-def build_bench_bert(fluid, layers, cfg, B, S, lr, amp=False):
+def build_bench_bert(fluid, layers, cfg, B, S, lr, amp=False,
+                     optimizer=None):
     """bench.py's bench_bert program: MLM pretraining with the gathered
-    head and Adam (under bench_amp with amp=True); lr a float, or None for
-    bench_bert's schedule (linear warmup over polynomial decay). Returns
-    (main, startup, loss, lr (the float or the schedule's Variable),
-    params_grads, P, optimizer)."""
+    head and Adam, or optimizer(fluid, layers, lr) (under bench_amp with
+    amp=True); lr a float, or None for bench_bert's schedule (linear
+    warmup over polynomial decay). Returns (main, startup, loss, lr (the
+    float or the schedule's Variable), params_grads, P, optimizer)."""
     from paddle_tpu_torch.models.bert import bert_pretrain
-    from paddle_tpu_torch.optimizer import Adam
 
     P = max(1, int(0.15 * B * S))
     main, startup = fluid.Program(), fluid.Program()
@@ -1189,9 +1189,15 @@ def build_bench_bert(fluid, layers, cfg, B, S, lr, amp=False):
         if lr is None:
             lr = layers.linear_lr_warmup(
                 layers.polynomial_decay(1e-4, 100000, 1e-5), 1000, 0.0, 1e-4)
-        opt = bench_amp(Adam(lr)) if amp else Adam(lr)
+        opt = (optimizer or adam)(fluid, layers, lr)
+        opt = bench_amp(opt) if amp else opt
         _, pg = opt.minimize(loss, startup)
     return main, startup, loss, lr, pg, P, opt
+
+
+def adam(fluid, layers, lr):
+    """bench_bert's optimizer."""
+    return fluid.optimizer.Adam(lr)
 
 
 def bench_batches(cfg, B, S, P, n):
@@ -1247,9 +1253,10 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
                 extra=(), resync=False, close=(), guard=None):
     """One optimizer step per feed on the card and on the CPU from one
     state, under `tol` (FP32_TOL, AMP_TOL or RESNET_TOL): the loss (and
-    the fetches `extra`, equal), every @GRAD, Adam's moments, the
-    velocities and moving statistics where tol names them, beta powers,
-    lr, loss scale and counters, and each parameter's update
+    the fetches `extra`, equal), every @GRAD, every parameter-shaped
+    accumulator (tol["moment"], or tol["velocity"] for velocities where
+    tol names it), the moving statistics where tol names them, beta
+    powers, lr, loss scale and counters, and each parameter's update
     (tol["update"]: Adam's exempting rule, or ("l2", bound) on end -
     start). With resync, the state after each step is held so and the CPU
     then takes the card's, so every step starts from one state on both:
@@ -1267,14 +1274,21 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
     fetch = [loss, *extra, *close] + [g for _, g in pg] + list(guard_names)
     n_head = 1 + len(extra) + len(close)
     worst = {"loss": 0.0, "grad": 0.0, "scalars": 0.0}
+    # every parameter-shaped accumulator of the optimizer (Adam's and
+    # Lamb's moments, a velocity, RMSProp's mean square...), held as
+    # tol["velocity"] where tol names velocities, else as tol["moment"]
+    accums = {v.name for v in main.list_vars()
+              if getattr(v, "_accum_elementwise", False)}
+    per = 1 + len(accums) // max(len(pg), 1)
 
     def hold_state(before, gend, cend, grads):
         """The state after the steps since `before` (its grads: (card,
         CPU) per step); returns (updates line, exempt, total)."""
         for name, c in cend.items():
             g = gend[name]
-            kind = ("moment" if name.endswith(("_moment1_0", "_moment2_0"))
-                    else "velocity" if name.endswith("_velocity_0")
+            kind = ("velocity" if name.endswith("_velocity_0")
+                    and "velocity" in tol
+                    else "moment" if name in accums
                     else "stats" if name.startswith(("bn_mean",
                                                      "bn_variance"))
                     or name.endswith(("_bn_m", "_bn_v"))  # YOLOv3's names
@@ -1343,11 +1357,10 @@ def card_vs_cpu(fluid, main, startup, loss, pg, feeds, tol=FP32_TOL,
     gend, cend = convert.state_to_numpy(gscope), convert.state_to_numpy(cscope)
     updates, exempt, total = hold_state(before, gend, cend, grads)
     moved = sum(not np.array_equal(start[n], cend[n]) for n in cend)
-    # Adam: parameters, two moments and two beta powers a parameter;
-    # Momentum: parameters and velocities (and the moving statistics); of
-    # the parameters whose gradient is not all 0 (Mask R-CNN's RPN heads
-    # of levels no sampled anchor lies on get none)
-    per = 3 if "moment" in worst else 2
+    # more than the parameters and their accumulators (Adam: two moments,
+    # and two beta powers besides; Momentum: velocities, and the moving
+    # statistics besides); of the parameters whose gradient is not all 0
+    # (Mask R-CNN's RPN heads of levels no sampled anchor lies on get none)
     live = sum(any(np.any(c != 0) for _, c in grads[n]) for n in grads)
     check(moved > per * live, f"only {moved} state tensors moved")
     errs = ", ".join(f"{k} {worst[k]:.2e} ({tol[k][0]} bound {tol[k][1:]})"
@@ -1537,21 +1550,27 @@ def profile_step(run, kind_of=None):
     return out
 
 
-def host_by_op(run):
+def host_by_op(run, name_of=None):
     """One call of run() with the executor's run_op timed on the host: the
     ms the host spends in each op type's emitter (building and enqueueing
     its kernels, or waiting where it synchronises with the card), a
-    `__vjp__` op under its forward op's type, largest first. No profiler
-    runs, so the times are the eager executor's own."""
+    `__vjp__` op under its forward op's type, largest first. name_of(op),
+    where given, names the ops to report apart (host_ms_named), under that
+    name instead of their type. No profiler runs, so the times are the
+    eager executor's own."""
     from paddle_tpu_torch.framework import executor
 
-    real, by = executor.run_op, {}
+    real, by, named = executor.run_op, {}, set()
 
     def timed(ctx, op, env):
         t0 = time.perf_counter()
         out = real(ctx, op, env)
-        key = (f"__vjp__({op.attr('fwd_type')})" if op.type == "__vjp__"
-               else op.type)
+        key = name_of(op) if name_of is not None else None
+        if key is not None:
+            named.add(key)
+        else:
+            key = (f"__vjp__({op.attr('fwd_type')})" if op.type == "__vjp__"
+                   else op.type)
         by[key] = by.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
@@ -1568,11 +1587,17 @@ def host_by_op(run):
     print(f"host time in the emitters: {total:.1f} ms of a {wall:.1f} ms "
           "step; by op type: "
           + ", ".join(f"{k} {v:.1f}" for k, v in top.items()))
-    return dict(host_emit_ms=total, host_ms_by_op=top)
+    out = dict(host_emit_ms=total, host_ms_by_op=top)
+    if name_of is not None:
+        out["host_ms_named"] = {k: by[k] for k in sorted(named)}
+        print("  named ops: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["host_ms_named"].items()))
+    return out
 
 
 def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
-              after=None, warm=3, timed=5, unit="tokens", kind_of=None):
+              after=None, warm=3, timed=5, unit="tokens", kind_of=None,
+              name_of=None):
     """warm + timed steps through Executor.run, then one under
     torch.profiler (kinds by kind_of, see profile_step) and one with the
     host's time taken by op type; each step must launch the kernels of
@@ -1580,7 +1605,7 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
     (every step's values, stats: step time median [min, max] of the timed
     steps, `unit`/s (`tokens` of them a step), the time until
     Executor.run returned, peak memory, the profile, the host's time by op
-    type)."""
+    type, with the ops name_of names apart: see host_by_op)."""
     steps = warm + timed + 2  # then one profiled, one timed by op type
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1598,7 +1623,7 @@ def run_steps(exe, main, scope, batches, fetch, labels, kc, expect, tokens,
         if i == steps - 2:
             prof = profile_step(run, kind_of)
         elif i == steps - 1:
-            by_op = host_by_op(run)
+            by_op = host_by_op(run, name_of)
         else:
             t0 = time.perf_counter()
             run()
@@ -1736,7 +1761,7 @@ def train_full(fluid, layers, kc, amp=False):
           + json.dumps(stats))
     del exe, scope, batches, snap
     torch.cuda.empty_cache()
-    return counts
+    return counts, stats
 
 
 # ---------------------------------------------------------------------------
@@ -6209,6 +6234,312 @@ def dygraph_static(fluid):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training breadth: gradient clipping, regularizers, the optimizer zoo, the
+# averagers and the static LR schedules, on bench_bert's program and on
+# fit-a-line
+# ---------------------------------------------------------------------------
+
+
+def lamb_clip(fluid, layers, lr):
+    """The breadth path's optimizer: LAMB (lamb_weight_decay 0.01) with
+    the global gradient norm clipped at 1.0."""
+    return fluid.optimizer.Lamb(
+        lr, lamb_weight_decay=0.01,
+        grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0))
+
+
+# bench_bert's program under each, card vs CPU at reduced depth
+OPTIM_CONFIGS = {
+    "lamb_global_norm": lamb_clip,
+    "adamw_norm": lambda fluid, layers, lr: fluid.optimizer.AdamW(
+        lr, weight_decay=0.01, grad_clip=fluid.clip.GradientClipByNorm(1.0)),
+    "momentum_l2_piecewise": lambda fluid, layers, lr:
+        fluid.optimizer.Momentum(
+            layers.piecewise_decay([1], [lr, lr / 2]), momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4)),
+}
+# the global-norm clip's variables (clip.py's names)
+CLIP_VARS = ("@SQ", "@CLIP", "global_norm", "max_norm", "clip_scale")
+
+
+def optim_op_name(op):
+    """host_by_op's name for the Lamb update and the clip's ops."""
+    if op.type == "lamb":
+        return "lamb"
+    if any(frag in n for ns in op.outputs.values() for n in ns
+           for frag in CLIP_VARS):
+        return f"clip:{op.type}"
+    return None
+
+
+def optim_train_small(fluid, layers):
+    """Two steps of bench_bert at BERT-base width, 2 layers, B=2, S=128,
+    fp32, on the card and on the CPU from one state, under each of
+    OPTIM_CONFIGS (card_vs_cpu: every accumulator held; the clip scale
+    as the loss)."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.base()
+    cfg.num_layers = 2
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    for name, make in OPTIM_CONFIGS.items():
+        print(f"== training breadth, reduced depth: BERT-base width, 2 "
+              f"layers, B=2, S=128, no dropout, {name}, lr {SMALL_LR:g}; "
+              "card vs CPUPlace()")
+        main, startup, loss, _, pg, P, _ = build_bench_bert(
+            fluid, layers, cfg, 2, 128, SMALL_LR, optimizer=make)
+        blk = main.global_block
+        close = ([blk.var("clip_scale_0")] if blk.has_var("clip_scale_0")
+                 else [])
+        feeds = bench_batches(cfg, 2, 128, P, 2)
+        for f in feeds:
+            f["mask"][1, 100:] = 0.0
+        card_vs_cpu(fluid, main, startup, loss, pg, feeds, close=close)
+
+
+def optim_train_full(fluid, layers, kc, adam_stats=None):
+    """bench_bert's step at BertConfig.base(), B=32, S=512, dropout 0.1,
+    under bench_amp, with Lamb and the global-norm clip in place of Adam
+    (bench_bert's schedule): step time, tokens/s, peak memory, the
+    profile, the host's ms of lamb and of the clip's ops, no host-device
+    synchronisation, the kernels' launches; the ratio to adam_stats'
+    step (train_full(amp=True) of the same run); the clip scale read once
+    after the timed steps. Returns the launches."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    B, S = 32, 512
+    print(f"== training breadth path: bench_bert at BertConfig.base(), "
+          f"B={B}, S={S}, dropout 0.1, Lamb (lamb_weight_decay 0.01) with "
+          "GradientClipByGlobalNorm(1.0) under linear warmup over "
+          "polynomial decay, AMP (bf16, bench.py's _amp)")
+    cfg = BertConfig.base()
+    t0 = time.perf_counter()
+    main, startup, loss, lr, pg, P, opt = build_bench_bert(
+        fluid, layers, cfg, B, S, None, amp=True, optimizer=lamb_clip)
+    blk = main.global_block
+    ops = blk.ops
+    n_lamb = sum(op.type == "lamb" for op in ops)
+    n_clip = sum(optim_op_name(op) not in (None, "lamb") for op in ops)
+    check(n_lamb == len(pg), f"{n_lamb} lamb ops for {len(pg)} parameters")
+    print(f"P={P}; {len(ops)} ops of {len({op.type for op in ops})} types "
+          f"({n_lamb} lamb, {n_clip} of the clip), {len(pg)} parameters; "
+          f"built in {time.perf_counter() - t0:.1f}s")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batches = on_card(bench_batches(cfg, B, S, P, 4))
+    watch = ("bert_l0_attn_qkv_w", "bert_l11_ffn_out_w", "mlm_out_w")
+    snap = {n: scope.find_var(n).clone() for n in watch}
+    expect = dict.fromkeys(kc, 0)
+    expect.update(attention_fwd=12, attention_bwd_dq=12,
+                  attention_bwd_dkv=12, residual_fwd=24, residual_bwd=24,
+                  sum_partials=24)
+
+    def after(i, values):
+        changed = [n for n in watch
+                   if not torch.equal(scope.find_var(n), snap[n])]
+        if i == 0:
+            check(values[1] == 0.0 and not changed,
+                  f"step 0 (lr {values[1]}) moved {changed}")
+        elif i == 1:
+            check(values[1] > 0.0 and len(changed) == len(watch),
+                  f"step 1 (lr {values[1]}) moved only {changed}")
+
+    values, stats = run_steps(exe, main, scope, batches, [loss, lr],
+                              ("loss", "lr"), kc, expect, B * S, after,
+                              name_of=optim_op_name)
+    no_host_sync(stats, "the Lamb step")
+    counts = read_counts(kc)
+    amp_checks(main, opt, scope, stats["steps"], {
+        "fused_qkv_attention": ("QKV",),
+        "fused_qkv_attention_grad": ("QKV", "OutGrad"),
+        "fused_dropout_add_ln": ("X", "Y"),
+        "fused_dropout_add_ln_grad": ("X", "Y", "OutGrad")})
+    final, scale = exe.run(main, feed=batches[0],
+                           fetch_list=[loss, blk.var("clip_scale_0")],
+                           scope=scope)
+    check(np.isfinite(final).all() and 0.0 < float(scale[0]) <= 1.0,
+          f"after the timed steps: loss {final}, clip scale {scale}")
+    named = stats.pop("host_ms_named")
+    stats.update(ops=len(ops), lamb_ops=n_lamb, clip_ops=n_clip,
+                 lamb_host_ms=named.get("lamb", 0.0),
+                 clip_host_ms=sum(v for k, v in named.items()
+                                  if k.startswith("clip:")),
+                 clip_host_ms_by_op={k: v for k, v in named.items()
+                                     if k.startswith("clip:")},
+                 clip_scale=float(scale[0]), loss_after=float(final[0]),
+                 launches=counts)
+    if adam_stats is not None:
+        stats["step_ratio_to_adam"] = stats["step_ms"] / adam_stats["step_ms"]
+        print(f"Lamb + clip step {stats['step_ms']:.1f} ms against the Adam "
+              f"step's {adam_stats['step_ms']:.1f} ms of this run: "
+              f"{stats['step_ratio_to_adam']:.3f}x")
+    print(f"host ms: lamb {stats['lamb_host_ms']:.1f}, the clip "
+          f"{stats['clip_host_ms']:.1f}; clip scale after the timed steps "
+          f"{stats['clip_scale']:.4g}, loss {stats['loss_after']:.4f}")
+    print("bert lamb amp training: " + json.dumps(stats))
+    del exe, scope, batches, snap
+    torch.cuda.empty_cache()
+    return counts
+
+
+# every optimizer of the zoo on fit-a-line, card vs CPU (Dpsgd with its
+# noise on: a Philox draw, the same on both)
+ZOO = {
+    "AdamW": lambda f: f.optimizer.AdamW(0.05, weight_decay=0.1),
+    "Lamb": lambda f: f.optimizer.Lamb(0.05, lamb_weight_decay=0.01),
+    "LarsMomentum": lambda f: f.optimizer.LarsMomentum(0.05, momentum=0.9),
+    "Adagrad": lambda f: f.optimizer.Adagrad(0.2,
+                                             initial_accumulator_value=0.1),
+    "DecayedAdagrad": lambda f: f.optimizer.DecayedAdagrad(0.2),
+    "RMSProp": lambda f: f.optimizer.RMSProp(0.02, momentum=0.5),
+    "RMSPropCentered": lambda f: f.optimizer.RMSProp(0.02, momentum=0.5,
+                                                     centered=True),
+    "Adadelta": lambda f: f.optimizer.Adadelta(8.0),
+    "Adamax": lambda f: f.optimizer.Adamax(0.05),
+    "Ftrl": lambda f: f.optimizer.Ftrl(0.2, l1=0.01, l2=0.01),
+    "FtrlPower": lambda f: f.optimizer.Ftrl(0.2, lr_power=-0.3),
+    "Dpsgd": lambda f: f.optimizer.Dpsgd(0.1, clip=1.0, sigma=1.0),
+    "ProximalGD": lambda f: f.optimizer.ProximalGD(
+        0.05, l1_regularization_strength=0.01,
+        l2_regularization_strength=0.01),
+    "ProximalAdagrad": lambda f: f.optimizer.ProximalAdagrad(
+        0.2, l1_regularization_strength=0.01,
+        l2_regularization_strength=0.01),
+    "Lookahead": lambda f: f.optimizer.LookaheadOptimizer(
+        f.optimizer.Adam(0.05), alpha=0.5, k=2),
+}
+AVERAGERS = {
+    "ExponentialMovingAverage": lambda f: f.optimizer.ExponentialMovingAverage(
+        0.99, thres_steps=3),
+    "ModelAverage": lambda f: f.optimizer.ModelAverage(
+        0.15, min_average_window=2, max_average_window=3),
+}
+SCHEDULES = {
+    "noam": lambda L: L.noam_decay(64, 4, learning_rate=2.0),
+    "exponential": lambda L: L.exponential_decay(0.1, 3, 0.5,
+                                                 staircase=True),
+    "natural_exp": lambda L: L.natural_exp_decay(0.1, 5, 0.7),
+    "inverse_time": lambda L: L.inverse_time_decay(0.1, 5, 0.5),
+    "polynomial_cycle": lambda L: L.polynomial_decay(1.0, 4, 0.1, power=2.0,
+                                                     cycle=True),
+    "piecewise": lambda L: L.piecewise_decay([2, 5], [1.0, 0.5, 0.1]),
+    "cosine": lambda L: L.cosine_decay(0.5, 2, 4),
+    "warmup": lambda L: L.linear_lr_warmup(L.exponential_decay(0.1, 10, 0.5),
+                                           3, 0.0, 0.1),
+}
+ZOO_TOL = (1e-5, 1e-6)  # rtol, atol: fit-a-line's [16, 4] x [4, 1] in fp32
+
+
+def zoo_program(fluid, body):
+    """body(fluid) in a new seeded (main, startup) under a fresh
+    unique_name state."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = body(fluid)
+    return main, startup, out
+
+
+def fit_a_line(fluid, make_opt):
+    """tests/test_optimizers_sweep.py's program, minimized by make_opt."""
+    x = fluid.data("x", [16, 4])
+    y = fluid.data("y", [16, 1])
+    loss = fluid.layers.mean(fluid.layers.square_error_cost(
+        fluid.layers.fc(x, 1), y))
+    make_opt(fluid).minimize(loss)
+    return loss
+
+
+def line_feeds(n):
+    rng = np.random.RandomState(0)
+    xs = [rng.randn(16, 4).astype("float32") for _ in range(n)]
+    return [{"x": x, "y": x @ np.arange(4, dtype="float32").reshape(4, 1)}
+            for x in xs]
+
+
+def zoo_run(fluid, main, startup, fetch, feeds):
+    """main on the card and on the CPU from the card's startup state:
+    (fetches a step on each, card scope, CPU scope)."""
+    from paddle_tpu_torch import convert
+
+    gexe, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gexe.run(startup, scope=gscope)
+    cexe, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    convert.state_from_numpy(convert.state_to_numpy(gscope), cscope,
+                             fluid.CPUPlace(), program=main)
+    cpu_main = main.clone()
+    got = [gexe.run(main, feed=f, fetch_list=fetch, scope=gscope)
+           for f in feeds]
+    want = [cexe.run(cpu_main, feed=f, fetch_list=fetch, scope=cscope)
+            for f in feeds]
+    return got, want, gscope, cscope
+
+
+def zoo_held(got, want, what, rtol=ZOO_TOL[0], atol=ZOO_TOL[1]):
+    """Worst |got - want| / (atol + rtol |want|) over the arrays, which
+    must stay at most 1; integers equal."""
+    worst = 0.0
+    for name, (g, w) in zip(what, zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if w.dtype.kind in "iub":
+            check(np.array_equal(g, w), f"{name}: {g} vs {w}")
+            continue
+        r = float((np.abs(g.astype(np.float64) - w)
+                   / (atol + rtol * np.abs(w))).max())
+        check(r <= 1.0, f"{name} differs: {r:.3g} of the tolerance")
+        worst = max(worst, r)
+    return worst
+
+
+def optim_zoo(fluid):
+    """Every optimizer of the zoo (and Lookahead), each averager through
+    apply(), for three steps of fit-a-line, and every static schedule for
+    20 steps, on the card against the CPU: the state, the averaged
+    parameters and the learning rates within ZOO_TOL."""
+    from paddle_tpu_torch import convert
+
+    feeds = line_feeds(3)
+    worst = {}
+    for name, make in ZOO.items():
+        main, startup, loss = zoo_program(
+            fluid, lambda f, make=make: fit_a_line(f, make))
+        got, want, gscope, cscope = zoo_run(fluid, main, startup, [loss],
+                                            feeds)
+        gs, cs_ = convert.state_to_numpy(gscope), convert.state_to_numpy(
+            cscope)
+        names = sorted(cs_)
+        worst[name] = zoo_held([g[0] for g in got] + [gs[n] for n in names],
+                               [w[0] for w in want] + [cs_[n] for n in names],
+                               ["loss"] * len(got) + names)
+    for name, make in AVERAGERS.items():
+        def body(f, make=make):
+            loss = fit_a_line(f, lambda f: f.optimizer.SGD(0.05))
+            avg = make(f)
+            if name == "ExponentialMovingAverage":
+                avg.update()
+            return loss, avg
+
+        main, startup, (loss, avg) = zoo_program(fluid, body)
+        _, _, gscope, cscope = zoo_run(fluid, main, startup, [loss], feeds)
+        applied = []
+        for scope in (gscope, cscope):
+            with fluid.scope_guard(scope), avg.apply():
+                applied.append([scope.find_var(p).cpu().numpy()
+                                for p in ("fc_w_0", "fc_b_0")])
+        worst[name] = zoo_held(applied[0], applied[1], ["fc_w_0", "fc_b_0"])
+    for name, make in SCHEDULES.items():
+        main, startup, lr = zoo_program(fluid, lambda f, make=make: make(
+            f.layers))
+        got, want, _, _ = zoo_run(fluid, main, startup, [lr], [{}] * 20)
+        worst[name] = zoo_held([g[0] for g in got], [w[0] for w in want],
+                               [f"{name} lr"] * 20, rtol=1e-6, atol=1e-12)
+    print(f"optimizer zoo, averagers and schedules on the card vs the CPU "
+          f"(worst error as a share of the tolerance, state rtol "
+          f"{ZOO_TOL[0]:g} atol {ZOO_TOL[1]:g}, lr rtol 1e-6): "
+          + json.dumps({k: round(v, 4) for k, v in worst.items()}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6268,12 +6599,16 @@ def main():
     del frozen, exe, scope
     torch.cuda.empty_cache()
     phase(train_small, fluid, layers)
-    train_n = phase(train_full, fluid, layers, kc)
+    train_n, _ = phase(train_full, fluid, layers, kc)
     phase(gpt_train_small, fluid)
     gpt_train_n, _ = phase(gpt_train_full, fluid, kc)
     gpt_serve_n = phase(gpt_serving, fluid, kc)
     phase(gpt_train_small, fluid, amp=True)
-    amp_n = phase(train_full, fluid, layers, kc, amp=True)
+    amp_n, amp_stats = phase(train_full, fluid, layers, kc, amp=True)
+    # the Lamb step right after the Adam step it is set beside
+    phase(optim_train_full, fluid, layers, kc, amp_stats)
+    phase(optim_train_small, fluid, layers)
+    phase(optim_zoo, fluid)
     gpt_amp_n, _ = phase(gpt_train_full, fluid, kc, amp=True)
     gpt_ln_n, _ = phase(gpt_train_full, fluid, kc, amp=True,
                         ln_kernels=True)

@@ -11,7 +11,7 @@ Entry points run on the card (`CUDAPlace(0)`) unless the caller passes
 
 from . import ops  # noqa: F401  (registers every op emitter)
 from . import contrib, initializer, layers, optimizer, parallel  # noqa: F401
-from . import dygraph, inference, io  # noqa: F401
+from . import clip, dygraph, inference, io, metrics, regularizer  # noqa: F401
 from .core import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework import (  # noqa: F401
     Executor,

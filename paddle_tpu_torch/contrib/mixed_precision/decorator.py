@@ -211,6 +211,8 @@ class OptimizerWithMixedPrecision:
         return params_grads
 
     def apply_gradients(self, params_grads):
+        # the inner optimizer's clip and regularizers then see the
+        # unscaled fp32 gradients update_loss_scaling wrote back
         return self._inner.apply_gradients(params_grads)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,

@@ -28,8 +28,10 @@ with its fields, so the JAX package reads the port's `.pdmodel` and
 cannot be written). They are read back through `ProgramUnpickler`, which
 maps the JAX package's IR classes to the port's, translating their
 pickled fields on the way, and refuses every other global of paddle_tpu
-and all of jax: reading a file never imports either. A program that needs
-what the port lacks (a mesh, ZeRO shards) is refused there by name.
+and all of jax: reading a file never imports either (a parameter's
+L2Decay or L1Decay becomes the port's class of that name). A program that
+needs what the port lacks (a mesh, ZeRO shards, a pipeline) is refused
+there by name.
 
 Tensors leave the device as numpy arrays; bfloat16, which numpy lacks,
 is written as float32 (exact) and read back in the dtype the program
@@ -68,6 +70,7 @@ from .framework.program import (
     default_main_program,
 )
 from .framework.scope import global_scope
+from .regularizer import L1Decay, L2Decay
 
 __all__ = [
     "save_params",
@@ -294,9 +297,10 @@ def verify_checkpoint_dir(dirname, filename=None):
 # package's fields and then makes the object an instance of the port's
 # class itself: what the port runs is kept, what only the TPU build uses is
 # dropped when it holds its neutral value, and a program that needs what
-# the port lacks (a mesh, ZeRO shards, a pipeline, per-parameter
-# regularizers or learning rates) is refused by name. The port's own files
-# and its copies (Program.clone) never pass through the translation.
+# the port lacks (a mesh, ZeRO shards, a pipeline) is refused by name. A
+# parameter's regularizer (the JAX package's L2Decay or L1Decay) becomes
+# the port's class of that name. The port's own files and its copies
+# (Program.clone) never pass through the translation.
 
 
 def _unset(value):
@@ -324,9 +328,9 @@ def _restore(obj, state, keep, defaults=None, optional=(), dropped=(),
         if key in state and not ok(state[key]):
             raise UnimplementedError(
                 f"a pickled {kind} sets {key}={state[key]!r}, which the "
-                "port does not run yet (mesh, ZeRO, pipeline and "
-                "per-parameter optimizer settings: ROADMAP Queue 1 items "
-                "7-8)"
+                "port does not run yet (a mesh and ZeRO shards: ROADMAP "
+                "Queue 1, item 1 — data-parallel distribution; a pipeline: "
+                "item 7 — model parallelism)"
             )
     missing = [k for k in keep if k not in state]
     if missing:
@@ -348,6 +352,9 @@ _VAR_FIELDS = ("block", "name", "shape", "dtype", "persistable",
 _VAR_DROPPED = ("initializer",)
 # an optimizer accumulator's tags (optimizer.py), kept where a file has them
 _VAR_OPTIONAL = ("_accum_of", "_accum_elementwise")
+# a layer's parameter: its ParamAttr's learning rate, kept and read by no
+# optimizer, as in the JAX package (layers/helper.py)
+_PARAM_OPTIONAL = _VAR_OPTIONAL + ("optimize_attr",)
 
 # each IR class of the JAX package: how its pickled fields become the port's
 _JAX_FIELDS = {
@@ -356,10 +363,9 @@ _JAX_FIELDS = {
                    neutral={"_zero_shard_of": _unset}),
     Parameter: dict(
         keep=_VAR_FIELDS + ("trainable",),
-        dropped=_VAR_DROPPED + ("need_clip",), optional=_VAR_OPTIONAL,
-        neutral={"_zero_shard_of": _unset, "regularizer": _unset,
-                 "optimize_attr": lambda a: (
-                     a or {}).get("learning_rate", 1.0) == 1.0}),
+        defaults={"regularizer": lambda: None},
+        dropped=_VAR_DROPPED + ("need_clip",), optional=_PARAM_OPTIONAL,
+        neutral={"_zero_shard_of": _unset}),
     Operator: dict(keep=("block", "type", "inputs", "outputs", "attrs",
                          "uid")),
     Block: dict(keep=("program", "idx", "parent_idx", "vars", "ops")),
@@ -396,6 +402,10 @@ def _translating(cls, rules):
 _FROM_JAX = {cls.__name__: _translating(cls, rules)
              for cls, rules in _JAX_FIELDS.items()}
 _PORT_IR = {cls.__name__: cls for cls in _JAX_FIELDS}
+# a parameter's regularizer, pickled (both ways) as the JAX package's class
+# of that name with its one field, coeff
+_JAX_REGULARIZER_MODULE = "paddle_tpu.regularizer"
+_REGULARIZERS = {cls.__name__: cls for cls in (L2Decay, L1Decay)}
 # what else a model or checkpoint file may name: numpy arrays and dtypes
 _PLAIN_MODULES = ("numpy", "builtins", "collections", "copyreg", "_codecs")
 
@@ -414,6 +424,8 @@ class ProgramUnpickler(pickle.Unpickler):
             return _FROM_JAX[name]
         if module == "paddle_tpu_torch.framework.program" and name in _PORT_IR:
             return _PORT_IR[name]
+        if module == _JAX_REGULARIZER_MODULE and name in _REGULARIZERS:
+            return _REGULARIZERS[name]
         if top in ("jax", "jaxlib"):
             raise UnimplementedError(
                 f"the file refers to {module}.{name}, a JAX object; the "
@@ -436,13 +448,17 @@ _JAX_PROGRAM_MODULE = "paddle_tpu.framework.program"
 
 
 class _JaxClass:
-    """Stands for the JAX package's class `name` in a pickle stream."""
+    """Stands for the JAX package's class `module.name` in a pickle
+    stream."""
 
-    def __init__(self, name):
+    def __init__(self, name, module=_JAX_PROGRAM_MODULE):
         self.name = name
+        self.module = module
 
 
 _TO_JAX = {cls: _JaxClass(cls.__name__) for cls in _JAX_FIELDS}
+_TO_JAX.update({cls: _JaxClass(name, _JAX_REGULARIZER_MODULE)
+                for name, cls in _REGULARIZERS.items()})
 
 
 def _jax_fields(obj):
@@ -468,9 +484,10 @@ def _jax_fields(obj):
 
 class ProgramPickler(pickle._Pickler):
     """Writes a Program, model meta or checkpoint payload with the port's
-    Program, Block, Operator, Variable and Parameter as the JAX package's
-    (their fields as the JAX package pickles them); everything else as
-    pickle does. A program with a mesh is refused by name."""
+    Program, Block, Operator, Variable, Parameter and regularizers as the
+    JAX package's (their fields as the JAX package pickles them);
+    everything else as pickle does. A program with a mesh is refused by
+    name."""
 
     dispatch = dict(pickle._Pickler.dispatch)
 
@@ -484,7 +501,7 @@ class ProgramPickler(pickle._Pickler):
             _jax_fields(obj)
 
     def _save_jax_class(self, obj):
-        self.save(_JAX_PROGRAM_MODULE)
+        self.save(obj.module)
         self.save(obj.name)
         self.write(pickle.STACK_GLOBAL)
         self.memoize(obj)

@@ -54,6 +54,11 @@ class LayerHelper:
                 )
             return existing
         p = mb.create_parameter(name, shape, dtype, trainable=attr.trainable)
+        # the optimizer appends the regularizer to this parameter's
+        # gradient; optimize_attr is kept as the JAX package keeps it (no
+        # optimizer reads it there either)
+        p.regularizer = attr.regularizer
+        p.optimize_attr = {"learning_rate": attr.learning_rate}
         if not sb.has_var(name):
             sb.create_parameter(name, shape, dtype, trainable=attr.trainable)
             init(sb, name, shape, dtype)

@@ -297,6 +297,12 @@ def sparse_embedding(input, size, param_attr=None, dtype="float32", axis="ps",
     )
 
 
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise."""
+    helper = LayerHelper("square_error_cost")
+    return helper.create_and_append({"X": [input], "Y": [label]}, {})
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     return helper.create_and_append({"X": [x]}, {})

@@ -125,9 +125,31 @@ elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
 elementwise_max = _binary("elementwise_max")
 elementwise_min = _binary("elementwise_min")
+elementwise_pow = _binary("elementwise_pow")
+elementwise_mod = _binary("elementwise_mod")
+equal = _binary("equal")
 not_equal = _binary("not_equal")
 less_than = _binary("less_than")
 greater_equal = _binary("greater_equal")
+
+
+def _unary(op_type):
+    def fn(x, name=None):
+        return _simple(op_type, {"X": [x]}, {})
+
+    fn.__name__ = op_type
+    return fn
+
+
+exp = _unary("exp")
+floor = _unary("floor")
+ceil = _unary("ceil")
+cos = _unary("cos")
+
+
+def where(condition, x, y):
+    return _simple("where", {"Condition": [condition], "X": [x], "Y": [y]},
+                   {})
 
 
 def abs(x, name=None):

@@ -1,8 +1,11 @@
 """Shared emitter helpers (counterpart of paddle_tpu/ops/_helpers.py):
 fluid's elementwise `axis` broadcast rule, per-op random streams, the
-detection ops' sampling jitter and the stable sigmoid cross-entropy."""
+detection ops' sampling jitter, dpsgd's Gaussian noise and the stable
+sigmoid cross-entropy."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -46,17 +49,42 @@ def sampling_jitter(ctx, op, n, size, device):
     inferring shapes."""
     if ctx.abstract:
         return torch.zeros((n, size), dtype=torch.float32, device=device)
-    seed = op.attr("seed", 0)
-    if seed:
-        s = int(seed) + int(op.uid)
-        words = (s & MASK32, (s >> 32) & MASK32)
-    else:
-        words = ctx.seed_words(op.uid, op.type)
+    words = _op_words(ctx, op)
     i = torch.arange(size, dtype=torch.int64, device=device)
     b = torch.arange(n, dtype=torch.int64, device=device)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=device)
     w0 = philox4x32_10(i, b, zero, zero, words)[0].expand(n, size)
     return (w0 >> 9).to(torch.float32) * 2.0 ** -23
+
+
+def _op_words(ctx, op):
+    """The op's two Philox key words: seed + uid where it has a `seed`
+    attr, else its seed words."""
+    seed = op.attr("seed", 0)
+    if seed:
+        s = int(seed) + int(op.uid)
+        return s & MASK32, (s >> 32) & MASK32
+    return ctx.seed_words(op.uid, op.type)
+
+
+def gaussian_noise(ctx, op, shape, device):
+    """Standard normal fp32 draws of `shape`, by Box-Muller from Philox:
+    flat element i takes words 0 and 1 of Philox-4x32-10 at counter (i,
+    0, 0, 0) under the op's key words, u1 = (w0 >> 9 + 1) 2^-23 in (0,
+    1] and u2 = (w1 >> 9) 2^-23, and sqrt(-2 ln u1) cos(2 pi u2). A pure
+    function of the key and the element, as sampling_jitter, so the CPU
+    and the card draw the same noise (the JAX package's is jax.random's,
+    which the port does not reproduce). Zeros while inferring shapes."""
+    if ctx.abstract:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    words = _op_words(ctx, op)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    w0, w1, _, _ = philox4x32_10(i, zero, zero, zero, words)
+    u1 = ((w0 >> 9) + 1).to(torch.float32) * 2.0 ** -23
+    u2 = (w1 >> 9).to(torch.float32) * 2.0 ** -23
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.reshape(shape)
 
 
 def shape_attr(ctx, op):

@@ -1,10 +1,11 @@
 """AMP support ops (counterpart of paddle_tpu/ops/amp_ops.py; reference
-operators/amp/check_finite_and_unscale_op.cc and the update_loss_scaling
-logic used by contrib/mixed_precision/decorator.py).
+operators/amp/amp_check_finite_and_scale_op.cc,
+check_finite_and_unscale_op.cc and the update_loss_scaling logic used by
+contrib/mixed_precision/decorator.py).
 
-Both stay on the device: the found-infinite flag is a bool [1] tensor,
-and every branch of the loss-scale automaton is a torch.where, so neither
-op waits for the card.
+All stay on the device: the found-infinite flag is a bool [1] tensor,
+and every branch of the loss-scale automaton is a torch.where, so no op
+waits for the card.
 """
 
 from __future__ import annotations
@@ -18,6 +19,24 @@ def _lifted(x, s):
     """x in the dtype jnp gives x / s: torch keeps a bf16 tensor bf16
     against a 0-dim fp32 one, jnp lifts it to fp32."""
     return x.to(torch.promote_types(x.dtype, s.dtype))
+
+
+@register_op(
+    "amp_check_finite_and_scale",
+    inputs=["X", "Scale"],
+    outputs=["Out", "FoundInfinite"],
+    differentiable=False,
+)
+def _amp_check_finite_and_scale(ctx, op, ins):
+    """Each X times Scale (in the dtype jnp gives it), and whether any
+    X holds an inf or a NaN."""
+    scale = ins["Scale"][0].reshape(())
+    xs = [x for x in ins["X"] if x is not None]
+    found = torch.zeros((), dtype=torch.bool, device=scale.device)
+    for x in xs:
+        found = found | ~torch.isfinite(x).all()
+    return {"Out": [_lifted(x, scale) * scale for x in xs],
+            "FoundInfinite": [found.reshape(1)]}
 
 
 @register_op(

@@ -1,7 +1,8 @@
 """Dense math ops of the port's slices (counterpart of
 paddle_tpu/ops/math.py; reference elementwise ops, square_op, scale_op.cc,
 mul_op.cc, matmul_op.cc, mean_op.cc, reduce_sum_op.cc, reduce_mean_op.cc,
-sum_op.cc, compare_op.cc, abs_op, log_op, clip_op.cc).
+sum_op.cc, compare_op.cc, activation_op.cc's unary ops, clip_op.cc,
+clip_by_norm_op.cc).
 
 Where jnp's gradient differs from torch's at a kink, the emitter is
 written so that torch autograd (the `__vjp__` replay) gives the JAX
@@ -32,6 +33,7 @@ _register_elementwise("elementwise_sub", torch.sub)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_div", torch.div)
 _register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_pow", torch.pow)
 _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("not_equal", torch.ne, differentiable=False)
 _register_elementwise("less_than", torch.lt, differentiable=False)
@@ -48,6 +50,25 @@ _register_elementwise("greater_than", torch.gt, differentiable=False)
 @register_op("square", inputs=["X"], outputs=["Out"])
 def _square(ctx, op, ins):
     return {"Out": [torch.square(ins["X"][0])]}
+
+
+def _register_unary(op_type, fn):
+    @register_op(op_type, inputs=["X"], outputs=["Out"])
+    def emit(ctx, op, ins):
+        return {"Out": [fn(ins["X"][0])]}
+
+    return emit
+
+
+# the clip, regularizer and LR-schedule ops (torch.sign, floor and ceil
+# have gradient 0, as jnp's)
+_register_unary("sqrt", torch.sqrt)
+_register_unary("reciprocal", torch.reciprocal)
+_register_unary("sign", torch.sign)
+_register_unary("exp", torch.exp)
+_register_unary("floor", torch.floor)
+_register_unary("ceil", torch.ceil)
+_register_unary("cos", torch.cos)
 
 
 @register_op("abs", inputs=["X"], outputs=["Out"])
@@ -72,6 +93,15 @@ def _clip(ctx, op, ins):
     lo = torch.full((), float(op.attr("min")), dtype=x.dtype, device=x.device)
     hi = torch.full((), float(op.attr("max")), dtype=x.dtype, device=x.device)
     return {"Out": [torch.minimum(torch.maximum(x, lo), hi)]}
+
+
+@register_op("clip_by_norm", inputs=["X"], outputs=["Out"])
+def _clip_by_norm(ctx, op, ins):
+    """x * max_norm / max(||x||, max_norm), the norm in x's dtype."""
+    x = ins["X"][0]
+    max_norm = op.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [x * (max_norm / torch.clamp(norm, min=max_norm))]}
 
 
 @register_op("pow", inputs=["X"], outputs=["Out"])

@@ -2,7 +2,9 @@
 reference conv_op.cc, conv_transpose_op.cc, pool_op.cc, batch_norm_op.cc,
 layer_norm_op.cc, lookup_table_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
 softmax_with_cross_entropy_op.cc,
-sigmoid_cross_entropy_with_logits_op.cc, pad2d_op.cc, interpolate_op.cc).
+sigmoid_cross_entropy_with_logits_op.cc, square_error_cost (the
+squared-error loss of fluid's fit-a-line), pad2d_op.cc,
+interpolate_op.cc).
 
 conv2d runs through F.conv2d (cuDNN on the card), as the JAX package
 leaves its convolutions to XLA. batch_norm is the JAX package's formula,
@@ -391,6 +393,12 @@ def _sigmoid_cross_entropy_with_logits(ctx, op, ins):
     if op.attr("normalize", False):
         loss = loss / keep.to(x.dtype).sum().clamp(min=1.0)
     return {"Out": [loss]}
+
+
+@register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])
+def _square_error_cost(ctx, op, ins):
+    d = ins["X"][0] - ins["Y"][0]
+    return {"Out": [d * d]}
 
 
 @register_op("pad2d", inputs=["X"], outputs=["Out"])

@@ -2,7 +2,7 @@
 paddle_tpu/ops/tensor_ops.py; reference reshape_op.cc, transpose_op.cc,
 slice_op.cc, concat_op.cc, fill_constant_op.cc, range_op.cc, cast_op.cc,
 assign_op.cc, assign_value_op.cc, gather_op.cc, take_along_axis_op.cc,
-increment_op.cc, tril_triu_op.cc, top_k_op.cc)."""
+increment_op.cc, tril_triu_op.cc, top_k_op.cc, where_op.cc)."""
 
 from __future__ import annotations
 
@@ -91,6 +91,12 @@ def _assign(ctx, op, ins):
     # into a persistable cache no program assigns, so the two names may
     # share one tensor
     return {"Out": [ins["X"][0]]}
+
+
+@register_op("where", inputs=["Condition", "X", "Y"], outputs=["Out"])
+def _where(ctx, op, ins):
+    return {"Out": [torch.where(ins["Condition"][0], ins["X"][0],
+                                ins["Y"][0])]}
 
 
 @register_op("gather", inputs=["X", "Index"], outputs=["Out"])

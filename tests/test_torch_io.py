@@ -172,15 +172,23 @@ def _refused(tmp_path, name, obj):
 
 
 def test_what_the_port_lacks_is_refused_by_name(tmp_path):
-    """A JAX package Program annotated for a mesh, a parameter with a
-    regularizer, and any JAX object are refused, each by name."""
+    """A JAX package Program annotated for a mesh and any JAX object are
+    refused, each by name; a parameter with a regularizer loads, as the
+    port's regularizer of that class and coefficient (training it:
+    tests/test_torch_clip_regularizer.py)."""
     jmain, *_ = _program(JAX)
     jmain._sharding = {"word_embedding": ("mp", None)}
-    assert "_sharding" in _refused(tmp_path, "sharded", jmain)
+    refusal = _refused(tmp_path, "sharded", jmain)
+    assert "_sharding" in refusal and "item 1" in refusal
     jmain._sharding = {}
     param = jmain.all_parameters()[0]
     param.regularizer = jf.regularizer.L2Decay(1e-4)
-    assert "paddle_tpu.regularizer" in _refused(tmp_path, "reg", jmain)
+    path = str(tmp_path / "reg")
+    with open(path + ".pdmodel", "wb") as f:
+        pickle.dump(jmain, f, protocol=4)
+    loaded = tio.load_program(path).global_block.var(param.name)
+    assert type(loaded.regularizer) is tf.regularizer.L2Decay
+    assert loaded.regularizer.coeff == 1e-4
     param.regularizer = None
     assert "jax" in _refused(tmp_path, "array", {"w": jnp.ones(2)})
 

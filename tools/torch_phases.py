@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """One section of chip_smoke.py's phases alone, on one CUDA card, for
-iterating on a slice without the whole script. Only the dygraph section
-runs kernels of ours; it builds them first (all sources at once).
+iterating on a slice without the whole script. Only the dygraph and
+optim sections run kernels of ours; they build them first (all sources
+at once).
 
-    cd <checkout> && python3 tools/torch_phases.py yolov3|ctr|mask_rcnn|dygraph
+    cd <checkout> && python3 tools/torch_phases.py \
+        yolov3|ctr|mask_rcnn|dygraph|optim
 
 yolov3: the reduced training step against the CPU (yolov3_train_small),
 bench_yolov3's AMP step at the paper's width (yolov3_train_full) and the
@@ -27,6 +29,14 @@ and, which chip_smoke.py does not run, the static program of the same
 network at the same B and S, timed and profiled to set beside the eager
 step (dygraph_static), then the dygraph path's kernel rows
 (dygraph_kernel_times).
+
+optim: bench_bert's AMP step under Adam (train_full, for the ratio),
+then the training-breadth phases: the full-width Lamb + clip AMP step
+(optim_train_full); bench_bert at two layers under Lamb with the
+global-norm clip, AdamW with the per-gradient clip and Momentum with
+L2Decay under piecewise_decay, card vs CPU (optim_train_small); every
+optimizer, averager and static schedule on fit-a-line, card vs CPU
+(optim_zoo).
 
 Imports the port and chip_smoke.py from the current directory, turns
 TF32 off as chip_smoke.py does, runs each phase in turn (a failed phase
@@ -74,6 +84,23 @@ def _dygraph_sections():
 
 
 SECTIONS["dygraph"] = _dygraph_sections()
+
+
+def _optim_sections():
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.kernels import _build
+
+    adam = []
+    return (("build", lambda fluid, kc: _build.build()),
+            ("adam", lambda fluid, kc: adam.append(
+                cs.train_full(fluid, layers, kc, amp=True)[1])),
+            ("full", lambda fluid, kc: cs.optim_train_full(
+                fluid, layers, kc, adam[0] if adam else None)),
+            ("small", lambda fluid, kc: cs.optim_train_small(fluid, layers)),
+            ("zoo", lambda fluid, kc: cs.optim_zoo(fluid)))
+
+
+SECTIONS["optim"] = _optim_sections()
 
 
 def main(argv):
