@@ -64,3 +64,26 @@ class StorageExhaustedError(EnforceNotMet, OSError):
     failed write leaves no temp file behind; retry once space is freed."""
 
     code = ErrorCode.RESOURCE_EXHAUSTED
+
+
+class ProgramVerifyError(PreconditionNotMetError):
+    """The static verifier (analysis/) found ERROR findings under
+    ``PADDLE_TPU_VERIFY=strict``: the Program is malformed (use-before-def,
+    shape/dtype desync against the emitters, a rank-divergent collective
+    schedule, ...). Raised where the executor builds the run's plan, before
+    any op runs. ``findings`` holds the structured ``analysis.Finding``
+    list; ``loc`` the first one's source frame, where the op carries one.
+    Retrying cannot help: the graph itself must be fixed."""
+
+    code = ErrorCode.PRECONDITION_NOT_MET
+
+    def __init__(self, message, findings=None, op=None, loc=None):
+        self.findings = list(findings or [])
+        self.user_loc = loc
+        super().__init__(message, op=op)
+
+
+class ProgramVerifyWarning(UserWarning):
+    """Category of the warnings the static verifier emits in its default
+    ``PADDLE_TPU_VERIFY=warn`` mode. Filter with
+    ``warnings.filterwarnings(..., category=ProgramVerifyWarning)``."""

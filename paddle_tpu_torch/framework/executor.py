@@ -13,6 +13,17 @@ shapes, fetch set), as the JAX package caches its jitted executables.
 Mutated persistables (initializer outputs, optimizer updates) are written
 back to the scope after the run.
 
+Where the JAX package compiles (a plan-cache miss), the static verifier
+runs behind ``PADDLE_TPU_VERIFY`` (analysis/verify.py), and each plan
+gets one analytic cost estimate (``Program.estimate``) that feeds the
+``perf.*`` telemetry: the ``perf.step_flops`` / ``perf.step_bytes``
+counters on every run, and from the steady-state runs (not the one that
+built the plan) the ``perf.step_seconds``, ``perf.mfu`` and
+``perf.family_time.*`` gauges. A step's time is the wall time of `run`:
+on the card the emitters enqueue their kernels and `run` returns without
+a synchronize, so a steady run of steps times the card's pace once the
+launch queue is full.
+
 A program with a mesh (parallel/spmd.py shard_program) runs SPMD: every
 rank runs the block on its shard, as the JAX package's shard_map does on
 every device. A feed or scope value whose variable has a sharding spec
@@ -24,12 +35,18 @@ mesh's process groups (EmitContext.mesh).
 
 from __future__ import annotations
 
-from collections import OrderedDict
+import time
+from collections import OrderedDict, deque
 
 import torch
 
+from .. import observability as _obs
 from ..core.place import default_place
-from ..errors import NotFoundError, PreconditionNotMetError
+from ..errors import (
+    NotFoundError,
+    PreconditionNotMetError,
+    UnimplementedError,
+)
 from ..parallel.spmd import gather_global, local_slice, spec_for
 from .program import Variable, default_main_program
 from .registry import EmitContext, run_op
@@ -61,6 +78,39 @@ def _analyze_block(block, feed_names, fetch_names):
     return tuple(from_scope), tuple(sorted(mutated))
 
 
+class _Plan:
+    """One cached run plan: the state read from the scope, the
+    persistables written back, and the perf telemetry of the plan (the
+    analytic estimate: None until computed, False when it failed, never
+    retried; the window of steady-state step times behind perf.mfu)."""
+
+    __slots__ = ("from_scope", "write_back", "est", "recent_dts")
+
+    def __init__(self, from_scope, write_back):
+        self.from_scope = from_scope
+        self.write_back = write_back
+        self.est = None
+        self.recent_dts = deque(maxlen=32)
+
+
+class _PerfEstimate:
+    """Digest of a CostTable cached per plan for the per-run perf.*
+    updates (the full table is published once, as the "perf.cost_table"
+    observability table)."""
+
+    __slots__ = ("flops", "bytes", "peak", "family_shares")
+
+    def __init__(self, table):
+        self.flops = float(table.total_flops)
+        self.bytes = float(table.total_bytes)
+        self.peak = float(table.peak_flops)
+        total_lat = table.total_latency
+        self.family_shares = {
+            fam: (agg["latency"] / total_lat if total_lat else 0.0)
+            for fam, agg in table.by_family().items()
+        }
+
+
 class Executor:
     """fluid.Executor parity (python/paddle/fluid/executor.py:890)."""
 
@@ -77,6 +127,13 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
+        t0 = time.perf_counter()
+        fetches, plan, fresh = self._run_body(program, feed, fetch_list,
+                                              scope, return_numpy)
+        self._note_perf(plan, fresh, time.perf_counter() - t0)
+        return fetches
+
+    def _run_body(self, program, feed, fetch_list, scope, return_numpy):
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         block = program.global_block
@@ -93,13 +150,20 @@ class Executor:
         plan = self._cache.get(key)
         first_run = plan is None
         if first_run:
-            plan = _analyze_block(block, set(feeds), fetch_names)
+            # where the JAX package compiles: the static verifier
+            # (PADDLE_TPU_VERIFY=strict refuses the run here)
+            from ..analysis import check_before_compile
+
+            check_before_compile(program, set(feeds), fetch_names)
+            plan = _Plan(*_analyze_block(block, set(feeds), fetch_names))
             self._cache[key] = plan
             while len(self._cache) > self.CACHE_CAPACITY:
                 self._cache.popitem(last=False)
         else:
             self._cache.move_to_end(key)
-        from_scope, write_back = plan
+        if plan.est is None and _obs.enabled():
+            plan.est = self._estimate(program, feeds)
+        from_scope, write_back = plan.from_scope, plan.write_back
 
         env = {n: self._from_scope(scope, n, block) for n in from_scope}
         env.update(feeds)
@@ -140,8 +204,98 @@ class Executor:
                 scope.set_var(n, env[n])
         fetches = [env[n] for n in fetch_names]
         if return_numpy:
-            return [_to_numpy(t) for t in fetches]
-        return fetches
+            fetches = [_to_numpy(t) for t in fetches]
+        return fetches, plan, first_run
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _estimate(program, feeds):
+        """Analytic cost digest of the plan about to run, pinned at the
+        feed shapes; publishes the full per-op table as the
+        "perf.cost_table" table and the static plan's peak and resident
+        bytes as gauges. Returns False on failure, so that a plan is
+        estimated once, never every step."""
+        try:
+            table = program.estimate(feed_shapes={
+                k: tuple(t.shape) for k, t in feeds.items()
+            })
+            _obs.set_table("perf.cost_table", table.to_dict(top=50))
+            if table.peak_bytes is not None:
+                _obs.set_gauge("perf.peak_bytes_est",
+                               float(table.peak_bytes))
+                _obs.set_gauge("perf.resident_bytes_est",
+                               float(table.resident_bytes))
+            return _PerfEstimate(table)
+        except Exception:  # the telemetry must not fail a run
+            _obs.add("perf.estimate_failures")
+            return False
+
+    @staticmethod
+    def _drop_perf_gauges():
+        for prefix in ("perf.mfu", "perf.step_seconds",
+                       "perf.family_time."):
+            _obs.drop_gauges(prefix)
+
+    def _note_perf(self, plan, fresh, dt):
+        """Per-run perf.* telemetry from the plan's estimate: the step
+        FLOP and byte counters always; the step-time, MFU and family-time
+        gauges only from steady-state runs (the run that built the plan
+        is not one, and the previous plan's gauges must not read as
+        live for this one)."""
+        if not _obs.enabled():
+            return
+        est = plan.est
+        if not est:
+            self._drop_perf_gauges()
+            return
+        _obs.add("perf.step_flops", int(est.flops))
+        _obs.add("perf.step_bytes", int(est.bytes))
+        if fresh or dt <= 0:
+            self._drop_perf_gauges()
+            return
+        plan.recent_dts.append(dt)
+        mean_dt = sum(plan.recent_dts) / len(plan.recent_dts)
+        _obs.set_gauge("perf.step_seconds", mean_dt)
+        if est.peak > 0 and est.flops > 0:
+            _obs.set_gauge("perf.mfu", est.flops / mean_dt / est.peak)
+        # the measured step time split over the op families by their
+        # shares of the estimated roofline
+        _obs.drop_gauges("perf.family_time.")
+        for fam, share in est.family_shares.items():
+            _obs.set_gauge(f"perf.family_time.{fam}", share * mean_dt)
+
+    # ------------------------------------------------------------------
+    def flops(self, program=None, feed=None, fetch_list=None, scope=None):
+        """The JAX package's XLA count of a step's FLOPs (its compiled
+        executable's cost_analysis) has no counterpart yet: the port's
+        count is ``Program.estimate(feed_shapes).total_flops``, which the
+        perf.* telemetry already uses."""
+        raise UnimplementedError(
+            "Executor.flops (a compiler's cost analysis of the step) is "
+            "ROADMAP Queue 1 item 8 (the operations planes); "
+            "Program.estimate(feed_shapes).total_flops counts the step's "
+            "FLOPs")
+
+    def memory_analysis(self, program=None, feed=None, fetch_list=None,
+                        scope=None):
+        """The card's peak memory over ONE step of `program` with this
+        feed: ``{"peak_bytes": torch.cuda.max_memory_allocated()}`` after
+        ``reset_peak_memory_stats``, so it counts the state the scope
+        already holds as well as what the step allocates. The step runs
+        (a training program takes its update). The measured side of the
+        static plan (``Program.estimate().peak_bytes``). On the CPU it
+        returns None, with the ``perf.memory_analysis_unavailable``
+        counter bumped."""
+        if self.device.type != "cuda":
+            _obs.add("perf.memory_analysis_unavailable")
+            return None
+        torch.cuda.synchronize(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                 return_numpy=False)
+        torch.cuda.synchronize(self.device)
+        return {"peak_bytes":
+                float(torch.cuda.max_memory_allocated(self.device))}
 
     def _check_mesh(self, mesh):
         if mesh.place.torch_device() != self.device:

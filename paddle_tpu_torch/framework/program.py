@@ -215,6 +215,21 @@ class Program:
     def _bump(self):
         self._version += 1
 
+    def estimate(self, feed_shapes=None, peak_tflops=None, peak_gbps=None):
+        """Analytic per-op FLOPs / bytes / roofline-latency table for ONE
+        step of this program (analysis/cost.py), with the static memory
+        plan (``peak_bytes`` / ``resident_bytes`` / ``memory``:
+        analysis/memory.py). `feed_shapes` ({var: shape}) pins -1 batch
+        dims; the peaks default from ``PADDLE_TPU_PEAK_TFLOPS`` /
+        ``PADDLE_TPU_PEAK_GBPS`` (the H100's). A walk over the declared
+        Variable shapes: no emitter runs."""
+        from ..analysis.cost import estimate_program
+
+        return estimate_program(
+            self, feed_shapes=feed_shapes, peak_tflops=peak_tflops,
+            peak_gbps=peak_gbps,
+        )
+
     @property
     def global_block(self):
         return self.blocks[0]

@@ -99,12 +99,14 @@ class OpView:
     """Stand-in for an Operator when a grad op replays its forward op's
     emitter: the same attrs, so the same `__uid__` and random stream.
     The eager tracer (dygraph/tracer.py) runs ops through it too, with
-    `outputs` naming the output slots an emitter is asked for."""
+    `outputs` naming the output slots an emitter is asked for; the
+    program analyses (analysis/) name its `inputs` as well."""
 
-    def __init__(self, op_type, attrs, outputs=None):
+    def __init__(self, op_type, attrs, outputs=None, inputs=None):
         self.type = op_type
         self.attrs = dict(attrs or {})
         self.outputs = dict(outputs or {})
+        self.inputs = dict(inputs or {})
 
     @property
     def uid(self):

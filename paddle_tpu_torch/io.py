@@ -467,6 +467,7 @@ def _jax_fields(obj):
     neutral values the translation drops)."""
     state = dict(obj.__dict__)
     if isinstance(obj, Program):
+        state.pop("_verify_cache", None)  # the verifier's reports
         if state.get("_mesh") is not None or state.get("_sharding"):
             raise UnimplementedError(
                 "a program with a mesh (_mesh, _sharding: shard_program) "

@@ -1,5 +1,5 @@
-"""Metric primitives: counters, gauges, histograms (counterpart of
-paddle_tpu/observability/metrics.py).
+"""Metric primitives: counters, gauges, histograms, tables and timers
+(counterpart of paddle_tpu/observability/metrics.py).
 
 The registry is process-global and thread-safe (one lock; every public
 entry point is a handful of dict ops under it). It is on by default;
@@ -10,8 +10,10 @@ early-return no-op (``set_enabled`` flips it at run time, and
 Histograms follow the Prometheus model: fixed upper-bound buckets plus
 count and sum, with min and max. Bucket edges are inclusive (``value <=
 le`` lands in the ``le`` bucket); a read gives cumulative bucket counts.
-The JAX package's tables, timers and windowed quantiles come with the
-rest of the observability layer (ROADMAP Queue 1 item 8).
+Tables are plain-JSON dicts, last value wins: the executor publishes its
+per-op cost attribution as ``perf.cost_table``. The JAX package's
+windowed quantiles come with the rest of the observability layer
+(ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import bisect
 import os
 import threading
+import time
 
 # latency-oriented default edges, in seconds
 DEFAULT_BUCKETS = (
@@ -38,6 +41,9 @@ _lock = threading.Lock()
 _counters: dict[str, int] = {}
 _gauges: dict[str, float] = {}
 _histograms: dict[str, "_Histogram"] = {}
+# structured tables (plain-JSON dicts, last value wins): what a scalar
+# cannot carry, such as the executor's per-op cost table
+_tables: dict[str, dict] = {}
 
 
 def enabled() -> bool:
@@ -112,6 +118,58 @@ def observe(name: str, value: float, buckets=None) -> None:
         h.observe(float(value))
 
 
+def drop_gauges(prefix: str) -> None:
+    """Remove every gauge whose name starts with `prefix`. For publishers
+    whose gauge set varies with the source (the executor's per-op-family
+    ``perf.family_time.*``): dropping before publishing again keeps the
+    gauges of a previous plan from surviving as stale."""
+    with _lock:
+        for k in [k for k in _gauges if k.startswith(prefix)]:
+            del _gauges[k]
+
+
+def set_table(name: str, table: dict) -> None:
+    """Publish the structured table `name` (plain JSON types; last value
+    wins; snapshots carry it under "tables")."""
+    if not _enabled:
+        return
+    with _lock:
+        _tables[name] = table
+
+
+def drop_tables(prefix: str) -> None:
+    """Remove every table whose name starts with `prefix`, the table
+    analogue of :func:`drop_gauges`."""
+    with _lock:
+        for k in [k for k in _tables if k.startswith(prefix)]:
+            del _tables[k]
+
+
+class _Timed:
+    """Context manager: wall time -> histogram `name`."""
+
+    __slots__ = ("name", "buckets", "_t0")
+
+    def __init__(self, name, buckets=None):
+        self.name = name
+        self.buckets = buckets
+        self._t0 = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter() if _enabled else None
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0 is not None:
+            observe(self.name, time.perf_counter() - self._t0, self.buckets)
+        return False
+
+
+def timed(name: str, buckets=None) -> _Timed:
+    """``with timed("analysis.verify_latency"): ...``"""
+    return _Timed(name, buckets)
+
+
 # -- read side --------------------------------------------------------------
 def get_counters() -> dict[str, int]:
     with _lock:
@@ -128,8 +186,14 @@ def get_histograms() -> dict[str, dict]:
         return {k: h.to_dict() for k, h in _histograms.items()}
 
 
+def get_tables() -> dict[str, dict]:
+    with _lock:
+        return dict(_tables)
+
+
 def reset() -> None:
     with _lock:
         _counters.clear()
         _gauges.clear()
         _histograms.clear()
+        _tables.clear()

@@ -63,6 +63,11 @@ def get_spans() -> list[dict]:
         return list(_spans)
 
 
+def span_count() -> int:
+    with _lock:
+        return len(_spans)
+
+
 def reset() -> None:
     with _lock:
         _spans.clear()

@@ -239,6 +239,10 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
         import paddle_tpu_torch.dygraph.parallel
         import paddle_tpu_torch.dygraph.checkpoint
         import paddle_tpu_torch.dygraph.learning_rate_scheduler
+        import paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.cost
+        import paddle_tpu_torch.analysis.memory
+        import paddle_tpu_torch.analysis.verify
+        import paddle_tpu_torch.observability.export
         sys.path.insert(0, "tests")
         import torch_sp_worker  # the multi-rank tests' rank processes
         bad = [m for m in sys.modules

@@ -174,7 +174,12 @@ def test_trace_counters_count_each_first_run_once():
     """embedding.fused_lookup_{sites,tables} count once per executor
     cache entry (program, version, feed signature, fetch set), where the
     JAX package counts once per trace; the __vjp__ replay and later runs
-    count nothing."""
+    count nothing. (The executor's other counters, analysis.* and
+    perf.*, count each run and plan too: only embedding.* is read.)"""
+    def counters():
+        return {k: v for k, v in observability.get_counters().items()
+                if k.startswith("embedding.")}
+
     main, startup, _, loss = build(PORT, "fused", True)
     scope, exe = tf.Scope(), tf.Executor(tf.CPUPlace())
     exe.run(startup, scope=scope)
@@ -183,7 +188,7 @@ def test_trace_counters_count_each_first_run_once():
         exe.run(main, feed=feed("fused"), fetch_list=[loss], scope=scope)
     want = {"embedding.fused_lookup_sites": 1,
             "embedding.fused_lookup_tables": 2}
-    assert observability.get_counters() == want
+    assert counters() == want
     # PADDLE_TPU_MONITOR=0's switch: a new executor's first run counts
     # nothing while it is off
     observability.set_enabled(False)
@@ -192,8 +197,7 @@ def test_trace_counters_count_each_first_run_once():
                                        fetch_list=[loss], scope=scope)
     finally:
         observability.set_enabled(None)
-    assert observability.get_counters() == want
+    assert counters() == want
     # another fetch set is another cache entry: a trace of its own
     exe.run(main, feed=feed("fused"), fetch_list=[], scope=scope)
-    assert observability.get_counters() == {
-        k: 2 * v for k, v in want.items()}
+    assert counters() == {k: 2 * v for k, v in want.items()}

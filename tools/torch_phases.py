@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """One section of chip_smoke.py's phases alone, on one CUDA card, for
-iterating on a slice without the whole script. Only the dygraph and
-optim sections run kernels of ours; they build them first (all sources
-at once).
+iterating on a slice without the whole script. Only the dygraph, optim
+and gpt_long sections run kernels of ours; they build them first (all
+sources at once).
 
     cd <checkout> && python3 tools/torch_phases.py \
-        yolov3|ctr|mask_rcnn|dygraph|optim
+        yolov3|ctr|mask_rcnn|dygraph|optim|gpt_long
 
 yolov3: the reduced training step against the CPU (yolov3_train_small),
 bench_yolov3's AMP step at the paper's width (yolov3_train_full) and the
@@ -38,12 +38,18 @@ L2Decay under piecewise_decay, card vs CPU (optim_train_small); every
 optimizer, averager and static schedule on fit-a-line, card vs CPU
 (optim_zoo).
 
+gpt_long: bench.py's accelerator legs gpt_s4096 and gpt_s8192: #7-#9
+against their plain versions at the legs' shapes (long_parity), each leg
+(gpt_long_leg), then the three kernels' times at those shapes
+(long_kernel_times), printed as chip_smoke.py's kernels line.
+
 Imports the port and chip_smoke.py from the current directory, turns
 TF32 off as chip_smoke.py does, runs each phase in turn (a failed phase
 is reported and the next one runs), prints each phase's time and exits
 non-zero if any failed.
 """
 
+import json
 import sys
 import time
 
@@ -101,6 +107,27 @@ def _optim_sections():
 
 
 SECTIONS["optim"] = _optim_sections()
+
+
+def _gpt_long_sections():
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_tiled as ft
+
+    errs, launches = {}, {}
+
+    def leg(B, S):
+        def run(fluid, kc):
+            launches[f"gpt_s{S}"] = cs.gpt_long_leg(fluid, kc, B, S)
+        return run
+
+    return (("build", lambda fluid, kc: _build.build()),
+            ("parity", lambda fluid, kc: errs.update(cs.long_parity(ft))),
+            *((f"s{S}", leg(B, S)) for B, S in cs.GPT_LONG_LEGS),
+            ("kernels", lambda fluid, kc: print(json.dumps({
+                "kernels": cs.long_kernel_times(ft, errs, launches)}))))
+
+
+SECTIONS["gpt_long"] = _gpt_long_sections()
 
 
 def main(argv):
